@@ -1,0 +1,325 @@
+"""`run_scenario`: one entry point for a sync synthetic MMFL run.
+
+The port's counterpart of the JAX package's ``api/engine.py``. A
+``ScenarioSpec`` resolves through the registries to the synthetic task
+family and the sync lockstep round loop, and returns the same
+``RunResult`` as the reference. Spec features that this slice has not
+ported raise ``NotImplementedError`` naming the ROADMAP item that brings
+them; none is ignored.
+
+    result = run_scenario(ScenarioSpec(tasks=[TaskSpec("synth-mnist")]))
+    result.fairness["min_acc"], result.to_json()
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Protocol
+
+import numpy as np
+
+from repro_torch.api.policy import LEGACY_POLICIES, policy_from_spec
+from repro_torch.api.registry import (
+    AGGREGATORS,
+    ALLOCATORS,
+    BACKENDS,
+    COST_MODELS,
+    POLICIES,
+    TASK_FAMILIES,
+    register_task_family,
+)
+from repro_torch.api.spec import ScenarioSpec
+from repro_torch.core.fairness import fairness_report, time_to_accuracy_report
+from repro_torch.device import resolve_device
+from repro_torch.fed.data import _RECIPES, make_synthetic_task, task_seed
+from repro_torch.fed.trainer import MMFLTrainer, TrainConfig
+
+
+@dataclass
+class RunResult:
+    """What a scenario run returns.
+
+    ``loss`` is the per-eval prevailing f_s curve (1 - accuracy for
+    synthetic tasks); ``acc`` the accuracy curve. ``params`` are the final
+    per-task models, as tensors on the run's device.
+    """
+
+    scenario: str
+    mode: str
+    task_names: List[str]
+    loss: np.ndarray  # (T, S)
+    acc: Optional[np.ndarray]  # (T, S) or None
+    arrivals: np.ndarray  # (S,) total client updates per task
+    alloc_counts: Optional[np.ndarray] = None  # (T, S) sync per-round
+    time: Optional[np.ndarray] = None  # (T,) async virtual times
+    virtual_time: float = 0.0
+    wall_time: float = 0.0
+    fairness: Dict[str, Any] = field(default_factory=dict)
+    spec: Optional[ScenarioSpec] = None
+    alloc: Optional[np.ndarray] = None  # sync (T, K) assignment trace
+    assignments: Optional[List] = None
+    staleness_mean: Optional[np.ndarray] = None
+    versions: Optional[np.ndarray] = None
+    buffer_sizes: Optional[np.ndarray] = None
+    dropped: int = 0
+    # (T,) cumulative per-round simulated clock (round time = max over
+    # cohort latencies)
+    wall_clock_sim: Optional[np.ndarray] = None
+    cost_dropouts: int = 0
+    auction: Optional[Dict[str, Any]] = None
+    params: Optional[List] = None  # final per-task model pytrees
+
+    def __post_init__(self):
+        if not self.fairness:
+            self.fairness = self._fairness()
+
+    def _fairness(self) -> Dict[str, Any]:
+        if self.acc is not None and len(self.acc):
+            rep = fairness_report(self.acc[-1])
+            rep["worst_task"] = self.task_names[int(np.argmin(self.acc[-1]))]
+            return rep
+        if len(self.loss) == 0:
+            return {}
+        last = np.asarray(self.loss[-1], np.float64)
+        return {
+            "min_loss": float(last.min()),
+            "max_loss": float(last.max()),
+            "mean_loss": float(last.mean()),
+            "var_loss": float(last.var()),
+            "worst_task": self.task_names[int(np.argmax(last))],
+        }
+
+    @property
+    def min_acc(self) -> np.ndarray:
+        if self.acc is None:
+            raise ValueError("this task family does not define accuracy")
+        return self.acc.min(axis=1)
+
+    @property
+    def var_acc(self) -> np.ndarray:
+        if self.acc is None:
+            raise ValueError("this task family does not define accuracy")
+        return self.acc.var(axis=1)
+
+    def time_to_accuracy(self, target: float) -> Dict[str, Any]:
+        """Per-task simulated time to first reach ``target`` accuracy plus
+        the cross-task spread (``core.fairness.time_to_accuracy_report``),
+        on the cost-model clock (the round index when there is none)."""
+        if self.acc is None:
+            raise ValueError("this task family does not define accuracy")
+        times = self.wall_clock_sim
+        if times is None:
+            times = self.time
+        if times is None:
+            times = np.arange(1, len(self.acc) + 1, dtype=np.float64)
+        return time_to_accuracy_report(times, self.acc, target, self.task_names)
+
+    @property
+    def final_loss(self) -> Dict[str, float]:
+        if len(self.loss) == 0:
+            return {}
+        return {n: float(v) for n, v in zip(self.task_names, self.loss[-1])}
+
+    def to_json(self) -> Dict[str, Any]:
+        """JSON-native summary (curves + fairness)."""
+
+        def arr(a):
+            return None if a is None else np.asarray(a).tolist()
+
+        out = {
+            "scenario": self.scenario,
+            "mode": self.mode,
+            "task_names": list(self.task_names),
+            "loss": arr(self.loss),
+            "acc": arr(self.acc),
+            "time": arr(self.time),
+            "arrivals": arr(self.arrivals),
+            "alloc_counts": arr(self.alloc_counts),
+            "virtual_time": float(self.virtual_time),
+            "wall_time": float(self.wall_time),
+            "wall_clock_sim": arr(self.wall_clock_sim),
+            "dropped": int(self.dropped),
+            "cost_dropouts": int(self.cost_dropouts),
+            "versions": arr(self.versions),
+            "buffer_sizes": arr(self.buffer_sizes),
+            "final_buffer_sizes": (
+                None
+                if self.buffer_sizes is None or not len(self.buffer_sizes)
+                else np.asarray(self.buffer_sizes)[-1].tolist()
+            ),
+            "fairness": self.fairness,
+            "final_loss": self.final_loss,
+        }
+        if self.auction is not None:
+            out["auction"] = self.auction
+        if self.spec is not None:
+            out["spec"] = self.spec.to_dict()
+        return out
+
+
+class Engine(Protocol):
+    """What a runtime looks like to a caller: build from a spec, run, get
+    a RunResult."""
+
+    def run(self, verbose: bool = False) -> RunResult: ...
+
+
+def _train_config(spec: ScenarioSpec) -> TrainConfig:
+    rt, pop, al = spec.runtime, spec.clients, spec.allocation
+    return TrainConfig(
+        rounds=rt.rounds,
+        alpha=al.alpha,
+        participation=pop.participation,
+        tau=rt.tau,
+        lr=rt.lr,
+        batch_size=rt.batch_size,
+        hidden=rt.hidden,
+        depth=rt.depth,
+        strategy=ALLOCATORS.get(al.strategy),
+        seed=spec.seed,
+        dropout_prob=pop.dropout_prob,
+        deep_for=tuple(rt.deep_for),
+        deep_depth=rt.deep_depth,
+        backend=rt.backend,
+        policy=policy_from_spec(spec.policy, al.strategy),
+        aggregator=rt.aggregator,
+        aggregator_options=dict(rt.aggregator_options),
+        cost_model=rt.cost_model,
+        cost_model_options=dict(rt.cost_model_options),
+    )
+
+
+class SyncFedEngine:
+    """The sync lockstep round loop (``MMFLTrainer``) behind the Engine
+    protocol."""
+
+    def __init__(self, spec: ScenarioSpec, tasks, device=None):
+        self.spec = spec
+        self.trainer = MMFLTrainer(tasks, _train_config(spec), device=device)
+
+    def run(self, verbose: bool = False) -> RunResult:
+        h = self.trainer.run(verbose=verbose)
+        return RunResult(
+            scenario=self.spec.name,
+            mode="sync",
+            task_names=[t.name for t in self.trainer.tasks],
+            loss=np.maximum(1.0 - h.acc, 1e-6),
+            acc=h.acc,
+            arrivals=h.alloc_counts.sum(axis=0),
+            alloc_counts=h.alloc_counts,
+            alloc=h.alloc,
+            wall_clock_sim=h.wall_clock_sim,
+            spec=self.spec,
+            params=self.trainer.params,
+        )
+
+
+@register_task_family("synthetic")
+class SyntheticFamily:
+    """Class-conditional Gaussian FedTasks (``fed.data``). TaskSpec
+    options: any ``make_synthetic_task`` kwarg (``n_range``, ``non_iid``,
+    recipe overrides). Seeding matches the reference exactly."""
+
+    def build_tasks(self, spec: ScenarioSpec):
+        tasks = []
+        for i, ts in enumerate(spec.tasks):
+            base = ts.name.split("#")[0]
+            if base not in _RECIPES:
+                recipes = ", ".join(sorted(_RECIPES))
+                raise KeyError(f"unknown synthetic task {ts.name!r}; recipes: {recipes}")
+            kw = dict(_RECIPES[base])
+            kw.update(ts.options)
+            if "n_range" in kw:
+                kw["n_range"] = tuple(kw["n_range"])
+            tasks.append(make_synthetic_task(task_seed(spec.data_seed, i), ts.name,
+                                             spec.clients.n_clients, **kw))
+        return tasks
+
+    def sync_engine(self, spec: ScenarioSpec, device=None) -> Engine:
+        return SyncFedEngine(spec, self.build_tasks(spec), device)
+
+
+def _unported(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to repro_torch yet (ROADMAP.md queue 1, {item})")
+
+
+def _require_ported(spec: ScenarioSpec) -> None:
+    """Refuse every spec feature this slice has not ported."""
+    rt = spec.runtime
+    if spec.family == "arch":
+        raise _unported("the 'arch' task family", "items 10-12: models and arch runtime")
+    if rt.mode == "async":
+        raise _unported("mode='async'", "item 6: async slice")
+    if spec.auction is not None:
+        raise _unported("an auction", "item 3: core/auctions.py and the incentives")
+    if spec.clients.population is not None:
+        raise _unported("a client population", "item 7: population")
+    if rt.checkpoint_dir is not None:
+        raise _unported("checkpoint_dir", "item 8: checkpointing")
+    if rt.backend == "sharded":
+        raise _unported("the 'sharded' backend", "item 14: multi-GPU")
+    if rt.cost_model not in (None, "constant"):
+        raise _unported(f"cost_model {rt.cost_model!r}", "item 3: api/costmodel.py")
+    if rt.aggregator not in (None, "fedavg"):
+        raise _unported(f"aggregator {rt.aggregator!r}", "item 5: the aggregator axis")
+    if spec.policy is not None and spec.policy.name not in LEGACY_POLICIES:
+        raise _unported(f"policy {spec.policy.name!r}", "item 3: api/policy.py")
+
+
+def _require_named_options(spec: ScenarioSpec) -> None:
+    """Options make sense only once an entry is named; silently ignoring
+    them would hide typos."""
+    rt = spec.runtime
+    axes = [
+        ("runtime", "aggregator", rt.aggregator, rt.aggregator_options, "fedadam"),
+        ("runtime", "buffer_controller", rt.buffer_controller,
+         rt.buffer_controller_options, "staleness_target"),
+        ("runtime", "cost_model", rt.cost_model, rt.cost_model_options, "device_tiers"),
+        ("clients", "population", spec.clients.population,
+         spec.clients.population_options, "vectorized"),
+    ]
+    for scope, axis, name, options, example in axes:
+        if name is None and options:
+            article = "an" if axis[0] in "aeiou" else "a"
+            raise ValueError(
+                f"{scope}.{axis}_options were given without {article} "
+                f"{axis}; name one (e.g. {example!r}) or drop the "
+                "options")
+
+
+def run_scenario(spec: ScenarioSpec, verbose: bool = False, device=None) -> RunResult:
+    """Build and run the scenario described by ``spec`` on ``device``
+    (``None`` means CUDA; without a card that raises unless the caller
+    passes ``device="cpu"``).
+
+    Resolves every registry key up front, so typos fail fast with the
+    valid names, and refuses features this slice has not ported.
+    """
+    dev = resolve_device(device)
+    # snapshot: the RunResult's provenance record must not change if the
+    # caller mutates the spec after the run
+    spec = copy.deepcopy(spec)
+    _require_ported(spec)
+    family = TASK_FAMILIES.get(spec.family)()
+    ALLOCATORS.get(spec.allocation.strategy)
+    if spec.policy is not None:
+        POLICIES.get(spec.policy.name)
+    BACKENDS.get(spec.runtime.backend)
+    if spec.runtime.buffer_controller is not None:
+        raise ValueError(
+            f"buffer_controller {spec.runtime.buffer_controller!r} only applies to "
+            "mode='async' (sync rounds have no arrival buffers); drop it or "
+            "switch the runtime mode")
+    if spec.runtime.aggregator is not None:
+        AGGREGATORS.get(spec.runtime.aggregator)
+    if spec.runtime.cost_model is not None:
+        COST_MODELS.get(spec.runtime.cost_model)
+    _require_named_options(spec)
+    engine = family.sync_engine(spec, dev)
+    t0 = time.time()
+    result = engine.run(verbose=verbose)
+    result.wall_time = time.time() - t0
+    return result

@@ -1,0 +1,152 @@
+"""JAX-compatible threefry2x32 keys and draws, in PyTorch integer arithmetic.
+
+The JAX package derives every random stream of a sync run from
+``jax.random`` keys: client keys are ``fold_in(task_round_key, client_id)``,
+``local_update`` draws its minibatch indices with ``randint`` from
+``split(key, tau)``, and ``init_mlp`` draws weights with ``split`` and
+``normal``. Reproducing those streams bit for bit is what makes a port run
+comparable with a reference run trace for trace.
+
+This module reimplements the threefry2x32 PRNG as JAX 0.9 computes it with
+``jax_threefry_partitionable=True`` (the default): ``PRNGKey``, ``fold_in``,
+``split``, 32-bit ``random_bits``, ``randint`` and ``normal``. A key is an
+int64 tensor whose last axis holds the two uint32 words; every uint32 value
+is carried in int64 and wrapped with ``& 0xFFFFFFFF``. All functions
+broadcast over leading key axes, so a cohort of keys is one call. They run
+on whatever device the key tensor lies on.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+IntLike = Union[int, torch.Tensor]
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & MASK
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2**32 for uint32 values held in int64, without ever
+    forming a product that overflows int64."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 block cipher (20 rounds), elementwise over
+    broadcast uint32 operands. Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x1 + ks[0]) & MASK
+    x1 = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 64-bit mode off: the seed is
+    reduced to 32 bits and the key is ``[0, seed mod 2**32]``."""
+    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64, device=device)
+
+
+def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
+    """``jax.random.fold_in``: key (..., 2), data an int or an integer
+    tensor that broadcasts against ``key[..., 0]``."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
+    o0, o1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
+    return torch.stack([o0, o1], dim=-1)
+
+
+def _counts(n: int, device) -> tuple:
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return idx >> 32, idx & MASK
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: key (..., 2) -> (..., num, 2)."""
+    hi, lo = _counts(num, key.device)
+    b0, b1 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)``: key (..., 2) ->
+    (..., *shape) uint32 values in int64."""
+    shape = tuple(int(s) for s in shape)
+    hi, lo = _counts(math.prod(shape), key.device)
+    b0, b1 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    return (b0 ^ b1).reshape(*key.shape[:-1], *shape)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for the default
+    int32 dtype: two 32-bit draws folded into ``[minval, maxval)``
+    exactly as ``jax._src.random._randint`` does. Returns int64."""
+    i32 = np.iinfo(np.int32)
+    minval = min(max(int(minval), i32.min), i32.max)
+    maxval = min(max(int(maxval), i32.min), i32.max)
+    keys = split(key, 2)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    # uint32 arithmetic: (2**16)**2 wraps to 0 when span > 2**16
+    multiplier = ((2**16 % span) ** 2 & MASK) % span
+    mult = torch.tensor(multiplier, dtype=torch.int64, device=key.device)
+    offset = (_mul32(higher % span, mult) + lower % span) & MASK
+    return minval + offset % span
+
+
+# float32 constants of jax._src.random._normal_real / _uniform
+_LO = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+_HI = np.float32(1.0)
+_SQRT2 = np.float32(np.sqrt(2))
+
+# Giles' single-precision erfinv coefficients, the float32 erf_inv that
+# XLA lowers jax.lax.erf_inv to: (w < 5 branch, w >= 5 branch)
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.zeros_like(x)
+    for cs, cl in zip(_ERFINV_SMALL, _ERFINV_LARGE):
+        c = torch.where(small, torch.tensor(cs, dtype=x.dtype, device=x.device),
+                        torch.tensor(cl, dtype=x.dtype, device=x.device))
+        p = c + p * w
+    return p * x
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits."""
+    bits = random_bits(key, shape)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` with u
+    uniform on ``(nextafter(-1, 0), 1)``."""
+    u = uniform(key, shape, float(_LO), float(_HI))
+    return _SQRT2.item() * _erfinv_f32(u)

@@ -1,0 +1,91 @@
+"""repro_torch.prng against jax.random (threefry2x32, partitionable):
+keys, fold_in, split, random_bits and randint bit for bit; normal within
+1e-6 (the two erfinv implementations round differently)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import prng
+
+SEEDS = [0, 1, 42, 123456789, 2**31 - 1, 2**31, -1]
+
+
+def _np(t):
+    return t.cpu().numpy()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prngkey_matches(seed):
+    np.testing.assert_array_equal(_np(prng.PRNGKey(seed)), np.asarray(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_matches(seed):
+    for data in [0, 1, 7, 99999, 2**31, 2**32 - 1]:
+        got = _np(prng.fold_in(prng.PRNGKey(seed), data))
+        want = np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed), data))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_fold_in_batched_client_ids():
+    """The trainer's per-client keys: fold_in(task_round_key, ids) in one call."""
+    from repro.fed.trainer import task_round_key as jax_key
+    from repro_torch.fed.trainer import task_round_key
+
+    ids = np.array([0, 3, 5, 11, 39])
+    got = _np(prng.fold_in(task_round_key(7, 2, 13), torch.from_numpy(ids)))
+    want = np.asarray(jax.vmap(lambda c: jax.random.fold_in(jax_key(7, 2, 13), c))(
+        jnp.asarray(ids)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [1, 2, 3, 5, 32])
+def test_split_matches(seed, num):
+    got = _np(prng.split(prng.PRNGKey(seed), num))
+    want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("shape", [(1,), (5,), (3, 4), (32,), (2, 3, 7)])
+def test_random_bits_match(seed, shape):
+    got = _np(prng.random_bits(prng.PRNGKey(seed), shape))
+    want = np.asarray(jax.random.bits(jax.random.PRNGKey(seed), shape, jnp.uint32))
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("lo,hi", [(0, 1), (0, 2), (0, 60), (0, 150), (0, 250), (-5, 5),
+                                   (3, 3), (0, 70000), (0, 2**31 - 1), (-2**31, 2**31 - 1)])
+def test_randint_matches(seed, lo, hi):
+    for shape in [(32,), (4, 8)]:
+        got = _np(prng.randint(prng.PRNGKey(seed), shape, lo, hi))
+        want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), shape, lo, hi))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("tau,batch,n", [(1, 32, 60), (3, 32, 150), (5, 16, 250)])
+def test_local_update_index_stream_matches(tau, batch, n):
+    """local_update's draws: randint(split(key, tau)[t], (batch,), 0, n),
+    for a cohort of client keys at once."""
+    from repro_torch.fed.client import minibatch_indices
+
+    base = jax.random.fold_in(jax.random.PRNGKey(3), 1)
+    ids = jnp.arange(6)
+    jkeys = jax.vmap(lambda c: jax.random.fold_in(base, c))(ids)
+    want = jax.vmap(lambda k: jax.vmap(
+        lambda kt: jax.random.randint(kt, (batch,), 0, n))(jax.random.split(k, tau)))(jkeys)
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(3), 1), torch.arange(6))
+    np.testing.assert_array_equal(_np(minibatch_indices(keys, tau, batch, n)), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("shape", [(16, 64), (64, 10), (48, 64)])
+def test_normal_close(seed, shape):
+    got = _np(prng.normal(prng.PRNGKey(seed), shape))
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
