@@ -10,17 +10,31 @@ printed only when every phase passed:
    build of every kernel from the sources in this checkout (sm_90a), and
    TF32 switched off for matmul and cuDNN.
 2. Kernels against their plain versions on the card: fedavg at the main
-   path's fold shapes and at an LM-scale fold, f32 and bf16, with times
+   paths' fold shapes (the sync folds and the async slice's K=4 flushes)
+   and at an LM-scale fold, f32 and bf16, with times
    (CUDA events, median of 20; at the main path's small shapes also as
    device time inside a CUDA graph) beside the memory bound, the plain
    version and one PyTorch call that computes the same function.
-3. The slice: ``repro_torch.api.run_scenario`` on the quickstart
+3. The sync slice: ``repro_torch.api.run_scenario`` on the quickstart
    configuration (3 synthetic tasks, 40 clients, participation 0.2,
    tau=3, 25 rounds, alpha=3, vmap backend) on the card, with fedfair and
    random allocation. Every non-empty (round, task) fold must launch the
    fedavg kernel exactly once.
 4. Card against CPU: the same fedfair and round_robin runs on the CPU.
-5. A JSON line describing every kernel, the card line, and the final
+5. The fused_aggregate kernel against its plain version on the card, in
+   every mode, at the async slice's flush shapes and at an LM-scale flush
+   (rtol/atol 1e-6), with times beside the bytes bound of each mode, the
+   plain version and ``disc @ x`` (the one PyTorch call for the reduce
+   alone; it leaves out the discount and the moment update).
+6. The async slice: ``run_scenario`` with mode="async" (the quickstart's
+   tasks and clients, bimodal speeds with spread 4, buffer 4, beta 0.5,
+   tau 3, 200 arrivals, vmap backend) on the card, with fedadam (server lr
+   0.1, the repo's benchmark setting) and with the default fedavg. Every
+   flush must launch fused_aggregate (fedadam) or fedavg (fedavg) exactly
+   once. The fedadam run's final server moments must stay on the card.
+7. Card against CPU for async: the fedadam run with round_robin must give
+   identical event traces on both devices; fedfair is compared too.
+8. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Needs CUDA, nvcc (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``)
@@ -43,13 +57,21 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
-MAIN_K = (1, 3, 8, 16)
+MAIN_K = (1, 3, 4, 8, 16)           # sync cohorts; K=4 is the async slice's flush
 MAIN_N = (1738, 3786, 6922, 2049)   # synth-mnist, -fmnist, -cifar MLPs; a ragged N
-TIMED_MAIN = (8, 6922)              # the largest fold the slice makes
+TIMED_MAIN = (8, 6922)              # the largest fold the sync slice makes
 LM_K, LM_N = 8, 2**27               # about smollm-135m's parameter count
+KERNELS = ("fedavg", "fused_aggregate")
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 TASKS = ("synth-mnist", "synth-cifar", "synth-fmnist")
 ROUNDS = 25
+
+FUSED_K = (1, 3, 4, 8)
+FUSED_TIMED = (4, 6922)             # the largest flush the async slice makes
+FUSED_TOL = 1e-6                    # rtol and atol, as tests/test_aggregators.py
+FUSED_SCALARS = dict(beta=0.5, lr=1.0, beta1=0.9, beta2=0.99, eps=1e-3)
+ARRIVALS = 200
+SERVER_OPTIONS = {"fedadam": {"lr": 0.1}}   # benchmarks/experiments.py exp13
 
 
 def fail(msg: str) -> None:
@@ -112,17 +134,20 @@ def fold_bound_ms(K: int, N: int, in_bytes: int, out_bytes: int) -> tuple:
 def phase_card():
     import torch
 
-    from repro_torch.kernels.build import load
+    from repro_torch.kernels.build import load_all
 
     print("== phase 1: card")
     line = card_line()
     print(f"card: {line}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    built = load("fedavg")
-    print(f"nvcc build fedavg: {built.seconds:.2f} s -> {built.path.name}")
-    for ln in built.log.strip().splitlines():
-        print(f"  {ln}")
+    t0 = time.perf_counter()
+    for name, built in load_all(KERNELS).items():
+        print(f"nvcc build {name}: {built.seconds:.2f} s -> {built.path.name}")
+        for ln in built.log.strip().splitlines():
+            print(f"  {ln}")
+    print(f"all kernels built in {time.perf_counter() - t0:.2f} s (one nvcc per source, "
+          "started together)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -151,7 +176,7 @@ def phase_kernels():
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    timed = None
+    timed = {}
     for K in MAIN_K:
         for N in MAIN_N:
             x32, w = _fold_inputs(rng, K, N, dev)
@@ -165,22 +190,23 @@ def phase_kernels():
                 errs[name] = max(errs[name], err)
                 if not err <= TOL[name]:
                     fail(f"fedavg K={K} N={N} {name}: max |err| {err} > {TOL[name]}")
-            if (K, N) == TIMED_MAIN:
+            if (K, N) in (TIMED_MAIN, FUSED_TIMED):
                 bound, by = fold_bound_ms(K, N, 4, 4)
                 fns = {"": lambda: fedavg(x32, w), "plain_": lambda: ref_fedavg(x32, w),
                        "library_": lambda: w @ x32}
-                timed = {"bound_ms": bound, "bound_by": by}
+                rec = timed[(K, N)] = {"bound_ms": bound, "bound_by": by}
                 for key, fn in fns.items():
-                    timed[f"{key}ms"] = graph_ms(fn)
-                    timed[f"eager_{key}ms"] = time_ms(fn, inner=200)
+                    rec[f"{key}ms"] = graph_ms(fn)
+                    rec[f"eager_{key}ms"] = time_ms(fn, inner=200)
     print(f"main-path shapes K in {MAIN_K} x N in {MAIN_N}: max |err| "
           f"f32 {errs['float32']:.3g} (tol {TOL['float32']}), "
           f"bf16 {errs['bfloat16']:.3g} (tol {TOL['bfloat16']})")
-    print(f"main-path fold K={TIMED_MAIN[0]} N={TIMED_MAIN[1]} f32, device time (CUDA graph): "
-          f"kernel {timed['ms']:.5f} ms, plain {timed['plain_ms']:.5f} ms, library (w @ x) "
-          f"{timed['library_ms']:.5f} ms, bound {timed['bound_ms']:.6f} ms ({timed['bound_by']}); "
-          f"eager per call: kernel {timed['eager_ms']:.5f} ms, plain {timed['eager_plain_ms']:.5f} "
-          f"ms, library {timed['eager_library_ms']:.5f} ms")
+    for (K, N), rec in timed.items():
+        print(f"main-path fold K={K} N={N} f32, device time (CUDA graph): kernel "
+              f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.5f} ms, library (w @ x) "
+              f"{rec['library_ms']:.5f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); "
+              f"eager per call: kernel {rec['eager_ms']:.5f} ms, plain "
+              f"{rec['eager_plain_ms']:.5f} ms, library {rec['eager_library_ms']:.5f} ms")
 
     lm = {}
     t0 = time.perf_counter()
@@ -227,13 +253,12 @@ def quickstart_spec(strategy: str):
         runtime=RuntimeSpec(backend="vmap", rounds=ROUNDS, tau=3))
 
 
-def run_counted(strategy: str, device: str):
-    """One run of the slice with the launch counts set to 0 just before
-    it; returns the result and the counts read just after."""
+def run_counted(spec, device: str):
+    """One run of a slice with the launch counts set to 0 just before it;
+    returns the result and the counts read just after."""
     from repro_torch.api import run_scenario
     from repro_torch.kernels import LAUNCHES, reset_launches
 
-    spec = quickstart_spec(strategy)
     reset_launches()
     res = run_scenario(spec, device=device)
     return res, dict(LAUNCHES)
@@ -245,7 +270,7 @@ def phase_slice():
     print("== phase 3: the sync slice on the card (run_scenario, vmap backend)")
     runs = {}
     for strategy in ("fedfair", "random"):
-        res, launches = run_counted(strategy, "cuda")
+        res, launches = run_counted(quickstart_spec(strategy), "cuda")
         folds = int((res.alloc_counts > 0).sum())
         if launches.get("fedavg", 0) != folds:
             fail(f"{strategy}: fedavg launched {launches.get('fedavg', 0)} times for "
@@ -268,7 +293,7 @@ def phase_card_vs_cpu(gpu_fedfair):
     import numpy as np
 
     print("== phase 4: card vs CPU")
-    cpu, _ = run_counted("fedfair", "cpu")
+    cpu, _ = run_counted(quickstart_spec("fedfair"), "cpu")
     diff = np.abs(cpu.acc - gpu_fedfair.acc).max()
     differ = np.nonzero((cpu.alloc != gpu_fedfair.alloc).any(axis=1))[0]
     print(f"fedfair on the CPU: {ROUNDS / cpu.wall_time:.2f} rounds/s ({cpu.wall_time:.3f} s)")
@@ -276,14 +301,263 @@ def phase_card_vs_cpu(gpu_fedfair):
           + (f"first differ at round {int(differ[0])}" if len(differ) else "identical"))
     if not diff <= 0.01:
         fail(f"fedfair card vs CPU accuracy differs by {diff}")
-    rr_gpu, _ = run_counted("round_robin", "cuda")
-    rr_cpu, _ = run_counted("round_robin", "cpu")
+    rr_gpu, _ = run_counted(quickstart_spec("round_robin"), "cuda")
+    rr_cpu, _ = run_counted(quickstart_spec("round_robin"), "cpu")
     rr_diff = np.abs(rr_cpu.acc - rr_gpu.acc).max()
     same = bool((rr_cpu.alloc == rr_gpu.alloc).all())
     print(f"round_robin: allocation traces identical={same}, "
           f"max |acc card - acc cpu| {rr_diff:.6f}")
     if not same or not rr_diff <= 0.01:
         fail("round_robin card vs CPU disagree")
+
+
+def fused_bound_ms(K: int, N: int, mode: str) -> tuple:
+    """Least time for one fused flush: x, w and s read once, the moments
+    the mode reads read once, the update and the moments it writes written
+    once, at the data-sheet bandwidth; 2*K*N reduce flops plus a dozen per
+    column for the moments at the f32 rate. The larger wins."""
+    moments = {"fedavg": 0, "fedavgm": 1, "fedadam": 2, "fedyogi": 2}[mode]
+    nbytes = 4 * K * N + 8 * K + 4 * N * (1 + 2 * moments)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (2 * K * N + 12 * N) / PEAK_F32_FLOP_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _flush_inputs(gen, K, N, dev):
+    """Deltas, p_k-like weights, staleness 0..3, and moments with v > 0,
+    made on the card from a seeded generator."""
+    import torch
+
+    x = torch.randn(K, N, generator=gen, device=dev).mul_(0.1)
+    w = torch.rand(K, generator=gen, device=dev).mul_(0.9).add_(0.1)
+    s = torch.randint(0, 4, (K,), generator=gen, device=dev).float()
+    m = torch.randn(N, generator=gen, device=dev).mul_(0.01)
+    v = torch.rand(N, generator=gen, device=dev).mul_(1e-2).add_(1e-6)
+    return x, w, s, m, v
+
+
+def check_fused(x, w, s, m, v, mode: str, where: str) -> tuple:
+    """The kernel against its plain version at rtol/atol FUSED_TOL; returns
+    (max |err|, number of Yogi ties). Where v and d^2 agree to within the
+    reduce's rounding, Yogi's sign(v - d^2) may fall either way: there the
+    kernel's v' must be one of the three branches and its update must
+    follow from its own v'."""
+    import torch
+
+    from repro_torch.kernels import fused_aggregate
+    from repro_torch.kernels.ref import ref_fused_aggregate
+
+    norm = w.sum()
+    got = fused_aggregate(x, w, s, m, v, mode=mode, normalizer=float(norm), **FUSED_SCALARS)
+    want = ref_fused_aggregate(x, w, s, m, v, mode=mode, normalizer=norm, **FUSED_SCALARS)
+    torch.cuda.synchronize()
+    ties = torch.zeros_like(m, dtype=torch.bool)
+    if mode == "fedyogi":
+        sc = dict(FUSED_SCALARS, lr=1.0)
+        d2 = ref_fused_aggregate(x, w, s, m, v, mode="fedavg", normalizer=norm, **sc)[0] ** 2
+        ties = (v - d2).abs() <= 1e-5 * d2
+        step = (1.0 - FUSED_SCALARS["beta2"]) * d2
+        branch = torch.stack([v - step, v, v + step]).sub_(got[2]).abs_().amin(0)
+        follows = FUSED_SCALARS["lr"] * got[1] / (got[2].sqrt() + FUSED_SCALARS["eps"])
+        if not bool(((branch <= FUSED_TOL * (1 + v.abs())) | ~ties).all()) or not bool(
+                (((got[0] - follows).abs() <= FUSED_TOL * (1 + follows.abs())) | ~ties).all()):
+            fail(f"fused_aggregate {mode} {where}: a tie element took no branch of the sign")
+    err = 0.0
+    for name, g, r in zip(("update", "m", "v"), got, want):
+        if g.shape != r.shape or g.dtype != torch.float32 or g.device.type != "cuda":
+            fail(f"fused_aggregate {mode} {where} {name}: got {g.dtype} {tuple(g.shape)} "
+                 f"on {g.device}")
+        diff = (g - r).abs()
+        if name != "m":
+            diff.masked_fill_(ties, 0.0)
+        err = max(err, diff.max().item())
+        if not bool((diff <= FUSED_TOL + FUSED_TOL * r.abs()).all()):
+            fail(f"fused_aggregate {mode} {where} {name}: max |err| {diff.max().item()} "
+                 f"over rtol/atol {FUSED_TOL}")
+    return err, int(ties.sum())
+
+
+def phase_fused_kernel():
+    import torch
+
+    from repro_torch.kernels import FUSED_MODES, fused_aggregate
+    from repro_torch.kernels.ref import ref_fused_aggregate
+
+    print("== phase 5: fused_aggregate kernel vs plain version on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err, ties = 0.0, 0
+    timed = {}
+    for K in FUSED_K:
+        for N in MAIN_N:
+            inputs = _flush_inputs(gen, K, N, dev)
+            for mode in FUSED_MODES:
+                e, t = check_fused(*inputs, mode, f"K={K} N={N}")
+                err, ties = max(err, e), ties + t
+            if (K, N) != FUSED_TIMED:
+                continue
+            x, w, s, m, v = inputs
+            norm, norm_dev = float(w.sum()), w.sum()
+            disc = w * (1.0 + s) ** -FUSED_SCALARS["beta"] / norm_dev
+            for mode in FUSED_MODES:
+                def kernel(mode=mode):
+                    return fused_aggregate(x, w, s, m, v, mode=mode, normalizer=norm,
+                                           **FUSED_SCALARS)
+
+                def plain(mode=mode):
+                    return ref_fused_aggregate(x, w, s, m, v, mode=mode, normalizer=norm_dev,
+                                               **FUSED_SCALARS)
+
+                bound, by = fused_bound_ms(K, N, mode)
+                timed[mode] = {"ms": graph_ms(kernel), "eager_ms": time_ms(kernel, inner=200),
+                               "plain_ms": graph_ms(plain),
+                               "eager_plain_ms": time_ms(plain, inner=200),
+                               "bound_ms": bound, "bound_by": by}
+            reduce_ms = graph_ms(lambda: disc @ x)
+            reduce_eager_ms = time_ms(lambda: disc @ x, inner=200)
+    print(f"flush shapes K in {FUSED_K} x N in {MAIN_N}, all modes: max |err| {err:.3g} "
+          f"(rtol/atol {FUSED_TOL}), Yogi ties {ties}")
+    K, N = FUSED_TIMED
+    for mode, r in timed.items():
+        print(f"flush K={K} N={N} {mode}: device time (CUDA graph) kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); eager per "
+              f"call kernel {r['eager_ms']:.5f} ms, plain {r['eager_plain_ms']:.5f} ms")
+    print(f"flush K={K} N={N}: disc @ x (the reduce alone) {reduce_ms:.5f} ms device, "
+          f"{reduce_eager_ms:.5f} ms eager")
+
+    lm = {}
+    t0 = time.perf_counter()
+    x, w, s, m, v = _flush_inputs(gen, LM_K, LM_N, dev)
+    torch.cuda.synchronize()
+    print(f"LM-scale flush inputs K={LM_K} N={LM_N}: {time.perf_counter() - t0:.1f} s to make")
+    norm, norm_dev = float(w.sum()), w.sum()
+    disc = w * (1.0 + s) ** -FUSED_SCALARS["beta"] / norm_dev
+    lm_reduce_ms = time_ms(lambda: disc @ x)
+    for mode in FUSED_MODES:
+        e, t = check_fused(x, w, s, m, v, mode, "LM-scale")
+        err, ties = max(err, e), ties + t
+        bound, by = fused_bound_ms(LM_K, LM_N, mode)
+        rec = {
+            "ms": time_ms(lambda: fused_aggregate(x, w, s, m, v, mode=mode, normalizer=norm,
+                                                  **FUSED_SCALARS)),
+            "plain_ms": time_ms(lambda: ref_fused_aggregate(x, w, s, m, v, mode=mode,
+                                                            normalizer=norm_dev,
+                                                            **FUSED_SCALARS)),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": e, "yogi_ties": t,
+        }
+        lm[mode] = rec
+        print(f"LM-scale flush K={LM_K} N={LM_N} {mode}: kernel {rec['ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.1%} of the {by} bound {rec['bound_ms']:.4f} ms), "
+              f"plain {rec['plain_ms']:.4f} ms, max |err| {e:.3g}, Yogi ties {t}")
+    print(f"LM-scale flush: disc @ x (the reduce alone) {lm_reduce_ms:.4f} ms")
+    del x, m, v, disc
+    torch.cuda.empty_cache()
+    return err, ties, timed, (reduce_ms, reduce_eager_ms), lm, lm_reduce_ms
+
+
+def async_spec(aggregator, strategy: str = "fedfair"):
+    from repro_torch.api import (AllocationSpec, ClientPopulationSpec, RuntimeSpec,
+                                 ScenarioSpec, TaskSpec)
+
+    return ScenarioSpec(
+        name=f"async-{aggregator or 'fedavg'}-{strategy}",
+        seed=0,
+        tasks=[TaskSpec(t, options={"n_range": [100, 150]}) for t in TASKS],
+        clients=ClientPopulationSpec(n_clients=40, speed_profile="bimodal", speed_spread=4.0),
+        allocation=AllocationSpec(strategy=strategy, alpha=3.0),
+        runtime=RuntimeSpec(mode="async", backend="vmap", tau=3, total_arrivals=ARRIVALS,
+                            buffer_size=4, beta=0.5, aggregator=aggregator,
+                            aggregator_options=dict(SERVER_OPTIONS.get(aggregator, {}))))
+
+
+def _devices(tree) -> set:
+    from repro_torch.tree import tree_leaves
+
+    return {leaf.device.type for leaf in tree_leaves(tree)}
+
+
+def phase_async():
+    import numpy as np
+
+    print("== phase 6: the async slice on the card (run_scenario mode='async', vmap backend)")
+    runs = {}
+    for aggregator, kernel in (("fedadam", "fused_aggregate"), (None, "fedavg")):
+        name = aggregator or "fedavg"
+        res, launches = run_counted(async_spec(aggregator), "cuda")
+        flushes = len(res.time)
+        if flushes == 0 or launches != {kernel: flushes}:
+            fail(f"async {name}: launches {launches} for {flushes} flushes, expected "
+                 f"{kernel} once per flush")
+        if _devices(res.params) != {"cuda"}:
+            fail(f"async {name}: final params on {_devices(res.params)}")
+        if res.acc.shape != (flushes, len(TASKS)) or not np.isfinite(res.acc).all():
+            fail(f"async {name}: accuracy curve {res.acc.shape} not finite")
+        runs[name] = (res, launches)
+        print(f"async {name}: {flushes / res.wall_time:.2f} flushes/s ({flushes} flushes of "
+              f"{ARRIVALS} arrivals, {res.wall_time:.3f} s), {kernel} launches "
+              f"{launches[kernel]} = flushes, final acc "
+              + " ".join(f"{n}={a:.4f}" for n, a in zip(res.task_names, res.acc[-1]))
+              + f", min-acc {res.fairness['min_acc']:.4f}")
+    check_server_moments(runs["fedadam"][0])
+    return runs
+
+
+def check_server_moments(res) -> None:
+    """The fedadam run once more, through the synthetic family's async
+    engine so that the server moments can be read: the same event trace
+    as ``res``, and the moments on the card."""
+    import numpy as np
+
+    from repro_torch.api.registry import TASK_FAMILIES
+
+    runner = TASK_FAMILIES.get("synthetic")().async_engine(async_spec("fedadam"), "cuda")
+    again = runner.run()
+    moments = _devices(runner.engine._server_state)
+    if not np.array_equal(again.time, res.time) or moments != {"cuda"}:
+        fail(f"async fedadam through the engine: server moments on {moments}, trace "
+             f"{'equal to' if np.array_equal(again.time, res.time) else 'unlike'} run_scenario's")
+    print("async fedadam: the final server moments are on the card")
+
+
+def phase_async_card_vs_cpu(gpu_fedadam):
+    import numpy as np
+
+    print("== phase 7: async card vs CPU")
+    trace = ("time", "versions", "buffer_sizes")
+
+    def first_difference(a, b):
+        """(first flush whose time differs, first dispatch that differs)."""
+        n = min(len(a.time), len(b.time))
+        flush = np.nonzero(a.time[:n] != b.time[:n])[0]
+        flush = int(flush[0]) if len(flush) else (None if len(a.time) == len(b.time) else n)
+        dispatch = next((i for i, (x, y) in enumerate(zip(a.assignments, b.assignments))
+                         if x != y), None)
+        return flush, dispatch
+
+    cpu, _ = run_counted(async_spec("fedadam"), "cpu")
+    print(f"async fedadam on the CPU: {len(cpu.time) / cpu.wall_time:.2f} flushes/s "
+          f"({cpu.wall_time:.3f} s)")
+    same = (all(np.array_equal(getattr(cpu, k), getattr(gpu_fedadam, k)) for k in trace)
+            and cpu.assignments == gpu_fedadam.assignments)
+    if same:
+        diff = np.abs(cpu.acc - gpu_fedadam.acc).max()
+        print(f"fedadam fedfair: event traces identical, max |acc card - acc cpu| {diff:.6f}")
+    else:
+        diff = np.abs(cpu.acc[-1] - gpu_fedadam.acc[-1]).max()
+        flush, dispatch = first_difference(cpu, gpu_fedadam)
+        print(f"fedadam fedfair: event traces first differ at flush {flush} (dispatch "
+              f"{dispatch}); final max |acc card - acc cpu| {diff:.6f}")
+    if not diff <= 0.01:
+        fail(f"fedadam fedfair card vs CPU accuracy differs by {diff}")
+    rr_gpu, _ = run_counted(async_spec("fedadam", "round_robin"), "cuda")
+    rr_cpu, _ = run_counted(async_spec("fedadam", "round_robin"), "cpu")
+    same = (all(np.array_equal(getattr(rr_cpu, k), getattr(rr_gpu, k)) for k in trace)
+            and rr_cpu.assignments == rr_gpu.assignments)
+    rr_diff = np.abs(rr_cpu.acc - rr_gpu.acc).max() if same else float("inf")
+    print(f"fedadam round_robin: event traces identical={same}, "
+          f"max |acc card - acc cpu| {rr_diff:.6f}")
+    if not same or not rr_diff <= 0.01:
+        fail("fedadam round_robin card vs CPU disagree")
 
 
 def main() -> int:
@@ -297,20 +571,45 @@ def main() -> int:
     errs, timed, lm = phase_kernels()
     runs = phase_slice()
     phase_card_vs_cpu(runs["fedfair"][0])
-    kernel = {
+    f_err, f_ties, f_timed, f_reduce, f_lm, f_lm_reduce = phase_fused_kernel()
+    async_runs = phase_async()
+    phase_async_card_vs_cpu(async_runs["fedadam"][0])
+    fedavg = {
         "name": "fedavg",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg.cu",
         "replaces": "src/repro/kernels/fedavg.py:43",
         "launches": runs["fedfair"][1]["fedavg"],
+        "launches_async_fedavg": async_runs["fedavg"][1]["fedavg"],
         "max_abs_err": errs["float32"],
         "max_abs_err_bf16": errs["bfloat16"],
         "shape": list(TIMED_MAIN),
         "dtype": "float32",
-        **timed,
+        **timed[TIMED_MAIN],
+        "async_flush": {"shape": list(FUSED_TIMED), **timed[FUSED_TIMED]},
         "lm_scale": {"shape": [LM_K, LM_N], **lm},
     }
-    print(json.dumps({"kernels": [kernel]}))
+    fused = {
+        "name": "fused_aggregate",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_aggregate.cu",
+        "replaces": "src/repro/kernels/fedavg.py:145",
+        "launches": async_runs["fedadam"][1]["fused_aggregate"],
+        "max_abs_err": f_err,
+        "yogi_ties": f_ties,
+        "mode": "fedadam",
+        "shape": list(FUSED_TIMED),
+        "dtype": "float32",
+        **f_timed["fedadam"],
+        # no single PyTorch call computes the fused flush; disc @ x is the
+        # reduce alone, without the discount and the moment update
+        "library_ms": None,
+        "reduce_only_ms": f_reduce[0],
+        "eager_reduce_only_ms": f_reduce[1],
+        "modes": f_timed,
+        "lm_scale": {"shape": [LM_K, LM_N], "reduce_only_ms": f_lm_reduce, **f_lm},
+    }
+    print(json.dumps({"kernels": [fedavg, fused]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

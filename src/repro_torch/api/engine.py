@@ -1,11 +1,11 @@
-"""`run_scenario`: one entry point for a sync synthetic MMFL run.
+"""`run_scenario`: one entry point for a synthetic MMFL run, sync or async.
 
 The port's counterpart of the JAX package's ``api/engine.py``. A
 ``ScenarioSpec`` resolves through the registries to the synthetic task
-family and the sync lockstep round loop, and returns the same
-``RunResult`` as the reference. Spec features that this slice has not
-ported raise ``NotImplementedError`` naming the ROADMAP item that brings
-them; none is ignored.
+family and either the sync lockstep round loop or the async FedAST
+engine, and returns the same ``RunResult`` as the reference. Spec
+features that the port has not ported raise ``NotImplementedError``
+naming the ROADMAP item that brings them; none is ignored.
 
     result = run_scenario(ScenarioSpec(tasks=[TaskSpec("synth-mnist")]))
     result.fairness["min_acc"], result.to_json()
@@ -24,7 +24,9 @@ from repro_torch.api.policy import LEGACY_POLICIES, policy_from_spec
 from repro_torch.api.registry import (
     AGGREGATORS,
     ALLOCATORS,
+    ARRIVAL_PROCESSES,
     BACKENDS,
+    BUFFER_CONTROLLERS,
     COST_MODELS,
     POLICIES,
     TASK_FAMILIES,
@@ -33,6 +35,8 @@ from repro_torch.api.registry import (
 from repro_torch.api.spec import ScenarioSpec
 from repro_torch.core.fairness import fairness_report, time_to_accuracy_report
 from repro_torch.device import resolve_device
+from repro_torch.fed.async_engine import (AsyncConfig, AsyncMMFLEngine, FedAsyncTask,
+                                          _unported)
 from repro_torch.fed.data import _RECIPES, make_synthetic_task, task_seed
 from repro_torch.fed.trainer import MMFLTrainer, TrainConfig
 
@@ -191,6 +195,44 @@ def _train_config(spec: ScenarioSpec) -> TrainConfig:
     )
 
 
+def _async_config(spec: ScenarioSpec) -> AsyncConfig:
+    rt, pop, al = spec.runtime, spec.clients, spec.allocation
+    return AsyncConfig(
+        total_arrivals=rt.total_arrivals,
+        buffer_size=rt.buffer_size,
+        beta=rt.beta,
+        server_lr=rt.server_lr,
+        alpha=al.alpha,
+        strategy=ALLOCATORS.get(al.strategy),
+        speed_profile=pop.speed_profile,
+        speed_spread=pop.speed_spread,
+        slow_fraction=pop.slow_fraction,
+        arrival_process=pop.arrival_process,
+        arrival_options=dict(pop.arrival_options),
+        max_staleness=rt.max_staleness,
+        buffer_controller=rt.buffer_controller,
+        buffer_controller_options=dict(rt.buffer_controller_options),
+        aggregator=rt.aggregator,
+        aggregator_options=dict(rt.aggregator_options),
+        cost_model=rt.cost_model,
+        cost_model_options=dict(rt.cost_model_options),
+        population=pop.population,
+        population_options=dict(pop.population_options),
+        checkpoint_dir=rt.checkpoint_dir,
+        resume=rt.resume,
+        backend=rt.backend,
+        tau=rt.tau,
+        lr=rt.lr,
+        batch_size=rt.batch_size,
+        hidden=rt.hidden,
+        depth=rt.depth,
+        deep_for=tuple(rt.deep_for),
+        deep_depth=rt.deep_depth,
+        seed=spec.seed,
+        policy=policy_from_spec(spec.policy, al.strategy),
+    )
+
+
 class SyncFedEngine:
     """The sync lockstep round loop (``MMFLTrainer``) behind the Engine
     protocol."""
@@ -213,6 +255,37 @@ class SyncFedEngine:
             wall_clock_sim=h.wall_clock_sim,
             spec=self.spec,
             params=self.trainer.params,
+        )
+
+
+class AsyncEngineRunner:
+    """The async FedAST-style engine behind the Engine protocol."""
+
+    def __init__(self, spec: ScenarioSpec, engine: AsyncMMFLEngine, has_acc: bool):
+        self.spec = spec
+        self.engine = engine
+        self.has_acc = has_acc
+
+    def run(self, verbose: bool = False) -> RunResult:
+        h = self.engine.run(verbose=verbose)
+        return RunResult(
+            scenario=self.spec.name,
+            mode="async",
+            task_names=[t.name for t in self.engine.tasks],
+            loss=h.metric,
+            acc=h.acc if self.has_acc else None,
+            arrivals=h.arrivals,
+            time=h.time,
+            virtual_time=float(h.time[-1]) if len(h.time) else 0.0,
+            staleness_mean=h.staleness_mean,
+            versions=h.versions,
+            buffer_sizes=h.buffer_sizes,
+            dropped=h.dropped,
+            wall_clock_sim=h.wall_clock_sim,
+            cost_dropouts=h.cost_dropouts,
+            assignments=h.assignments,
+            spec=self.spec,
+            params=self.engine._params,
         )
 
 
@@ -240,19 +313,26 @@ class SyntheticFamily:
     def sync_engine(self, spec: ScenarioSpec, device=None) -> Engine:
         return SyncFedEngine(spec, self.build_tasks(spec), device)
 
+    def async_engine(self, spec: ScenarioSpec, device=None) -> Engine:
+        acfg = _async_config(spec)
+        adapters = [FedAsyncTask(t, s, acfg, device)
+                    for s, t in enumerate(self.build_tasks(spec))]
+        for a, ts in zip(adapters, spec.tasks):
+            a.work = ts.work
+        engine = AsyncMMFLEngine(adapters, acfg, device=device)
+        return AsyncEngineRunner(spec, engine, has_acc=True)
 
-def _unported(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP.md queue 1, {item})")
+
+# reference keys that the port does not register yet, with their ROADMAP item
+_UNPORTED_AGGREGATORS = ("fedmedian", "trimmed_mean", "qfedavg")
+_UNPORTED_COST_MODELS = ("lognormal_straggler", "trace_replay")
 
 
 def _require_ported(spec: ScenarioSpec) -> None:
-    """Refuse every spec feature this slice has not ported."""
+    """Refuse every spec feature the port has not ported."""
     rt = spec.runtime
     if spec.family == "arch":
         raise _unported("the 'arch' task family", "items 10-12: models and arch runtime")
-    if rt.mode == "async":
-        raise _unported("mode='async'", "item 6: async slice")
     if spec.auction is not None:
         raise _unported("an auction", "item 3: core/auctions.py and the incentives")
     if spec.clients.population is not None:
@@ -261,9 +341,9 @@ def _require_ported(spec: ScenarioSpec) -> None:
         raise _unported("checkpoint_dir", "item 8: checkpointing")
     if rt.backend == "sharded":
         raise _unported("the 'sharded' backend", "item 14: multi-GPU")
-    if rt.cost_model not in (None, "constant"):
+    if rt.cost_model in _UNPORTED_COST_MODELS:
         raise _unported(f"cost_model {rt.cost_model!r}", "item 3: api/costmodel.py")
-    if rt.aggregator not in (None, "fedavg"):
+    if rt.aggregator in _UNPORTED_AGGREGATORS:
         raise _unported(f"aggregator {rt.aggregator!r}", "item 5: the aggregator axis")
     if spec.policy is not None and spec.policy.name not in LEGACY_POLICIES:
         raise _unported(f"policy {spec.policy.name!r}", "item 3: api/policy.py")
@@ -296,7 +376,7 @@ def run_scenario(spec: ScenarioSpec, verbose: bool = False, device=None) -> RunR
     passes ``device="cpu"``).
 
     Resolves every registry key up front, so typos fail fast with the
-    valid names, and refuses features this slice has not ported.
+    valid names, and refuses features the port has not ported.
     """
     dev = resolve_device(device)
     # snapshot: the RunResult's provenance record must not change if the
@@ -307,18 +387,24 @@ def run_scenario(spec: ScenarioSpec, verbose: bool = False, device=None) -> RunR
     ALLOCATORS.get(spec.allocation.strategy)
     if spec.policy is not None:
         POLICIES.get(spec.policy.name)
+    ARRIVAL_PROCESSES.get(spec.clients.arrival_process)
     BACKENDS.get(spec.runtime.backend)
     if spec.runtime.buffer_controller is not None:
-        raise ValueError(
-            f"buffer_controller {spec.runtime.buffer_controller!r} only applies to "
-            "mode='async' (sync rounds have no arrival buffers); drop it or "
-            "switch the runtime mode")
+        BUFFER_CONTROLLERS.get(spec.runtime.buffer_controller)
+        if spec.runtime.mode == "sync":
+            raise ValueError(
+                f"buffer_controller {spec.runtime.buffer_controller!r} only applies to "
+                "mode='async' (sync rounds have no arrival buffers); drop it or "
+                "switch the runtime mode")
     if spec.runtime.aggregator is not None:
         AGGREGATORS.get(spec.runtime.aggregator)
     if spec.runtime.cost_model is not None:
         COST_MODELS.get(spec.runtime.cost_model)
     _require_named_options(spec)
-    engine = family.sync_engine(spec, dev)
+    if spec.runtime.mode == "sync":
+        engine = family.sync_engine(spec, dev)
+    else:
+        engine = family.async_engine(spec, dev)
     t0 = time.time()
     result = engine.run(verbose=verbose)
     result.wall_time = time.time() - t0

@@ -1,9 +1,9 @@
 """String-keyed extension registries for the port's scenario API.
 
 The same ``Registry`` class as the JAX package's ``api/registry.py``.
-Only the registries that the sync synthetic slice reads are defined here:
-allocators, task families, backends, policies, aggregators and cost
-models. This module imports nothing, so built-in implementations can
+Only the registries that the ported slices read are defined here:
+allocators, arrival processes, task families, backends, policies, buffer
+controllers, aggregators and cost models. This module imports nothing, so built-in implementations can
 self-register at import time without cycles.
 """
 
@@ -54,15 +54,19 @@ class Registry:
 
 
 ALLOCATORS = Registry("allocator")
+ARRIVAL_PROCESSES = Registry("arrival_process")
 TASK_FAMILIES = Registry("task_family")
 BACKENDS = Registry("backend")
 POLICIES = Registry("policy")
+BUFFER_CONTROLLERS = Registry("buffer_controller")
 AGGREGATORS = Registry("aggregator")
 COST_MODELS = Registry("cost_model")
 
 register_allocator = ALLOCATORS.register
+register_arrival_process = ARRIVAL_PROCESSES.register
 register_task_family = TASK_FAMILIES.register
 register_backend = BACKENDS.register
 register_policy = POLICIES.register
+register_buffer_controller = BUFFER_CONTROLLERS.register
 register_aggregator = AGGREGATORS.register
 register_cost_model = COST_MODELS.register

@@ -1,0 +1,483 @@
+"""Event-driven asynchronous MMFL engine (FedAST-style, staleness-aware).
+
+The port's counterpart of the JAX package's ``fed/async_engine.py``. The
+sync trainer's round barrier makes every task wait for the slowest
+selected client; this engine removes it:
+
+  - a virtual-time event queue of client completions (per-client speed
+    drawn from a heterogeneity profile, latency from the cost model);
+  - on completion a client is immediately re-assigned its next task by the
+    allocation policy (``MMFLCoordinator.assign_next``);
+  - per-task BUFFERED aggregation: the server folds a task's buffer into
+    its global model every ``B`` arrivals (FedAST), B per task from a
+    ``BufferController``;
+  - STALENESS-weighted updates: an update computed from model version v
+    and applied at version V gets weight p_k / (1 + V - v)^beta, applied
+    to the client DELTA and normalised by the undiscounted weight sum.
+
+Compute is lazy and batched: jobs carry only (client, task, version); the
+local training runs at flush time, one ``ExecutionBackend.run_cohort`` per
+dispatch version, over the same fold_in-keyed update rule as the sync
+trainer. The fold is the pluggable ``Aggregator`` (``fedavg`` through the
+backend; the server optimizers through ``kernels.fused_aggregate`` on a
+card). With equal client speeds and ``B`` equal to the cohort size the
+engine reproduces the sync round.
+
+Left for later slices (a config that asks for one raises
+``NotImplementedError`` naming its ROADMAP item): checkpointing
+(``checkpoint_dir``/``resume``), client populations and incentives.
+"""
+
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.api.aggregator import aggregator_from_config
+from repro_torch.api.arrivals import get_arrival_process
+from repro_torch.api.backend import ClientBatch, CohortTask, get_backend
+from repro_torch.api.buffer import FlushObservation, get_buffer_controller
+from repro_torch.api.costmodel import get_cost_model
+from repro_torch.api.policy import AllocationPolicy, stacked_delta_norms
+from repro_torch.core.allocation import AllocationStrategy
+from repro_torch.core.mmfl import MMFLCoordinator
+from repro_torch.device import resolve_device
+from repro_torch.fed.client import accuracy
+from repro_torch.fed.data import FedTask
+from repro_torch.fed.trainer import (fed_client_batch, fed_local_fn,
+                                     init_task_model, task_round_key)
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _unported(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to repro_torch yet (ROADMAP.md queue 1, {item})")
+
+
+@dataclass
+class AsyncConfig:
+    total_arrivals: int = 400      # client completions to process
+    # B: aggregate every B arrivals per task. None derives a backend-aware
+    # default (resolve_buffer_size)
+    buffer_size: Optional[int] = None
+    beta: float = 0.5              # staleness discount exponent
+    server_lr: float = 1.0         # eta on the aggregated buffer delta
+    alpha: float = 3.0
+    strategy: AllocationStrategy = AllocationStrategy.FEDFAIR
+    # stateful allocation policy (api.policy); None wraps `strategy`
+    policy: Optional[AllocationPolicy] = None
+    # client speed heterogeneity: "uniform", "bimodal" (slow_fraction of
+    # clients at speed 1/speed_spread), "lognormal"
+    speed_profile: str = "uniform"
+    speed_spread: float = 4.0
+    slow_fraction: float = 0.5
+    # availability plugin (api.arrivals registry)
+    arrival_process: str = "always_on"
+    arrival_options: dict = field(default_factory=dict)
+    max_staleness: Optional[int] = None   # drop updates staler than this
+    # per-task buffer sizing (api.buffer key); None selects "static"
+    buffer_controller: Optional[str] = None
+    buffer_controller_options: dict = field(default_factory=dict)
+    # server aggregation rule (api.aggregator key); None selects "fedavg"
+    aggregator: Optional[str] = None
+    aggregator_options: dict = field(default_factory=dict)
+    # client cost model (api.costmodel key); None selects "constant"
+    cost_model: Optional[str] = None
+    cost_model_options: dict = field(default_factory=dict)
+    # not ported yet: refused at engine construction
+    population: Optional[str] = None
+    population_options: dict = field(default_factory=dict)
+    checkpoint_dir: Optional[str] = None
+    resume: bool = False
+    # cohort execution backend (api.backend BACKENDS key or instance)
+    backend: str = "serial"
+    # local training (mirrors sync TrainConfig)
+    tau: int = 5
+    lr: float = 0.1
+    batch_size: int = 32
+    hidden: int = 64
+    depth: int = 2
+    deep_for: tuple = ("synth-cifar",)
+    deep_depth: int = 3
+    seed: int = 0
+
+
+def resolve_buffer_size(buffer_size, backend, device=None) -> int:
+    """Backend-aware default cohort sizing: with ``buffer_size`` unset the
+    device-parallel backends (vmap/sharded) flush in cohorts of at least
+    the number of devices of the run's device type (CUDA cards for
+    ``device=None``/"cuda", 1 for the CPU); serial and custom backends keep
+    the FedAST default of 4. An explicit value wins, but must be >= 1."""
+    if buffer_size is not None:
+        if int(buffer_size) < 1:
+            raise ValueError(
+                f"buffer_size must be >= 1, got {buffer_size}: a "
+                "non-positive buffer would flush every single arrival "
+                "(leave it unset for the backend-aware default)")
+        return int(buffer_size)
+    name = backend if isinstance(backend, str) else getattr(backend, "name", "")
+    if name in ("vmap", "sharded"):
+        dev = torch.device("cuda" if device is None else device)
+        return max(4, torch.cuda.device_count() if dev.type == "cuda" else 1)
+    return 4
+
+
+def client_speeds(profile: str, n: int, rng: np.random.Generator,
+                  spread: float = 4.0, slow_fraction: float = 0.5) -> np.ndarray:
+    """Per-client relative speeds > 0; a unit job takes 1/speed virtual
+    time. ``spread`` is the slow:fast ratio (bimodal) or the log-scale
+    dispersion anchor (lognormal)."""
+    if profile == "uniform":
+        return np.ones(n)
+    if profile == "bimodal":
+        speeds = np.ones(n)
+        slow = rng.random(n) < slow_fraction
+        speeds[slow] = 1.0 / spread
+        return speeds
+    if profile == "lognormal":
+        sigma = np.log(max(spread, 1.0 + 1e-6)) / 2.0
+        return rng.lognormal(mean=0.0, sigma=sigma, size=n)
+    raise ValueError(f"unknown speed profile: {profile!r}")
+
+
+class AsyncTask:
+    """Adapter protocol the engine drives: the cohort update rule as
+    ``local_fn`` plus the stacked per-client inputs via ``client_batch``,
+    run through the ExecutionBackend. (The reference's pre-backend
+    adapters, which override ``update()`` instead, and its per-task
+    ``accuracy()`` hook of the arch family are not ported.)"""
+
+    name: str
+    n_clients: int
+    p_k: np.ndarray          # (K,) base aggregation weights
+    work: float = 1.0        # virtual-time cost of one local job
+    local_fn = None          # (params, keys, *client_data) -> (updates, losses)
+
+    def init(self, seed: int):
+        raise NotImplementedError
+
+    def client_batch(self, seed: int, version: int, client_ids) -> ClientBatch:
+        """Stacked inputs for ``local_fn``; a function of (seed, version,
+        client_ids) only, so every engine and backend agrees."""
+        raise NotImplementedError
+
+    def evaluate(self, params) -> float:
+        """Prevailing f_s for Eq. 4 (lower is better: 1 - test accuracy)."""
+        raise NotImplementedError
+
+
+class FedAsyncTask(AsyncTask):
+    """FedTask (synthetic MLP) adapter: the sync trainer's cohort update
+    rule and key derivation, on ``device`` (None means CUDA)."""
+
+    def __init__(self, task: FedTask, task_idx: int, cfg: AsyncConfig, device=None):
+        self.task = task
+        self.task_idx = task_idx
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.name = task.name
+        self.n_clients = task.n_clients
+        self.p_k = task.p_k
+        self.work = 1.0
+        self.local_fn = fed_local_fn(cfg.tau, cfg.lr, cfg.batch_size)
+        self._test = (torch.from_numpy(task.test_x).to(self.device),
+                      torch.from_numpy(task.test_y).to(self.device))
+
+    def init(self, seed: int):
+        return init_task_model(self.task, prng.fold_in(prng.PRNGKey(seed), self.task_idx),
+                               self.cfg.hidden, self.cfg.depth, self.cfg.deep_for,
+                               self.cfg.deep_depth, self.device)
+
+    def client_batch(self, seed: int, version: int, client_ids) -> ClientBatch:
+        return fed_client_batch(self.task, task_round_key(seed, self.task_idx, version),
+                                client_ids, self.device)
+
+    def evaluate(self, params) -> float:
+        acc = float(accuracy(params, *self._test))
+        return max(1.0 - acc, 1e-6)
+
+
+@dataclass
+class AsyncHistory:
+    time: np.ndarray            # (F,) virtual time of each flush
+    task: np.ndarray            # (F,) flushed task index
+    metric: np.ndarray          # (F, S) prevailing f_s after the flush
+    staleness_mean: np.ndarray  # (F,) mean staleness in the flushed buffer
+    arrivals: np.ndarray        # (S,) total completions per task
+    updates_per_client: np.ndarray  # (K,)
+    versions: np.ndarray        # (S,) final model versions
+    assignments: List[Tuple[int, int]]  # (client, task) dispatch log
+    dropped: int = 0            # updates discarded for exceeding staleness
+    cost_dropouts: int = 0      # jobs the cost model dropped out entirely
+    # (F, S) per-task buffer sizes in force AFTER each flush
+    buffer_sizes: Optional[np.ndarray] = None
+    acc: np.ndarray = field(init=False)
+    min_acc: np.ndarray = field(init=False)
+    var_acc: np.ndarray = field(init=False)
+    # (F,) simulated wall clock of each flush: the event time itself
+    wall_clock_sim: np.ndarray = field(init=False)
+
+    def __post_init__(self):
+        self.acc = 1.0 - self.metric
+        self.min_acc = self.acc.min(axis=1)
+        self.var_acc = self.acc.var(axis=1)
+        self.wall_clock_sim = self.time
+
+
+@dataclass
+class _Job:
+    client: int
+    task: int
+    version: int       # model version the client trained FROM
+    dispatch_time: float
+    # sampled at dispatch by the cost model: the job occupies the client
+    # until its completion event but contributes NO update
+    dropout: bool = False
+
+
+class AsyncMMFLEngine:
+    """Virtual-time event loop: dispatch -> completion -> buffer -> flush.
+    All K clients train continuously; each completion immediately triggers
+    the client's next assignment. ``device=None`` means CUDA."""
+
+    def __init__(self, tasks: Sequence[AsyncTask], cfg: AsyncConfig,
+                 eligibility: Optional[np.ndarray] = None, incentive=None,
+                 device=None):
+        if cfg.checkpoint_dir or cfg.resume:
+            raise _unported("async checkpointing (checkpoint_dir/resume)",
+                            "item 8: checkpointing")
+        if cfg.population is not None or cfg.population_options:
+            raise _unported("a client population", "item 7: population")
+        if incentive is not None:
+            raise _unported("an incentive mechanism",
+                            "item 3: core/auctions.py and the incentives")
+        self.tasks = list(tasks)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.S = len(self.tasks)
+        self.K = self.tasks[0].n_clients
+        if any(t.n_clients != self.K for t in self.tasks):
+            raise ValueError("all tasks must have the same number of clients")
+        self.coord = MMFLCoordinator(
+            task_names=[t.name for t in self.tasks], n_clients=self.K,
+            alpha=cfg.alpha, strategy=cfg.strategy, seed=cfg.seed,
+            eligibility=eligibility, policy=cfg.policy)
+        self.buffer_size = resolve_buffer_size(cfg.buffer_size, cfg.backend, self.device)
+        if cfg.buffer_controller is None and cfg.buffer_controller_options:
+            raise ValueError(
+                "buffer_controller_options were given without a "
+                "buffer_controller; name one (e.g. 'staleness_target') "
+                "or drop the options")
+        try:
+            self.controller = get_buffer_controller(cfg.buffer_controller or "static",
+                                                    cfg.buffer_controller_options)
+        except TypeError as e:
+            raise ValueError(
+                f"buffer_controller {cfg.buffer_controller!r} rejected "
+                f"options {cfg.buffer_controller_options!r}: {e}") from None
+        self.speeds = client_speeds(
+            cfg.speed_profile, self.K, np.random.default_rng(cfg.seed + 1),
+            spread=cfg.speed_spread, slow_fraction=cfg.slow_fraction)
+        # availability draws from its OWN stream (seed + 2), cost sampling
+        # from seed + 3 (reset in _init_state, once the params exist)
+        self.arrival = get_arrival_process(cfg.arrival_process, cfg.arrival_options)
+        self.arrival.reset(self.K, np.random.default_rng(cfg.seed + 2))
+        if cfg.cost_model is None and cfg.cost_model_options:
+            raise ValueError(
+                "cost_model_options were given without a cost_model; "
+                "name one (e.g. 'device_tiers') or drop the options")
+        self.cost_model = get_cost_model(cfg.cost_model or "constant", cfg.cost_model_options)
+        self.backend = get_backend(cfg.backend, self.device)
+        self.aggregator = aggregator_from_config(cfg.aggregator, cfg.aggregator_options,
+                                                 backend=self.backend)
+
+    @classmethod
+    def from_fed_tasks(cls, tasks: Sequence[FedTask], cfg: AsyncConfig,
+                       eligibility: Optional[np.ndarray] = None,
+                       device=None) -> "AsyncMMFLEngine":
+        return cls([FedAsyncTask(t, s, cfg, device) for s, t in enumerate(tasks)],
+                   cfg, eligibility, device=device)
+
+    # -- internals ---------------------------------------------------------
+
+    def _retain(self, s: int, version: int, params):
+        slot = self._retained[s].setdefault(version, [params, 0])
+        slot[1] += 1
+
+    def _release(self, s: int, version: int):
+        slot = self._retained[s][version]
+        slot[1] -= 1
+        if slot[1] == 0:
+            del self._retained[s][version]
+
+    def _dispatch(self, client: int, t: float):
+        s = self.coord.assign_next(client)
+        if s is None:
+            return                       # not eligible for anything: idle
+        v = self._version[s]
+        self._retain(s, v, self._params[s])
+        self._assignments.append((client, s))
+        # the arrival process may defer the job's start; the model version
+        # is pinned at dispatch; the cost model turns work/speed into the
+        # job's completion latency
+        start = self.arrival.next_start(client, t)
+        base = self.tasks[s].work / self.speeds[client]
+        lat = self.cost_model.sample_latency(client, s, base, time=start, version=v)
+        self._seq += 1
+        heapq.heappush(self._events,
+                       (start + lat.total, self._seq,
+                        _Job(client, s, v, start, bool(lat.dropout))))
+
+    def _flush(self, s: int, t: float):
+        cfg = self.cfg
+        buf = self._buffers[s]
+        self._buffers[s] = []
+        cur = self._version[s]
+        kept: List[_Job] = []
+        for j in buf:
+            if cfg.max_staleness is not None and cur - j.version > cfg.max_staleness:
+                self._dropped += 1
+                self._release(s, j.version)
+            else:
+                kept.append(j)
+        if not kept:
+            return
+        # one backend cohort per distinct dispatch version, stacked in
+        # sorted-version order, then group order
+        task = self.tasks[s]
+        deltas, weights, stale = [], [], []
+        by_version: Dict[int, List[_Job]] = {}
+        for j in kept:
+            by_version.setdefault(j.version, []).append(j)
+        for v in sorted(by_version):
+            group = by_version[v]
+            ids = np.array([j.client for j in group], np.int64)
+            base = self._retained[s][v][0]
+            cohort = self.backend.run_cohort(CohortTask(task.name, base, task.local_fn),
+                                             task.client_batch(cfg.seed, v, ids)).updates
+            deltas.append(tree_map(lambda c, b: c - b, cohort, base))
+            for j in group:
+                weights.append(task.p_k[j.client])
+                stale.append(cur - v)
+                self._release(s, v)
+        stacked = deltas[0] if len(deltas) == 1 else tree_map(
+            lambda *leaves: torch.cat(leaves), *deltas)
+        # FedAST staleness discount on the weights, normalised by the
+        # UNDISCOUNTED sum, folded by the pluggable aggregator
+        w = torch.from_numpy(np.asarray(weights, np.float32))
+        agg, self._server_state[s] = self.aggregator.aggregate_stale(
+            stacked, w, np.asarray(stale, np.float32), cfg.beta,
+            self._server_state[s], normalizer=w.sum())
+        self._params[s] = tree_map(lambda p, d: p + cfg.server_lr * d, self._params[s], agg)
+        self._version[s] = cur + 1
+        self._metric[s] = task.evaluate(self._params[s])
+        self.coord.report(task.name, self._metric[s])
+        # policy feedback: this flush's allocation counts (and, when the
+        # policy opts in, the mean delta norm of the buffer)
+        counts = np.zeros(self.S, np.int64)
+        counts[s] = len(kept)
+        norms = None
+        if self.coord.wants_update_norms:
+            norms = np.full(self.S, np.nan)
+            norms[s] = float(stacked_delta_norms(stacked).mean())
+        self.coord.observe(counts, norms, task=s)
+        self._n_flushes += 1
+        stale_mean = float(np.mean(stale))
+        # the controller sees this flush's feedback and emits the sizes in
+        # force from the next arrival on
+        self.controller.observe(FlushObservation(
+            flush=self._n_flushes, task=s, time=float(t),
+            staleness_mean=stale_mean, kept=len(kept),
+            arrivals=self._arrivals.copy(), sizes=self._buffer_sizes.copy()))
+        self._buffer_sizes = np.asarray(self.controller.sizes(), np.int64).copy()
+        self._hist_time.append(t)
+        self._hist_task.append(s)
+        self._hist_metric.append(self._metric.copy())
+        self._hist_stale.append(stale_mean)
+        self._hist_bufsz.append(self._buffer_sizes.copy())
+
+    def _init_state(self):
+        """Fresh run state."""
+        cfg = self.cfg
+        self.controller.reset(self.S, self.buffer_size)
+        self._buffer_sizes = np.asarray(self.controller.sizes(), np.int64).copy()
+        self._params = [t.init(cfg.seed) for t in self.tasks]
+        self._server_state = [self.aggregator.init(p) for p in self._params]
+        self._metric = np.array([t.evaluate(p) for t, p in zip(self.tasks, self._params)])
+        for t, f in zip(self.tasks, self._metric):
+            self.coord.report(t.name, float(f))
+        self._version = [0] * self.S
+        self._buffers: List[List[_Job]] = [[] for _ in range(self.S)]
+        self._retained: List[Dict[int, list]] = [{} for _ in range(self.S)]
+        self._events: list = []
+        self._seq = 0
+        self._dropped = 0
+        self._n_flushes = 0
+        self._processed = 0
+        self._assignments: List[Tuple[int, int]] = []
+        self._hist_time, self._hist_task = [], []
+        self._hist_metric, self._hist_stale = [], []
+        self._hist_bufsz: List[np.ndarray] = []
+        self._arrivals = np.zeros(self.S, np.int64)
+        self._per_client = np.zeros(self.K, np.int64)
+        self._cost_dropouts = 0
+        self.cost_model.reset(self.K, self.S, np.random.default_rng(cfg.seed + 3),
+                              task_sizes=self._task_sizes())
+        for i in range(self.K):          # everyone starts training
+            self._dispatch(i, 0.0)
+
+    def _task_sizes(self) -> List[float]:
+        """Per-task parameter counts (cost-model size scaling input)."""
+        return [float(sum(leaf.numel() for leaf in tree_leaves(p))) for p in self._params]
+
+    # -- run loop ----------------------------------------------------------
+
+    def run(self, verbose: bool = False) -> AsyncHistory:
+        cfg = self.cfg
+        self._init_state()
+        while self._processed < cfg.total_arrivals and self._events:
+            t, _, job = heapq.heappop(self._events)
+            self._processed += 1
+            if job.dropout:
+                # cost-model dropout: the client was busy until now but
+                # contributes no update; counts against total_arrivals
+                self._cost_dropouts += 1
+                self._release(job.task, job.version)
+                self._dispatch(job.client, t)
+                continue
+            self._arrivals[job.task] += 1
+            self._per_client[job.client] += 1
+            self._buffers[job.task].append(job)
+            if len(self._buffers[job.task]) >= self._buffer_sizes[job.task]:
+                self._flush(job.task, t)
+                # a controller may have SHRUNK other tasks' sizes below
+                # their occupancy: sweep so their buffers flush promptly
+                # (a no-op under "static")
+                swept = True
+                while swept:
+                    swept = False
+                    for s in range(self.S):
+                        if self._buffers[s] and len(self._buffers[s]) >= self._buffer_sizes[s]:
+                            self._flush(s, t)
+                            swept = True
+            self._dispatch(job.client, t)
+            if verbose and self._processed % 50 == 0:
+                f = " ".join(f"{m:.3f}" for m in self._metric)
+                print(f"  arrival {self._processed:5d} t={t:8.2f} f_s=[{f}]")
+        return AsyncHistory(
+            time=np.array(self._hist_time),
+            task=np.array(self._hist_task, np.int64),
+            metric=(np.array(self._hist_metric) if self._hist_metric
+                    else np.zeros((0, self.S))),
+            staleness_mean=np.array(self._hist_stale),
+            arrivals=self._arrivals,
+            updates_per_client=self._per_client,
+            versions=np.array(self._version, np.int64),
+            assignments=self._assignments, dropped=self._dropped,
+            cost_dropouts=self._cost_dropouts,
+            buffer_sizes=np.array(self._hist_bufsz, np.int64).reshape(-1, self.S))

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at
 first use by ``nvcc`` into a shared library for Hopper (``sm_90a``), which
-is then loaded with ``ctypes``. No PyTorch headers are compiled, so a
+is then loaded with ``ctypes``; ``load_all`` starts one ``nvcc`` per
+source, all at once. No PyTorch headers are compiled, so a
 build takes seconds. Libraries go to ``build/repro_torch_ext/`` at the
 root of the checkout, named by a hash of the source and the flags, so an
 edited source is rebuilt and an unchanged one is reused.
@@ -64,24 +65,38 @@ def nvcc() -> str:
 
 def load(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
+    return load_all([name])[name]
+
+
+def load_all(names) -> Dict[str, Built]:
+    """Compile every named ``csrc/<name>.cu`` that needs it, with one
+    ``nvcc`` per source, all started together, then load each (once per
+    process)."""
+    started = {}
+    for name in names:
+        if name in _LOADED or name in started:
+            continue
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        if so.exists():
+            _LOADED[name] = Built(ctypes.CDLL(str(so)), so, 0.0, "")
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, src, tmp, so, time.perf_counter())
+    failed = []
+    for name, (proc, src, tmp, so, t0) in started.items():
+        log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
+            failed.append(f"nvcc failed to build {src}:\n{log}")
+            continue
         os.replace(tmp, so)
-    built = Built(ctypes.CDLL(str(so)), so, seconds, log)
-    _LOADED[name] = built
-    return built
+        _LOADED[name] = Built(ctypes.CDLL(str(so)), so, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _LOADED[name] for name in names}

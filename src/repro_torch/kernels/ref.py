@@ -16,3 +16,34 @@ def ref_fedavg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     back to ``stacked``'s dtype."""
     return torch.tensordot(weights.to(torch.float32), stacked.to(torch.float32),
                            dims=([0], [0])).to(stacked.dtype)
+
+
+def ref_fused_aggregate(stacked, weights, staleness, m, v, *, mode, beta,
+                        normalizer, lr=1.0, beta1=0.9, beta2=0.99, eps=1e-3):
+    """Plain version of ``fused_aggregate``: the FedAST staleness discount
+    (normalised by the UNDISCOUNTED weight sum the caller passes as
+    ``normalizer``), the weighted reduce, and the FedOpt moment update,
+    all in f32. Returns ``(update, new_m, new_v)``; a mode that leaves a
+    moment unchanged returns the (f32) input itself."""
+    f32 = torch.float32
+    w = torch.as_tensor(weights).to(f32)
+    st = torch.as_tensor(staleness).to(device=w.device, dtype=f32)
+    norm = torch.as_tensor(normalizer).to(device=w.device, dtype=f32)
+    disc = w * (1.0 + st) ** (-beta) / torch.clamp(norm, min=1e-12)
+    d = torch.tensordot(disc, torch.as_tensor(stacked).to(f32), dims=([0], [0]))
+    m = torch.as_tensor(m).to(f32)
+    v = torch.as_tensor(v).to(f32)
+    if mode == "fedavg":
+        return lr * d, m, v
+    if mode == "fedavgm":
+        m = beta1 * m + d
+        return lr * m, m, v
+    m = beta1 * m + (1.0 - beta1) * d
+    d2 = d * d
+    if mode == "fedadam":
+        v = beta2 * v + (1.0 - beta2) * d2
+    elif mode == "fedyogi":
+        v = v - (1.0 - beta2) * d2 * torch.sign(v - d2)
+    else:
+        raise ValueError(f"ref_fused_aggregate: unknown mode {mode!r}")
+    return lr * m / (torch.sqrt(v) + eps), m, v

@@ -1,12 +1,13 @@
-"""The port stands alone: nothing under src/repro_torch, and not
-chip_smoke.py, imports jax or the JAX package."""
+"""The port stands alone: nothing under src/repro_torch, and neither
+chip_smoke.py nor profile_async.py, imports jax or the JAX package."""
 import re
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                ROOT / "profile_async.py"]
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)", re.M)
 
 

@@ -79,13 +79,13 @@ def _with(spec, **changes):
 
 
 @pytest.mark.parametrize("changes,item", [
-    (dict(runtime__mode="async"), "item 6"),
+    (dict(runtime__mode="async", clients__population="vectorized"), "item 7"),
     (dict(auction=tapi.AuctionSpec()), "item 3"),
     (dict(clients__population="vectorized"), "item 7"),
     (dict(runtime__checkpoint_dir="ckpt"), "item 8"),
     (dict(runtime__backend="sharded"), "item 14"),
-    (dict(runtime__cost_model="device_tiers"), "item 3"),
-    (dict(runtime__aggregator="fedadam"), "item 5"),
+    (dict(runtime__cost_model="trace_replay"), "item 3"),
+    (dict(runtime__aggregator="fedmedian"), "item 5"),
     (dict(policy=tapi.PolicySpec("ucb_bandit")), "item 3"),
 ], ids=["async", "auction", "population", "checkpoint", "sharded", "cost_model",
         "aggregator", "policy"])
