@@ -34,7 +34,26 @@ printed only when every phase passed:
    once. The fedadam run's final server moments must stay on the card.
 7. Card against CPU for async: the fedadam run with round_robin must give
    identical event traces on both devices; fedfair is compared too.
-8. A JSON line describing every kernel, the card line, and the final
+8. The rmsnorm kernel against its plain version on the card at the dense
+   LM's norm shapes (rows x d, f32 and bf16; atol 1e-5 / 5e-2), with
+   times at (8192, 576) f32 beside the bytes bound, the plain version and
+   ``torch.nn.functional.rms_norm``.
+9. The flash_attention kernel against its plain version on the card at
+   smollm-135m's and a qwen3-like attention shape, a small one and a
+   ragged Sq != Sk one, causal and not, f32 and bf16 (atol 2e-5 / 3e-2),
+   with times at smollm's shape beside the FLOP and bytes bound, the plain
+   version and ``scaled_dot_product_attention``.
+10. Serving smollm-135m at full width on the card through
+   ``repro_torch.launch.serve.generate`` (weights from PRNGKey(0), batch 8,
+   prompt 128, 32 greedy tokens): prefill and decode tokens/s, and exactly
+   61 rmsnorm launches per forward (30 layers x 2 + the final norm). The
+   same generation at batch 2 on the host CPU must give identical tokens
+   and prefill logits within 1e-3.
+11. The forward loss of smollm-135m with ``use_pallas=True`` at B=4,
+   S=2048 on the card: exactly 30 flash_attention and 61 rmsnorm launches
+   per forward, the loss within 2e-4 of the ``use_pallas=False`` loss, ms
+   per forward and peak memory; card against CPU at B=1, S=256 within 1e-4.
+12. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Needs CUDA, nvcc (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``)
@@ -53,15 +72,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores,
+# dense bf16 rate of the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 MAIN_K = (1, 3, 4, 8, 16)           # sync cohorts; K=4 is the async slice's flush
 MAIN_N = (1738, 3786, 6922, 2049)   # synth-mnist, -fmnist, -cifar MLPs; a ragged N
 TIMED_MAIN = (8, 6922)              # the largest fold the sync slice makes
 LM_K, LM_N = 8, 2**27               # about smollm-135m's parameter count
-KERNELS = ("fedavg", "fused_aggregate")
+KERNELS = ("fedavg", "fused_aggregate", "flash_attention", "rmsnorm")
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 TASKS = ("synth-mnist", "synth-cifar", "synth-fmnist")
 ROUNDS = 25
@@ -72,6 +93,22 @@ FUSED_TOL = 1e-6                    # rtol and atol, as tests/test_aggregators.p
 FUSED_SCALARS = dict(beta=0.5, lr=1.0, beta1=0.9, beta2=0.99, eps=1e-3)
 ARRIVALS = 200
 SERVER_OPTIONS = {"fedadam": {"lr": 0.1}}   # benchmarks/experiments.py exp13
+
+LM_ARCH = "smollm-135m"
+# (rows, d): a token of smollm (d 576) at 1, B*S = 8192 and a ragged 8193
+# rows; qwen3's qk-norms (d = hd) over 4096 tokens x 9 and 2048 x 16 heads;
+# qwen3's d_model 1024 at a ragged 4097 rows
+NORM_SHAPES = ((1, 576), (8192, 576), (8193, 576), (4096 * 9, 64), (2048 * 16, 128),
+               (4097, 1024))
+NORM_TIMED = (8192, 576)
+NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2}     # tests/test_kernels.py
+# (B, H, KV, Sq, Sk, hd): smollm-135m's forward at B=4 S=2048, a qwen3-like
+# head layout, the JAX sweep's small shape, a ragged Sq != Sk
+FLASH_SHAPES = ((4, 9, 3, 2048, 2048, 64), (1, 16, 8, 2048, 2048, 128), (2, 4, 2, 256, 256, 32),
+                (1, 4, 2, 200, 456, 64))
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}    # tests/test_kernels.py
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32
+LOSS_B, LOSS_S = 4, 2048
 
 
 def fail(msg: str) -> None:
@@ -560,6 +597,255 @@ def phase_async_card_vs_cpu(gpu_fedadam):
         fail("fedadam round_robin card vs CPU disagree")
 
 
+def _rotating(make, count: int):
+    """``count`` copies of the inputs ``make()`` returns, handed out in turn:
+    more bytes than the 50 MB L2 cache, so a timed call finds its inputs
+    in device memory as a layer of the model does."""
+    import itertools
+
+    return itertools.cycle([make() for _ in range(count)])
+
+
+def phase_rmsnorm():
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.ref import ref_rmsnorm
+
+    print("== phase 8: rmsnorm kernel vs plain version on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for rows, d in NORM_SHAPES:
+        x32 = torch.randn(rows, d, generator=gen, device=dev)
+        w32 = torch.randn(d, generator=gen, device=dev).mul_(0.1).add_(1.0)
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, w = x32.to(dtype), w32.to(dtype)
+            got, want = rmsnorm(x, w), ref_rmsnorm(x, w)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != x.shape:
+                fail(f"rmsnorm ({rows}, {d}) {name}: got {got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            errs[name] = max(errs[name], err)
+            if not err <= NORM_TOL[name]:
+                fail(f"rmsnorm ({rows}, {d}) {name}: max |err| {err} > {NORM_TOL[name]}")
+    print(f"shapes {NORM_SHAPES}: max |err| f32 {errs['float32']:.3g} (tol "
+          f"{NORM_TOL['float32']}), bf16 {errs['bfloat16']:.3g} (tol {NORM_TOL['bfloat16']})")
+
+    rows, d = NORM_TIMED
+    w = torch.randn(d, generator=gen, device=dev).mul_(0.1).add_(1.0)
+    xs = _rotating(lambda: torch.randn(rows, d, generator=gen, device=dev), 4)
+    fns = {"": lambda: rmsnorm(next(xs), w), "plain_": lambda: ref_rmsnorm(next(xs), w),
+           "library_": lambda: F.rms_norm(next(xs), (d,), w, 1e-6)}
+    nbytes = 2 * rows * d * 4 + 4 * d
+    rec = {"shape": [rows, d], "dtype": "float32", "max_abs_err": errs["float32"],
+           "max_abs_err_bf16": errs["bfloat16"],
+           "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    for key, fn in fns.items():
+        rec[f"{key}ms"] = graph_ms(fn, inner=40)
+        rec[f"eager_{key}ms"] = time_ms(fn, inner=40)
+    print(f"rmsnorm ({rows}, {d}) f32, device time (CUDA graph, inputs cycled past L2): kernel "
+          f"{rec['ms']:.5f} ms ({rec['bound_ms'] / rec['ms']:.1%} of the bytes bound "
+          f"{rec['bound_ms']:.5f} ms), plain {rec['plain_ms']:.5f} ms, library (F.rms_norm) "
+          f"{rec['library_ms']:.5f} ms; eager per call: kernel {rec['eager_ms']:.5f} ms, plain "
+          f"{rec['eager_plain_ms']:.5f} ms, library {rec['eager_library_ms']:.5f} ms")
+    del xs, fns
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flash_bound_ms(B, H, KV, Sq, Sk, hd, causal: bool, size: int, peak_flops: float) -> tuple:
+    """Least time for one attention call: 4*hd flops per (query, key) pair
+    the mask keeps (QK^T and PV), at ``peak_flops``; q, k, v read once and
+    o written once at the data-sheet bandwidth. The larger wins."""
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    ops_ms = 4 * hd * pairs * B * H / peak_flops * 1e3
+    bytes_ms = (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd) * size / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_flash():
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import ref_attention
+
+    print("== phase 9: flash_attention kernel vs plain version on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    errs = {"float32": (0.0, None), "bfloat16": (0.0, None)}   # (max |err|, where)
+    timed = {}
+    for B, H, KV, Sq, Sk, hd in FLASH_SHAPES:
+        q32 = torch.randn(B, H, Sq, hd, generator=gen, device=dev)
+        k32 = torch.randn(B, KV, Sk, hd, generator=gen, device=dev)
+        v32 = torch.randn(B, KV, Sk, hd, generator=gen, device=dev)
+        for name, dtype, size, peak in (("float32", torch.float32, 4, PEAK_F32_FLOP_PER_S),
+                                        ("bfloat16", torch.bfloat16, 2, PEAK_BF16_FLOP_PER_S)):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            for causal in (True, False):
+                got, want = flash_attention(q, k, v, causal=causal), ref_attention(q, k, v, causal)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or got.shape != q.shape:
+                    fail(f"flash_attention {(B, H, KV, Sq, Sk, hd)} {name}: got {got.dtype} "
+                         f"{tuple(got.shape)}")
+                err = (got.float() - want.float()).abs().max().item()
+                where = f"{(B, H, KV, Sq, Sk, hd)} causal={causal}"
+                if err >= errs[name][0]:
+                    errs[name] = (err, where)
+                if not err <= FLASH_TOL[name]:
+                    fail(f"flash_attention {where}: max |err| {err} > {FLASH_TOL[name]}")
+                del got, want
+            if (B, H, KV, Sq, Sk, hd) != FLASH_SHAPES[0]:
+                continue
+            bound, by = flash_bound_ms(B, H, KV, Sq, Sk, hd, True, size, peak)
+            timed[name] = {
+                "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), reps=10),
+                "plain_ms": time_ms(lambda: ref_attention(q, k, v, True), reps=10),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), reps=10),
+                "bound_ms": bound, "bound_by": by,
+            }
+            torch.cuda.empty_cache()
+    for name, (err, where) in errs.items():
+        print(f"{name}: max |err| {err:.3g} (tol {FLASH_TOL[name]}) at {where}")
+    B, H, KV, Sq, Sk, hd = FLASH_SHAPES[0]
+    for name, r in timed.items():
+        print(f"flash causal {(B, H, KV, Sq, Sk, hd)} {name}: kernel {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_by']} bound "
+              f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library (SDPA) "
+              f"{r['library_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return {name: err for name, (err, _) in errs.items()}, timed
+
+
+def phase_serve():
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_api, param_count
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.tree import tree_map
+
+    print(f"== phase 10: serving {LM_ARCH} at full width on the card")
+    cfg = get_config(LM_ARCH)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = init_lm(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"init_lm(PRNGKey(0)) on the card: {param_count(params)} params, "
+          f"{time.perf_counter() - t0:.2f} s")
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    prompts = prng.randint(prng.PRNGKey(0, device=dev), (B, P), 0, cfg.vocab_size)
+    norms = 2 * cfg.n_layers + 1
+    generate(params, cfg, prompts, 2)                          # warm-up: cuBLAS, allocator
+    reset_launches()
+    res = generate(params, cfg, prompts, G)
+    launches = dict(LAUNCHES)
+    if launches != {"rmsnorm": norms * G}:
+        fail(f"serve: launches {launches}, expected rmsnorm {norms} x {G} forwards")
+    api = get_api(cfg)
+    with torch.no_grad():
+        reset_launches()
+        logits, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+        per_prefill = dict(LAUNCHES)
+        reset_launches()
+        api.decode_fn(params, cfg, res.tokens[:, :1], P, caches)
+        per_decode = dict(LAUNCHES)
+    if per_prefill != {"rmsnorm": norms} or per_decode != {"rmsnorm": norms}:
+        fail(f"serve: one prefill launched {per_prefill}, one decode step {per_decode}")
+    if res.tokens.shape != (B, G) or not bool(((res.tokens >= 0)
+                                                & (res.tokens < cfg.vocab_size)).all()):
+        fail(f"serve: tokens {tuple(res.tokens.shape)} out of range")
+    rec = {"arch": LM_ARCH, "batch": B, "prompt": P, "gen": G,
+           "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+           "prefill_tok_s": B * P / res.prefill_s, "decode_tok_s": B * (G - 1) / res.decode_s,
+           "rmsnorm_launches": launches["rmsnorm"], "rmsnorm_per_forward": norms}
+    print(f"serve {LM_ARCH} batch {B} prompt {P} gen {G}: prefill {res.prefill_s * 1e3:.2f} ms "
+          f"({rec['prefill_tok_s']:.0f} tok/s), decode {res.decode_s * 1e3:.2f} ms for {G - 1} "
+          f"steps ({rec['decode_tok_s']:.0f} tok/s); rmsnorm launches {launches['rmsnorm']} = "
+          f"{norms} x {G} forwards, {norms} per prefill and per decode step")
+
+    cpu = torch.device("cpu")
+    params_cpu = tree_map(lambda t: t.to(cpu), params)
+    small = prompts[:2]
+    gpu2 = generate(params, cfg, small, G)
+    t0 = time.perf_counter()
+    cpu2 = generate(params_cpu, cfg, small.to(cpu), G)
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
+        lg_gpu, _ = api.prefill_fn(params, cfg, {"tokens": small, "labels": small})
+        lg_cpu, _ = api.prefill_fn(params_cpu, cfg, {"tokens": small.to(cpu),
+                                                     "labels": small.to(cpu)})
+    diff = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+    same = torch.equal(gpu2.tokens.cpu(), cpu2.tokens)
+    print(f"batch 2 on the host CPU ({cpu_s:.2f} s): greedy tokens identical={same}, "
+          f"max |prefill logits card - cpu| {diff:.3g}")
+    if not same or not diff <= 1e-3:
+        fail("serve: card and CPU disagree")
+    rec.update(cpu_tokens_identical=same, cpu_prefill_logits_max_abs_diff=diff)
+    del params_cpu, caches, logits
+    return params, rec
+
+
+def phase_loss(params):
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import get_api
+    from repro_torch.tree import tree_map
+
+    print(f"== phase 11: the forward loss of {LM_ARCH} with use_pallas=True on the card")
+    cfg = get_config(LM_ARCH)
+    pallas = cfg.replace(use_pallas=True)
+    api = get_api(cfg)
+    dev = torch.device("cuda")
+    tokens = prng.randint(prng.PRNGKey(1, device=dev), (LOSS_B, LOSS_S), 0, cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": tokens}
+    with torch.no_grad():
+        api.loss_fn(params, pallas, batch)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        loss, _ = api.loss_fn(params, pallas, batch)
+        launches = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        loss_plain, _ = api.loss_fn(params, cfg, batch)
+        ms = time_ms(lambda: api.loss_fn(params, pallas, batch), reps=5)
+        ms_plain = time_ms(lambda: api.loss_fn(params, cfg, batch), reps=5)
+    norms = 2 * cfg.n_layers + 1
+    if launches != {"flash_attention": cfg.n_layers, "rmsnorm": norms}:
+        fail(f"loss: launches {launches}, expected flash_attention {cfg.n_layers} and "
+             f"rmsnorm {norms}")
+    diff = abs(loss.item() - loss_plain.item())
+    print(f"loss B={LOSS_B} S={LOSS_S}: use_pallas {loss.item():.6f}, chunked attention "
+          f"{loss_plain.item():.6f}, |diff| {diff:.3g} (tol 2e-4); {ms:.2f} ms per forward "
+          f"({ms_plain:.2f} ms without the flash kernel); peak memory {peak / 2**30:.3f} GiB; "
+          f"launches {launches}")
+    if not torch.isfinite(loss) or not diff <= 2e-4:
+        fail(f"loss: use_pallas {loss.item()} vs {loss_plain.item()}")
+    small = {"tokens": tokens[:1, :256], "labels": tokens[:1, :256]}
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    with torch.no_grad():
+        l_gpu, _ = api.loss_fn(params, pallas, small)
+        l_cpu, _ = api.loss_fn(params_cpu, pallas, tree_map(lambda t: t.cpu(), small))
+    cpu_diff = abs(l_gpu.item() - l_cpu.item())
+    print(f"loss B=1 S=256: card {l_gpu.item():.6f}, CPU {l_cpu.item():.6f}, |diff| "
+          f"{cpu_diff:.3g} (tol 1e-4)")
+    if not cpu_diff <= 1e-4:
+        fail(f"loss: card vs CPU differ by {cpu_diff}")
+    return {"B": LOSS_B, "S": LOSS_S, "loss": loss.item(), "loss_plain_path": loss_plain.item(),
+            "ms": ms, "ms_plain_path": ms_plain, "peak_bytes": peak, "launches": launches,
+            "cpu_loss_diff": cpu_diff}
+
+
 def main() -> int:
     import torch
 
@@ -574,6 +860,10 @@ def main() -> int:
     f_err, f_ties, f_timed, f_reduce, f_lm, f_lm_reduce = phase_fused_kernel()
     async_runs = phase_async()
     phase_async_card_vs_cpu(async_runs["fedadam"][0])
+    norm = phase_rmsnorm()
+    flash_errs, flash_timed = phase_flash()
+    params, served = phase_serve()
+    loss = phase_loss(params)
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -609,7 +899,31 @@ def main() -> int:
         "modes": f_timed,
         "lm_scale": {"shape": [LM_K, LM_N], "reduce_only_ms": f_lm_reduce, **f_lm},
     }
-    print(json.dumps({"kernels": [fedavg, fused]}))
+    flash = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:74",
+        "launches": loss["launches"]["flash_attention"],
+        "max_abs_err": flash_errs["float32"],
+        "max_abs_err_bf16": flash_errs["bfloat16"],
+        "shape": list(FLASH_SHAPES[0]),
+        "causal": True,
+        "dtype": "float32",
+        **flash_timed["float32"],
+        "bf16": flash_timed["bfloat16"],
+    }
+    rms = {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:39",
+        "launches": served["rmsnorm_launches"],
+        "launches_loss": loss["launches"]["rmsnorm"],
+        **norm,
+    }
+    print(json.dumps({"serve": served, "loss": loss}))
+    print(json.dumps({"kernels": [fedavg, fused, flash, rms]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,17 @@
+"""Config registry of the port: importing this package registers the
+dense archs it runs. The other six archs of the JAX package come with
+their families (ROADMAP queue 1 items 10-11)."""
+from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
+    InputShape,
+    ModelConfig,
+    get_config,
+    list_archs,
+    smoke_config,
+)
+from repro_torch.configs import (  # noqa: F401
+    qwen1_5_0_5b,
+    qwen1_5_110b,
+    qwen3_0_6b,
+    smollm_135m,
+)

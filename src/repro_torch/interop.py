@@ -1,9 +1,11 @@
 """Carry weights between the JAX package and the port.
 
 The JAX package's params are pytrees of arrays (for the synthetic MLPs a
-list of ``{"w", "b"}`` dicts). Tests pass them across as numpy arrays, so
-both sides start from identical models, and bring the port's results
-back the same way to compare them.
+list of ``{"w", "b"}`` dicts; for the LM a nested dict with the layers
+stacked on axis 0). Tests pass them across as numpy arrays, so both sides
+start from identical models, and bring the port's results back the same
+way to compare them. ``lm_params_from_numpy`` checks an LM tree against
+the port's own before it carries it across.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_map
 
@@ -27,3 +30,37 @@ def params_from_numpy(tree: Any, device=None) -> Any:
 def params_to_numpy(tree: Any) -> Any:
     """Tensor pytree -> the same tree of numpy arrays on the host."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _tensor(a) -> torch.Tensor:
+    """numpy array -> CPU tensor; bfloat16 (``ml_dtypes``) goes by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_numpy(tree: Any, cfg, device=None) -> Any:
+    """A JAX LM param tree (nested dicts of numpy arrays) -> the port's
+    params on ``device`` (``None`` means CUDA). Every key, shape and dtype
+    must be those of the port's ``init_lm`` tree for ``cfg``; a mismatch
+    raises ``ValueError`` naming the leaf."""
+    from repro_torch.models.transformer import init_lm
+
+    dev = resolve_device(device)
+    want = init_lm(prng.PRNGKey(0, device="meta"), cfg, device="meta")
+
+    def carry(got, ref, path):
+        if isinstance(ref, dict):
+            if not isinstance(got, dict) or set(got) != set(ref):
+                have = sorted(got) if isinstance(got, dict) else type(got).__name__
+                raise ValueError(f"lm_params_from_numpy: {path or 'params'} has keys {have}, "
+                                 f"the port's {cfg.name} has {sorted(ref)}")
+            return {k: carry(got[k], ref[k], f"{path}/{k}" if path else k) for k in ref}
+        t = _tensor(got)
+        if t.shape != ref.shape or t.dtype != ref.dtype:
+            raise ValueError(f"lm_params_from_numpy: {path} is {tuple(t.shape)} {t.dtype}, "
+                             f"the port's {cfg.name} has {tuple(ref.shape)} {ref.dtype}")
+        return t.to(dev)
+
+    return carry(tree, want, "")

@@ -47,3 +47,31 @@ def ref_fused_aggregate(stacked, weights, staleness, m, v, *, mode, beta,
     else:
         raise ValueError(f"ref_fused_aggregate: unknown mode {mode!r}")
     return lr * m / (torch.sqrt(v) + eps), m, v
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """Plain version of ``flash_attention``: q (B, H, Sq, hd), k and v
+    (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's dtype. Softmax attention in
+    f32, scale hd^-0.5, head h reading kv head h // (H // KV); causal is
+    top-left aligned (query i sees keys j <= i), masked scores -1e30."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    kf = k.repeat_interleave(G, dim=1).to(torch.float32)
+    vf = v.repeat_interleave(G, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kf) * hd ** -0.5
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def ref_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of ``rmsnorm``: ``x * rsqrt(mean(x^2) + eps) * w`` per
+    row of the last axis, in f32, cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)

@@ -1,0 +1,77 @@
+"""Row-wise RMSNorm behind one wrapper.
+
+``rmsnorm`` is the port's counterpart of the JAX package's
+``kernels/rmsnorm.py::rmsnorm_pallas`` with the same contract:
+``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in f32, cast back to
+x's dtype. On a CUDA tensor it launches the hand-written kernel of
+``csrc/rmsnorm.cu`` (or raises); on a CPU tensor it takes the plain
+version, ``ref.ref_rmsnorm``. The kernel has no backward yet, so on CUDA
+a call that autograd would record raises instead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import LAUNCHES, load
+from repro_torch.kernels.ref import ref_rmsnorm
+
+# dtype codes of csrc/rmsnorm.cu::rmsnorm_launch
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+NO_BACKWARD = ("has no backward kernel yet: training through it is the arch-training "
+               "slice (ROADMAP queue 1 item 12); run it under torch.no_grad() or on "
+               "inputs that do not require grad")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load("rmsnorm").lib
+    lib.rmsnorm_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                   ctypes.c_int, ctypes.c_void_p]
+    lib.rmsnorm_launch.restype = ctypes.c_int
+    lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
+    lib.rmsnorm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d); w: (d,). Returns x's shape and dtype. Raises
+    ``ValueError`` for a w that is not (d,) or tensors on two devices,
+    ``TypeError`` for non-float inputs, and on CUDA ``NotImplementedError``
+    where autograd is live."""
+    if x.ndim < 1 or w.shape != (x.shape[-1],):
+        raise ValueError(f"rmsnorm: w must be ({x.shape[-1] if x.ndim else '?'},) for x of "
+                         f"shape {tuple(x.shape)}, got {tuple(w.shape)}")
+    if not (x.is_floating_point() and w.is_floating_point()):
+        raise TypeError(f"rmsnorm: floating-point inputs required, got x={x.dtype}, "
+                        f"w={w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"rmsnorm: x is on {x.device} but w on {w.device}")
+    if x.device.type == "cpu":
+        return ref_rmsnorm(x, w, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(f"rmsnorm: the CUDA kernel {NO_BACKWARD}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"rmsnorm: the CUDA kernel takes float32/bfloat16/float16 x, got {x.dtype}")
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).contiguous()
+    out = torch.empty_like(xf)
+    if xf.numel() == 0:
+        return out.view(x.shape)
+    w32 = w.to(torch.float32).contiguous()
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.rmsnorm_launch(xf.data_ptr(), w32.data_ptr(), out.data_ptr(), xf.shape[0], d,
+                            eps, _DTYPE_CODE[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"rmsnorm: kernel launch failed: {lib.rmsnorm_error_string(rc).decode()}")
+    LAUNCHES["rmsnorm"] += 1
+    return out.view(x.shape)

@@ -1,0 +1,107 @@
+"""Shared building blocks of the LM: norms, the SwiGLU MLP, RoPE, embeddings.
+
+Parameters are plain nested dicts of tensors with the JAX package's keys
+and shapes. ``init_*`` draw from ``repro_torch.prng`` exactly as the JAX
+package draws from ``jax.random``, so a model initialised from the same
+key is the same model (within ``prng.normal``'s 4.8e-7). Where the JAX
+package ``vmap``s a per-layer init over ``split(key, n)``, the port calls
+the init once with the (n, 2) batch of keys: every ``init_*`` takes keys
+with leading axes and returns leaves with those axes in front.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import prng
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def normal(key, shape, std, dtype):
+    """``std * N(0, 1)`` drawn in f32, cast to ``dtype``; key (..., 2) ->
+    (..., *shape)."""
+    return (std * prng.normal(key, shape)).to(dtype)
+
+
+def rms_norm(x, scale, eps=1e-6):
+    """Row-wise RMSNorm over the last axis: the ``rmsnorm`` kernel on a CUDA
+    tensor, its plain version on a CPU one."""
+    return rmsnorm(x, scale, eps)
+
+
+# ---------------------------------------------------------------- MLP
+
+def init_swiglu(key, d_model, d_ff, dtype):
+    ks = prng.split(key, 3)
+    std = d_model ** -0.5
+    return {
+        "gate": normal(ks[..., 0, :], (d_model, d_ff), std, dtype),
+        "up": normal(ks[..., 1, :], (d_model, d_ff), std, dtype),
+        "down": normal(ks[..., 2, :], (d_ff, d_model), d_ff ** -0.5, dtype),
+    }
+
+
+def swiglu(p, x):
+    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+
+
+# ---------------------------------------------------------------- RoPE
+
+def rope_freqs(head_dim, theta):
+    """In numpy f32, as the JAX package computes them."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim, theta, device):
+    # one upload per (head_dim, theta, device): a copy from host memory per
+    # call would make the host wait for the card at every layer
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, hd) or (..., S, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs_on(hd, theta, x.device)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    if x.ndim == ang.ndim + 1:                            # has a heads axis
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- embedding
+
+def init_embedding(key, vocab, d_model, dtype):
+    return {"tok": normal(key, (vocab, d_model), 0.02, dtype)}
+
+
+def embed(p, tokens):
+    return p["tok"][tokens]
+
+
+def stacked_init(init_fn, key, n):
+    """``init_fn`` over ``split(key, n)`` -> params with a leading layer axis."""
+    return init_fn(prng.split(key, n))
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean CE over valid positions; logits (..., V) cast to f32, labels int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

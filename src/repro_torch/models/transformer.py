@@ -1,0 +1,167 @@
+"""Decoder-only LM assembly for the dense architectures.
+
+Params keep the JAX package's tree, with the layers stacked on axis 0
+(``params["dense_layers"]``), so ``interop.lm_params_from_numpy`` carries
+a JAX param tree across by key. Where the JAX package ``lax.scan``s over
+the stack, the port loops over it in Python. Its sharding constraints have
+no counterpart on one GPU (multi-GPU is ROADMAP queue 1 item 14).
+MoE, MLA, vlm and the other families are refused by name.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import prng
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embedding,
+                                       init_swiglu, normal, rms_norm, stacked_init, swiglu)
+from repro_torch.tree import tree_map
+
+# arch types of the JAX package that the port does not run yet, with the
+# ROADMAP queue 1 item that brings each
+UNPORTED_ARCHS = {
+    "moe": "MoE and MLA (qwen2-moe, deepseek-v2-lite) are ROADMAP queue 1 item 11",
+    "vlm": "the vlm family (phi3-vision) is ROADMAP queue 1 item 10",
+    "hybrid": "the hybrid family (zamba2) is ROADMAP queue 1 item 11",
+    "ssm": "the ssm family (xlstm) is ROADMAP queue 1 item 11",
+    "audio": "the audio family (whisper) is ROADMAP queue 1 item 11",
+}
+
+
+def check_ported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot run."""
+    if cfg.arch_type != "dense":
+        why = UNPORTED_ARCHS.get(cfg.arch_type, "it is not an arch type of the JAX package")
+        raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported: {why}")
+    if cfg.use_mla or cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE and MLA layers are not ported yet "
+                                  "(ROADMAP queue 1 item 11)")
+    if cfg.n_img_tokens:
+        raise NotImplementedError(f"{cfg.name}: image tokens (vlm) are not ported yet "
+                                  "(ROADMAP queue 1 item 10)")
+
+
+# ----------------------------------------------------------------- init
+
+def _init_block(key, cfg):
+    ks = prng.split(key, 2)
+    dt = dtype_of(cfg)
+    ones = torch.ones(*key.shape[:-1], cfg.d_model, dtype=dt, device=key.device)
+    return {"ln1": ones, "ln2": ones.clone(),
+            "attn": attn.init_attention(ks[..., 0, :], cfg),
+            "ffn": init_swiglu(ks[..., 1, :], cfg.d_model, cfg.d_ff, dt)}
+
+
+def init_lm(key, cfg, device=None):
+    """The JAX package's ``init_lm(key, cfg)``: the same model from the same
+    key, drawn on ``device`` (``None`` means CUDA)."""
+    check_ported(cfg)
+    key = key.to(resolve_device(device))
+    dt = dtype_of(cfg)
+    k_emb, k_dense, _, k_head = prng.split(key, 4)
+    params = {
+        "emb": init_embedding(k_emb, cfg.padded_vocab, cfg.d_model, dt),
+        "final_norm": torch.ones(cfg.d_model, dtype=dt, device=key.device),
+        "dense_layers": stacked_init(lambda k: _init_block(k, cfg), k_dense, cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = normal(k_head, (cfg.d_model, cfg.padded_vocab), cfg.d_model ** -0.5, dt)
+    return params
+
+
+# ----------------------------------------------------------------- blocks
+
+def _block_apply(p, cfg, x, positions, mode, cache=None, pos=None):
+    """One transformer block. Returns (x, new_cache)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    new_cache = None
+    if mode == "train":
+        a = attn.attn_train(p["attn"], cfg, h, positions)
+    elif mode == "prefill":
+        a, new_cache = attn.attn_prefill(p["attn"], cfg, h, positions)
+    else:
+        a, new_cache = attn.attn_decode(p["attn"], cfg, h, pos, cache)
+    x = x + a
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(p["ffn"], h), new_cache
+
+
+def lm_backbone(params, cfg, x, positions, mode, caches=None, pos=None):
+    """Runs the layer stack and the final norm. Returns (x, caches): the
+    prefill caches stacked on axis 0, or ``caches`` written in place by
+    decode, or {} in train mode."""
+    check_ported(cfg)
+    layers = params["dense_layers"]
+    stacked = caches["dense"] if mode == "decode" else None
+    new = []
+    for i in range(layers["ln1"].shape[0]):
+        p_l = tree_map(lambda t: t[i], layers)
+        c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
+        x, c = _block_apply(p_l, cfg, x, positions, mode, cache=c_l, pos=pos)
+        new.append(c)
+    if mode == "prefill":
+        caches = {"dense": {name: torch.stack([c[name] for c in new]) for name in new[0]}}
+    elif mode == "train":
+        caches = {}
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+
+
+def lm_logits(params, cfg, x):
+    head = params.get("head")
+    return x @ (head if head is not None else params["emb"]["tok"].T)
+
+
+# ----------------------------------------------------------------- entry
+
+def embed_inputs(params, cfg, batch):
+    """tokens -> (B, S, d) activations."""
+    if "img_embeds" in batch or "frames" in batch:
+        raise NotImplementedError("image and audio inputs are not ported yet "
+                                  "(ROADMAP queue 1 items 10-11)")
+    return embed(params["emb"], batch["tokens"])
+
+
+def _positions(B, S, device):
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def lm_loss(params, cfg, batch):
+    """Mean next-token CE over labels >= 0 (weighted by
+    ``batch["client_weights"]`` per row where given). Returns
+    (loss, {"aux": 0.0}); dense layers have no auxiliary loss."""
+    x = embed_inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    x, _ = lm_backbone(params, cfg, x, _positions(B, S, x.device), "train")
+    logits = lm_logits(params, cfg, x)
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    if "client_weights" in batch:
+        mask = mask * batch["client_weights"][:, None]
+    return cross_entropy(logits, torch.clamp(labels, min=0), mask), {"aux": 0.0}
+
+
+def lm_prefill(params, cfg, batch):
+    """Logits of the last prompt position (B, 1, V) and the filled caches."""
+    x = embed_inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    x, caches = lm_backbone(params, cfg, x, _positions(B, S, x.device), "prefill")
+    return lm_logits(params, cfg, x[:, -1:, :]), caches
+
+
+def init_lm_cache(params, cfg, batch_size, length, dtype, per_row=False):
+    """Empty caches for every layer, stacked on axis 0."""
+    ln1 = params["dense_layers"]["ln1"]
+    one = attn.init_cache(cfg, batch_size, length, dtype, ln1.device, per_row=per_row)
+    n = ln1.shape[0]
+    return {"dense": {name: t.expand(n, *t.shape).clone() for name, t in one.items()}}
+
+
+def lm_decode(params, cfg, token, pos, caches):
+    """token: (B, 1) ints; pos: the absolute position (int). Writes the new
+    slot into ``caches`` in place (it consumes the caches it is given) and
+    returns (logits (B, 1, V), caches)."""
+    x = embed(params["emb"], token)
+    x, caches = lm_backbone(params, cfg, x, None, "decode", caches=caches, pos=pos)
+    return lm_logits(params, cfg, x), caches

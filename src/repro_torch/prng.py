@@ -123,10 +123,25 @@ _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
+def _sqrt_f32(w: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root (XLA's ``sqrt``), for w > 0.
+
+    PyTorch's CPU ``sqrt`` goes through MKL's vector math: it is off by an
+    ulp on some inputs, and in rare processes one thread's chunk of a call
+    came back with errors near 2e-4 relative. Two Newton steps in f64 from
+    it leave an error far below half an f32 ulp either way."""
+    w64 = w.to(torch.float64)
+    s = torch.sqrt(w64)
+    for _ in range(2):
+        s = 0.5 * (s + w64 / s)
+    return s.to(torch.float32)
+
+
 def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     w = -torch.log1p(-x * x)
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    # the large branch only sees w >= 5; clamping keeps its unused lanes finite
+    w = torch.where(small, w - 2.5, _sqrt_f32(torch.clamp(w, min=5.0)) - 3.0)
     p = torch.zeros_like(x)
     for cs, cl in zip(_ERFINV_SMALL, _ERFINV_LARGE):
         c = torch.where(small, torch.tensor(cs, dtype=x.dtype, device=x.device),

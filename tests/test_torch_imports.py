@@ -1,13 +1,17 @@
-"""The port stands alone: nothing under src/repro_torch, and neither
-chip_smoke.py nor profile_async.py, imports jax or the JAX package."""
+"""The port stands alone: nothing under src/repro_torch, and none of
+chip_smoke.py, profile_async.py and profile_lm.py, imports jax or the JAX
+package."""
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                ROOT / "profile_async.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "profile_async.py", ROOT / "profile_lm.py"]
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)", re.M)
 
 
@@ -24,3 +28,30 @@ def test_regex_catches_reference_imports():
         assert IMPORT.search(bad), bad
     for ok in ["import repro_torch", "from repro_torch.api import spec", "import jaxlib_x"]:
         assert not IMPORT.search(ok), ok
+
+
+LM_SLICE = ["configs/__init__.py", "configs/base.py", "configs/smollm_135m.py",
+            "configs/qwen3_0_6b.py", "configs/qwen1_5_0_5b.py", "configs/qwen1_5_110b.py",
+            "kernels/flash_attention.py", "kernels/rmsnorm.py", "models/__init__.py",
+            "models/layers.py", "models/attention.py", "models/transformer.py",
+            "models/model.py", "launch/__init__.py", "launch/serve.py"]
+
+
+@pytest.mark.parametrize("rel", LM_SLICE)
+def test_lm_slice_modules_are_checked(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
+def test_importing_every_port_module_loads_no_jax():
+    """Import every module of the port in a fresh interpreter, then look at
+    what was loaded: neither jax nor the JAX package."""
+    pkg = ROOT / "src" / "repro_torch"
+    mods = sorted(".".join(("repro_torch",) + p.relative_to(pkg).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in pkg.rglob("*.py"))
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -1,0 +1,228 @@
+"""The port's flash attention and RMSNorm against the Pallas kernels they replace.
+
+On the CPU each wrapper takes its plain version; it is held against the
+Pallas kernel in interpret mode (``flash_attention_pallas``,
+``rmsnorm_pallas``) and against the JAX package's ``ref_attention`` /
+``ref_rmsnorm`` on the same numpy inputs, at the gates of
+tests/test_kernels.py (attention atol 2e-5 f32 / 3e-2 bf16, RMSNorm 1e-5
+f32 / 5e-2 bf16). The CUDA kernels run only on a card (marker ``cuda``),
+where they are held against the same plain versions:
+
+    python -m pytest -q -m cuda tests/test_torch_lm_kernels.py tests/test_torch_lm.py
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.ref import ref_attention as jax_ref_attention
+from repro.kernels.ref import ref_rmsnorm as jax_ref_rmsnorm
+from repro.kernels.rmsnorm import rmsnorm_pallas
+from repro.models.layers import rms_norm as jax_rms_norm
+from repro_torch.kernels import LAUNCHES, flash_attention, reset_launches, rmsnorm
+from repro_torch.kernels.ref import ref_attention, ref_rmsnorm
+from repro_torch.models.layers import rms_norm
+
+_JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+def _normal(shape, seed, scale=1.0, shift=0.0):
+    rng = np.random.default_rng(seed)
+    return (shift + scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _to_torch(a, dtype):
+    """numpy f32 -> torch ``dtype``, rounding exactly as JAX's astype."""
+    if dtype == "bfloat16":
+        bits = a.astype(ml_dtypes.bfloat16).view(np.uint16).astype(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _np32(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+# ----------------------------------------------------------- flash attention
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,blk", [
+    (1, 2, 2, 128, 128, 64, 64),
+    (2, 4, 2, 256, 256, 64, 128),   # GQA 2:1
+    (1, 8, 2, 128, 128, 32, 64),    # GQA 4:1
+    (2, 3, 1, 192, 192, 16, 64),    # odd head count, MQA
+    (1, 9, 3, 128, 128, 64, 64),    # smollm's heads: H/KV = 3
+    (1, 4, 2, 64, 192, 32, 64),     # Sq < Sk: causal is top-left aligned
+    (1, 2, 1, 192, 64, 16, 64),     # Sq > Sk
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas(B, H, KV, Sq, Sk, hd, blk, causal):
+    seed = B * 1000 + H * 100 + Sq + Sk + hd
+    q, k, v = (_normal(s, seed + i) for i, s in
+               enumerate([(B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)]))
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    assert got.shape == (B, H, Sq, hd) and got.dtype == torch.float32
+    qj, kj, vj = (jnp.asarray(a) for a in (q, k, v))
+    want = flash_attention_pallas(qj, kj, vj, causal=causal, blk_q=blk, blk_k=blk,
+                                  interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np32(want), atol=ATTN_TOL["float32"])
+    np.testing.assert_allclose(got.numpy(), _np32(jax_ref_attention(qj, kj, vj, causal=causal)),
+                               atol=ATTN_TOL["float32"])
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd", [(1, 2, 2, 128, 64), (1, 9, 3, 128, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_matches_pallas(B, H, KV, S, hd, causal):
+    q, k, v = (_normal(s, 40 + i) for i, s in
+               enumerate([(B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)]))
+    got = flash_attention(*(_to_torch(a, "bfloat16") for a in (q, k, v)), causal=causal)
+    assert got.dtype == torch.bfloat16
+    qj, kj, vj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = flash_attention_pallas(qj, kj, vj, causal=causal, interpret=True)
+    np.testing.assert_allclose(_np32(got), _np32(want), atol=ATTN_TOL["bfloat16"])
+    np.testing.assert_allclose(_np32(got), _np32(jax_ref_attention(qj, kj, vj, causal=causal)),
+                               atol=ATTN_TOL["bfloat16"])
+
+
+def test_flash_attention_cpu_is_the_plain_version():
+    q, k, v = (torch.from_numpy(_normal(s, 50 + i)) for i, s in
+               enumerate([(2, 4, 64, 32), (2, 2, 64, 32), (2, 2, 64, 32)]))
+    reset_launches()
+    torch.testing.assert_close(flash_attention(q, k, v), ref_attention(q, k, v), rtol=0, atol=0)
+    assert LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("q,k,v,err", [
+    (torch.zeros(2, 4, 8), torch.zeros(2, 2, 8, 16), torch.zeros(2, 2, 8, 16), ValueError),
+    (torch.zeros(2, 4, 8, 16), torch.zeros(2, 2, 8, 16), torch.zeros(2, 2, 9, 16), ValueError),
+    (torch.zeros(2, 4, 8, 16), torch.zeros(2, 3, 8, 16), torch.zeros(2, 3, 8, 16), ValueError),
+    (torch.zeros(2, 4, 8, 16), torch.zeros(1, 2, 8, 16), torch.zeros(1, 2, 8, 16), ValueError),
+    (torch.zeros(2, 4, 8, 16), torch.zeros(2, 2, 8, 32), torch.zeros(2, 2, 8, 32), ValueError),
+    (torch.zeros(2, 4, 8, 16), torch.zeros(2, 2, 0, 16), torch.zeros(2, 2, 0, 16), ValueError),
+    (torch.zeros(2, 4, 8, 16), torch.zeros(2, 2, 8, 16, dtype=torch.bfloat16),
+     torch.zeros(2, 2, 8, 16, dtype=torch.bfloat16), TypeError),
+    (torch.zeros(2, 4, 8, 16, dtype=torch.int32), torch.zeros(2, 2, 8, 16, dtype=torch.int32),
+     torch.zeros(2, 2, 8, 16, dtype=torch.int32), TypeError),
+])
+def test_flash_attention_validation(q, k, v, err):
+    with pytest.raises(err):
+        flash_attention(q, k, v)
+
+
+# ----------------------------------------------------------------- RMSNorm
+
+@pytest.mark.parametrize("shape", [(4, 64), (2, 3, 128), (130, 96), (7, 576)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_pallas(shape, dtype):
+    x = _normal(shape, 30)
+    w = _normal(shape[-1:], 31, scale=0.1, shift=1.0)
+    got = rmsnorm(_to_torch(x, dtype), _to_torch(w, dtype))
+    assert got.shape == shape and got.dtype == _TORCH[dtype]
+    xj, wj = jnp.asarray(x).astype(_JNP[dtype]), jnp.asarray(w).astype(_JNP[dtype])
+    want = rmsnorm_pallas(xj, wj, blk_rows=64, interpret=True)
+    np.testing.assert_allclose(_np32(got), _np32(want), atol=NORM_TOL[dtype])
+    np.testing.assert_allclose(_np32(got), _np32(jax_ref_rmsnorm(xj, wj)), atol=NORM_TOL[dtype])
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+def test_model_rms_norm_matches_jax_model_rms_norm(eps):
+    x, w = _normal((5, 96), 35), _normal((96,), 36)
+    got = rms_norm(torch.from_numpy(x), torch.from_numpy(w), eps)
+    np.testing.assert_allclose(got.numpy(), _np32(jax_rms_norm(jnp.asarray(x), jnp.asarray(w),
+                                                               eps)), atol=1e-6)
+
+
+def test_rmsnorm_cpu_is_the_plain_version_and_differentiable():
+    x = torch.from_numpy(_normal((6, 64), 37)).requires_grad_()
+    w = torch.from_numpy(_normal((64,), 38))
+    reset_launches()
+    out = rmsnorm(x, w)
+    torch.testing.assert_close(out, ref_rmsnorm(x, w), rtol=0, atol=0)
+    out.sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert LAUNCHES["rmsnorm"] == 0
+
+
+@pytest.mark.parametrize("x,w,err", [
+    (torch.zeros(4, 8), torch.zeros(7), ValueError),
+    (torch.zeros(4, 8), torch.zeros(8, 1), ValueError),
+    (torch.zeros(4, 8, dtype=torch.int32), torch.zeros(8), TypeError),
+    (torch.zeros(4, 8), torch.zeros(8, dtype=torch.int64), TypeError),
+])
+def test_rmsnorm_validation(x, w, err):
+    with pytest.raises(err):
+        rmsnorm(x, w)
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels cannot run on the CPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [(2, 9, 3, 256, 256, 64), (1, 16, 8, 128, 128, 128),
+                                            (2, 4, 2, 256, 256, 32), (1, 4, 2, 100, 300, 16),
+                                            (1, 2, 1, 300, 77, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_matches_plain(cuda_device, B, H, KV, Sq, Sk, hd, causal, dtype):
+    q, k, v = (_to_torch(_normal(s, 60 + i), dtype).to(cuda_device) for i, s in
+               enumerate([(B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)]))
+    reset_launches()
+    got = flash_attention(q, k, v, causal=causal)
+    want = ref_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.dtype == _TORCH[dtype] and got.shape == (B, H, Sq, hd)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_reads_transposed_views(cuda_device):
+    """The model hands over (B, S, H, hd) tensors viewed as (B, H, S, hd);
+    the output keeps that layout, so transposing it back is contiguous."""
+    B, S, H, KV, hd = 2, 256, 9, 3, 64
+    q, k, v = (torch.from_numpy(_normal(s, 70 + i)).to(cuda_device) for i, s in
+               enumerate([(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)]))
+    got = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    want = ref_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    assert (got - want).abs().max().item() <= ATTN_TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(1, 576), (8193, 576), (300, 64), (257, 128), (33, 1024),
+                                    (5, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_cuda_matches_plain(cuda_device, rows, d, dtype):
+    x = _to_torch(_normal((rows, d), 80), dtype).to(cuda_device)
+    w = _to_torch(_normal((d,), 81, scale=0.1, shift=1.0), dtype).to(cuda_device)
+    reset_launches()
+    got, want = rmsnorm(x, w), ref_rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rmsnorm"] == 1
+    assert got.dtype == _TORCH[dtype] and got.shape == (rows, d)
+    assert (got.float() - want.float()).abs().max().item() <= NORM_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_autograd(cuda_device):
+    x = torch.ones(4, 64, device=cuda_device, requires_grad=True)
+    w = torch.ones(64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        rmsnorm(x, w)
+    q = torch.ones(1, 2, 64, 64, device=cuda_device, requires_grad=True)
+    kv = torch.ones(1, 2, 64, 64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        flash_attention(q, kv, kv)
+    with torch.no_grad():
+        assert rmsnorm(x, w).shape == x.shape
+        assert flash_attention(q, kv, kv).shape == q.shape
