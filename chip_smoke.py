@@ -53,7 +53,32 @@ printed only when every phase passed:
    S=2048 on the card: exactly 30 flash_attention and 61 rmsnorm launches
    per forward, the loss within 2e-4 of the ``use_pallas=False`` loss, ms
    per forward and peak memory; card against CPU at B=1, S=256 within 1e-4.
-12. A JSON line describing every kernel, the card line, and the final
+   Then smollm's weights are freed.
+12. The gated_rmsnorm kernel against its plain version on the card at
+   Mamba2's gate shapes (rows x d for d 128, zamba2's d_inner 7168 and a
+   ragged 1001, f32 and bf16; atol 2e-5 / 5e-2), with times at (2048, 7168)
+   f32 beside the bytes bound, the plain version and the composite
+   ``F.rms_norm(x * F.silu(z))`` (no single PyTorch call computes it).
+13. The ssd_scan kernel against its plain versions on the card: against
+   ``ref_ssd`` (the sequential recurrence) at the JAX sweep's shapes (atol
+   5e-4, rtol 1e-3) and its chunk invariance (5e-5 / 1e-4); against the
+   model's ``ssd_chunked`` (y and final state) at zamba2-7b's loss shape
+   (1, 112, 2048, 64), chunk 256, and serve-prefill shape (8, 112, 128, 64),
+   chunk 64, with B and C as stride-0 head views, and chunks 64 and 256
+   against each other at the loss shape. Times at both shapes beside the
+   operations and bytes bounds, ``ref_ssd`` and ``ssd_chunked``.
+14. Serving zamba2-7b at full width and depth (81 layers, 13 shared slots,
+   f32 weights from PRNGKey(0)) with ``use_pallas=True``: batch 8, prompt
+   128 (so chunk 64), 32 greedy tokens; prefill and decode tokens/s and the
+   launches per forward (prefill: 81 gated_rmsnorm, 81 ssd_scan, 108
+   rmsnorm; a decode step: 189 rmsnorm). Card against CPU at full width and
+   7 layers (one shared slot, one tail layer): batch 2, 4 tokens, identical
+   greedy tokens and prefill logits within 1e-3.
+15. The zamba2-7b loss at B=1, S=2048, full depth, with ``use_pallas=True``
+   (13 flash_attention, 81 ssd_scan, 81 gated_rmsnorm, 108 rmsnorm
+   launches) and without: ms per forward, peak memory, the two losses
+   within 2e-4.
+16. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Needs CUDA, nvcc (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``)
@@ -82,7 +107,6 @@ MAIN_K = (1, 3, 4, 8, 16)           # sync cohorts; K=4 is the async slice's flu
 MAIN_N = (1738, 3786, 6922, 2049)   # synth-mnist, -fmnist, -cifar MLPs; a ragged N
 TIMED_MAIN = (8, 6922)              # the largest fold the sync slice makes
 LM_K, LM_N = 8, 2**27               # about smollm-135m's parameter count
-KERNELS = ("fedavg", "fused_aggregate", "flash_attention", "rmsnorm")
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 TASKS = ("synth-mnist", "synth-cifar", "synth-fmnist")
 ROUNDS = 25
@@ -103,12 +127,34 @@ NORM_SHAPES = ((1, 576), (8192, 576), (8193, 576), (4096 * 9, 64), (2048 * 16, 1
 NORM_TIMED = (8192, 576)
 NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2}     # tests/test_kernels.py
 # (B, H, KV, Sq, Sk, hd): smollm-135m's forward at B=4 S=2048, a qwen3-like
-# head layout, the JAX sweep's small shape, a ragged Sq != Sk
+# head layout, the JAX sweep's small shape, a ragged Sq != Sk, zamba2-7b's
+# shared attention at B=1 S=2048 (hd 3584 / 32 = 112)
 FLASH_SHAPES = ((4, 9, 3, 2048, 2048, 64), (1, 16, 8, 2048, 2048, 128), (2, 4, 2, 256, 256, 32),
-                (1, 4, 2, 200, 456, 64))
+                (1, 4, 2, 200, 456, 64), (1, 32, 32, 2048, 2048, 112))
+FLASH_ZAMBA = FLASH_SHAPES[4]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}    # tests/test_kernels.py
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32
 LOSS_B, LOSS_S = 4, 2048
+
+HYBRID_ARCH = "zamba2-7b"
+# (rows, d) of Mamba2's gate: a decode row, the serve prefill (8 x 128) and
+# the loss (1 x 2048) at zamba2's d_inner, a ragged row count, the smoke
+# width, a width that is no multiple of 8
+GATED_SHAPES = ((1, 7168), (1024, 7168), (2048, 7168), (257, 7168), (300, 128), (33, 1001))
+GATED_TIMED = (2048, 7168)
+GATED_TOL = {"float32": 2e-5, "bfloat16": 5e-2}    # tests/test_kernels.py (f32), RMSNorm's (bf16)
+# (B, H, L, P, N, chunk): tests/test_kernels.py::test_ssd_scan_sweep's shapes
+# and a ragged one (L % chunk != 0, N not a multiple of 4)
+SSD_SMALL = ((1, 1, 64, 16, 8, 16), (2, 3, 128, 32, 16, 32), (1, 2, 96, 8, 4, 48),
+             (2, 1, 256, 64, 64, 128), (1, 3, 100, 12, 6, 32))
+# zamba2-7b's scans: H = 112 heads of P = 64, state N = 64; the loss at B=1
+# S=2048 (chunk 256) and the serve prefill at B=8 P=128 (chunk 64)
+SSD_LOSS = (1, 112, 2048, 64, 64, 256)
+SSD_SERVE = (8, 112, 128, 64, 64, 64)
+SSD_TOL = dict(atol=5e-4, rtol=1e-3)               # tests/test_kernels.py
+SSD_CHUNK_TOL = dict(atol=5e-5, rtol=1e-4)         # test_ssd_scan_state_continuity
+HYBRID_CPU_LAYERS, HYBRID_CPU_BATCH, HYBRID_CPU_GEN = 7, 2, 4
+HYBRID_LOSS_B, HYBRID_LOSS_S = 1, 2048
 
 
 def fail(msg: str) -> None:
@@ -171,7 +217,7 @@ def fold_bound_ms(K: int, N: int, in_bytes: int, out_bytes: int) -> tuple:
 def phase_card():
     import torch
 
-    from repro_torch.kernels.build import load_all
+    from repro_torch.kernels.build import KERNELS, load_all
 
     print("== phase 1: card")
     line = card_line()
@@ -697,10 +743,10 @@ def phase_flash():
                 if not err <= FLASH_TOL[name]:
                     fail(f"flash_attention {where}: max |err| {err} > {FLASH_TOL[name]}")
                 del got, want
-            if (B, H, KV, Sq, Sk, hd) != FLASH_SHAPES[0]:
+            if (B, H, KV, Sq, Sk, hd) not in (FLASH_SHAPES[0], FLASH_ZAMBA):
                 continue
             bound, by = flash_bound_ms(B, H, KV, Sq, Sk, hd, True, size, peak)
-            timed[name] = {
+            timed[(B, H, KV, Sq, Sk, hd), name] = {
                 "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), reps=10),
                 "plain_ms": time_ms(lambda: ref_attention(q, k, v, True), reps=10),
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -710,9 +756,8 @@ def phase_flash():
             torch.cuda.empty_cache()
     for name, (err, where) in errs.items():
         print(f"{name}: max |err| {err:.3g} (tol {FLASH_TOL[name]}) at {where}")
-    B, H, KV, Sq, Sk, hd = FLASH_SHAPES[0]
-    for name, r in timed.items():
-        print(f"flash causal {(B, H, KV, Sq, Sk, hd)} {name}: kernel {r['ms']:.4f} ms "
+    for (shape, name), r in timed.items():
+        print(f"flash causal {shape} {name}: kernel {r['ms']:.4f} ms "
               f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_by']} bound "
               f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library (SDPA) "
               f"{r['library_ms']:.4f} ms")
@@ -846,6 +891,319 @@ def phase_loss(params):
             "cpu_loss_diff": cpu_diff}
 
 
+def phase_gated():
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import gated_rmsnorm
+    from repro_torch.kernels.ref import ref_gated_rmsnorm
+
+    print("== phase 12: gated_rmsnorm kernel vs plain version on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for rows, d in GATED_SHAPES:
+        x32 = torch.randn(rows, d, generator=gen, device=dev)
+        z32 = torch.randn(rows, d, generator=gen, device=dev)
+        w32 = torch.randn(d, generator=gen, device=dev).mul_(0.1).add_(1.0)
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, z, w = x32.to(dtype), z32.to(dtype), w32.to(dtype)
+            got, want = gated_rmsnorm(x, z, w), ref_gated_rmsnorm(x, z, w)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != x.shape:
+                fail(f"gated_rmsnorm ({rows}, {d}) {name}: got {got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            errs[name] = max(errs[name], err)
+            if not err <= GATED_TOL[name]:
+                fail(f"gated_rmsnorm ({rows}, {d}) {name}: max |err| {err} > {GATED_TOL[name]}")
+    print(f"shapes {GATED_SHAPES}: max |err| f32 {errs['float32']:.3g} (tol "
+          f"{GATED_TOL['float32']}), bf16 {errs['bfloat16']:.3g} (tol {GATED_TOL['bfloat16']})")
+
+    rows, d = GATED_TIMED
+    w = torch.randn(d, generator=gen, device=dev).mul_(0.1).add_(1.0)
+    xz = _rotating(lambda: (torch.randn(rows, d, generator=gen, device=dev),
+                            torch.randn(rows, d, generator=gen, device=dev)), 3)
+    fns = {"": lambda: gated_rmsnorm(*next(xz), w),
+           "plain_": lambda: ref_gated_rmsnorm(*next(xz), w),
+           "composite_": lambda: (lambda x, z: F.rms_norm(x * F.silu(z), (d,), w, 1e-6))(*next(xz))}
+    nbytes = 3 * rows * d * 4 + 4 * d
+    rec = {"shape": [rows, d], "dtype": "float32", "max_abs_err": errs["float32"],
+           "max_abs_err_bf16": errs["bfloat16"],
+           "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           # no single PyTorch call computes the fused gate; the composite
+           # F.rms_norm(x * F.silu(z)) stands beside it
+           "library_ms": None}
+    for key, fn in fns.items():
+        rec[f"{key}ms"] = graph_ms(fn, inner=30)
+        rec[f"eager_{key}ms"] = time_ms(fn, inner=30)
+    print(f"gated_rmsnorm ({rows}, {d}) f32, device time (CUDA graph, inputs cycled past L2): "
+          f"kernel {rec['ms']:.5f} ms ({rec['bound_ms'] / rec['ms']:.1%} of the bytes bound "
+          f"{rec['bound_ms']:.5f} ms), plain {rec['plain_ms']:.5f} ms, composite "
+          f"F.rms_norm(x * F.silu(z)) {rec['composite_ms']:.5f} ms; eager per call: kernel "
+          f"{rec['eager_ms']:.5f} ms, plain {rec['eager_plain_ms']:.5f} ms, composite "
+          f"{rec['eager_composite_ms']:.5f} ms")
+    del xz, fns
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssd_bound_ms(B, H, L, P, N, chunk, shared_bc: bool) -> tuple:
+    """Least time for one scan. Operations: per chunk of Q steps, 2 (N + P)
+    flops per causal (i, j <= i) pair (scores and their product with x)
+    and 2 N P per step for each of the carry-in and the state update, at
+    the f32 rate; bytes: x read and y written once, a once, b and c once
+    per distinct (batch, head) view, the final state written once, at the
+    data-sheet bandwidth. The larger wins."""
+    Z, Q = -(-L // chunk), min(chunk, L)
+    ops = B * H * Z * (Q * (Q + 1) // 2 * 2 * (N + P) + 4 * Q * N * P)
+    bc_heads = 1 if shared_bc else H
+    nbytes = 4 * (2 * B * H * L * P + B * H * L + 2 * B * bc_heads * L * N + B * H * N * P)
+    ops_ms = ops / PEAK_F32_FLOP_PER_S * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _ssd_inputs(gen, B, H, L, P, N, dev, shared_bc):
+    """x scaled 0.5, a = -softplus(normal), b and c scaled 0.3 (the JAX
+    sweep's inputs), b and c one (B, L, N) group viewed over the heads
+    when ``shared_bc``."""
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.randn(B, H, L, P, generator=gen, device=dev).mul_(0.5)
+    a = -F.softplus(torch.randn(B, H, L, generator=gen, device=dev))
+    if shared_bc:
+        b, c = (torch.randn(B, 1, L, N, generator=gen, device=dev).mul_(0.3).expand(B, H, L, N)
+                for _ in range(2))
+    else:
+        b, c = (torch.randn(B, H, L, N, generator=gen, device=dev).mul_(0.3) for _ in range(2))
+    return x, a, b, c
+
+
+def _chunked(x, a, b, c, chunk):
+    """The model's ssd_chunked on the kernel's (B, H, L, *) layout (one
+    group shared by the heads): (y (B, H, L, P), final state (B, H, N, P))."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    y, h = ssd_chunked(x.transpose(1, 2)[:, :, None], a.transpose(1, 2)[:, :, None],
+                       b[:, 0, :, None], c[:, 0, :, None], chunk)
+    return y[:, :, 0].transpose(1, 2), h[:, 0]
+
+
+def _close(got, want, tol, what: str) -> float:
+    """max |got - want|; fails unless it is within atol + rtol |want| everywhere."""
+    diff = (got.float() - want.float()).abs()
+    if not bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all()):
+        fail(f"{what}: max |err| {diff.max().item()} over {tol}")
+    return diff.max().item()
+
+
+def phase_ssd():
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ref_ssd
+
+    print("== phase 13: ssd_scan kernel vs plain versions on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    err = 0.0
+    for B, H, L, P, N, chunk in SSD_SMALL:
+        x, a, b, c = _ssd_inputs(gen, B, H, L, P, N, dev, shared_bc=False)
+        got, h = ssd_scan(x, a, b, c, chunk, return_state=True)
+        want, want_h = ref_ssd(x, a, b, c, return_state=True)
+        torch.cuda.synchronize()
+        for what, g, r in (("y", got, want), ("state", h, want_h)):
+            err = max(err, _close(g, r, SSD_TOL, f"ssd_scan {(B, H, L, P, N, chunk)} {what}"))
+    x, a, b, c = _ssd_inputs(gen, 1, 2, 128, 16, 8, dev, shared_bc=False)
+    inv = _close(ssd_scan(x, a, b, c, 16), ssd_scan(x, a, b, c, 128), SSD_CHUNK_TOL,
+                 "ssd_scan chunk 16 vs 128")
+    print(f"small shapes {SSD_SMALL} against ref_ssd: max |err| {err:.3g} ({SSD_TOL}); chunks "
+          f"16 vs 128 at (1, 2, 128, 16, 8): max |diff| {inv:.3g} ({SSD_CHUNK_TOL})")
+
+    timed = {}
+    for label, (B, H, L, P, N, chunk) in (("loss", SSD_LOSS), ("serve", SSD_SERVE)):
+        x, a, b, c = _ssd_inputs(gen, B, H, L, P, N, dev, shared_bc=True)
+        got, h = ssd_scan(x, a, b, c, chunk, return_state=True)
+        want, want_h = _chunked(x, a, b, c, chunk)
+        torch.cuda.synchronize()
+        where = f"ssd_scan {label} {(B, H, L, P, N, chunk)} vs ssd_chunked"
+        e_y = _close(got, want, SSD_TOL, f"{where}: y")
+        e_h = _close(h, want_h, SSD_TOL, f"{where}: state")
+        err = max(err, e_y, e_h)
+        rec = {"shape": [B, H, L, P, N], "chunk": chunk, "dtype": "float32",
+               "bc": "one group, stride-0 head view", "max_abs_err_vs_chunked": max(e_y, e_h)}
+        if label == "loss":
+            rec["chunk64_vs_256_max_abs_diff"] = _close(ssd_scan(x, a, b, c, 64), got, SSD_TOL,
+                                                         "ssd_scan loss shape chunk 64 vs 256")
+        rec["bound_ms"], rec["bound_by"] = ssd_bound_ms(B, H, L, P, N, chunk, True)
+        rec["ms"] = time_ms(lambda: ssd_scan(x, a, b, c, chunk, return_state=True), inner=5)
+        rec["plain_ms"] = time_ms(lambda: ref_ssd(x, a, b, c, return_state=True), reps=3)
+        rec["chunked_ms"] = time_ms(lambda: _chunked(x, a, b, c, chunk), reps=5)
+        rec["library_ms"] = None          # no PyTorch call computes the scan
+        timed[label] = rec
+        print(f"ssd_scan {label} {(B, H, L, P, N)} chunk {chunk} f32: y max |err| vs ssd_chunked "
+              f"{e_y:.3g}, state {e_h:.3g}"
+              + (f", chunk 64 vs 256 {rec['chunk64_vs_256_max_abs_diff']:.3g}" if label == "loss"
+                 else "")
+              + f"; kernel {rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.1%} of the "
+              f"{rec['bound_by']} bound {rec['bound_ms']:.4f} ms), ref_ssd {rec['plain_ms']:.3f} "
+              f"ms, ssd_chunked {rec['chunked_ms']:.4f} ms")
+        del x, a, b, c, got, h, want, want_h
+    torch.cuda.empty_cache()
+    return err, timed
+
+
+def _hybrid_counts(api, params, cfg, prompts, token):
+    """Launches of one prefill and of one decode step after it."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import pad_cache
+
+    P = prompts.shape[1]
+    with torch.no_grad():
+        reset_launches()
+        _, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+        prefill = dict(LAUNCHES)
+        caches = pad_cache(caches, P, P + 1)
+        reset_launches()
+        api.decode_fn(params, cfg, token, P, caches)
+        decode = dict(LAUNCHES)
+    del caches
+    return prefill, decode
+
+
+def phase_hybrid_serve():
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate, serve_config
+    from repro_torch.models import get_api, param_count
+    from repro_torch.models.hybrid import n_shared_slots
+    from repro_torch.tree import tree_map
+
+    print(f"== phase 14: serving {HYBRID_ARCH} at full width and depth on the card (use_pallas)")
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    cfg = serve_config(get_config(HYBRID_ARCH).replace(use_pallas=True), P)
+    api = get_api(cfg)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = api.init_params(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    print(f"init_params(PRNGKey(0)) on the card: {n_params} params ({cfg.n_layers} layers, "
+          f"{n_shared_slots(cfg)} shared slots, ssm_chunk {cfg.ssm_chunk}), "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts = prng.randint(prng.PRNGKey(0, device=dev), (B, P), 0, cfg.vocab_size)
+    L, slots = cfg.n_layers, n_shared_slots(cfg)
+    norms = L + 2 * slots + 1
+    want_prefill = {"gated_rmsnorm": L, "ssd_scan": L, "rmsnorm": norms}
+    want_decode = {"rmsnorm": norms + L}
+    generate(params, cfg, prompts, 2)                          # warm-up: cuBLAS, allocator
+    reset_launches()
+    res = generate(params, cfg, prompts, G)
+    launches = dict(LAUNCHES)
+    want = {"gated_rmsnorm": L, "ssd_scan": L, "rmsnorm": norms + (G - 1) * (norms + L)}
+    if launches != want:
+        fail(f"hybrid serve: launches {launches}, expected {want}")
+    per_prefill, per_decode = _hybrid_counts(api, params, cfg, prompts, res.tokens[:, :1])
+    if per_prefill != want_prefill or per_decode != want_decode:
+        fail(f"hybrid serve: one prefill launched {per_prefill} (expected {want_prefill}), one "
+             f"decode step {per_decode} (expected {want_decode})")
+    if res.tokens.shape != (B, G) or not bool(((res.tokens >= 0)
+                                                & (res.tokens < cfg.vocab_size)).all()):
+        fail(f"hybrid serve: tokens {tuple(res.tokens.shape)} out of range")
+    rec = {"arch": HYBRID_ARCH, "params": n_params, "batch": B, "prompt": P, "gen": G,
+           "ssm_chunk": cfg.ssm_chunk, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+           "prefill_tok_s": B * P / res.prefill_s, "decode_tok_s": B * (G - 1) / res.decode_s,
+           "launches": launches, "per_prefill": per_prefill, "per_decode_step": per_decode}
+    print(f"serve {HYBRID_ARCH} batch {B} prompt {P} gen {G}: prefill {res.prefill_s * 1e3:.2f} ms "
+          f"({rec['prefill_tok_s']:.0f} tok/s), decode {res.decode_s * 1e3:.2f} ms for {G - 1} "
+          f"steps ({rec['decode_tok_s']:.1f} tok/s); launches {launches}; per prefill "
+          f"{per_prefill}, per decode step {per_decode}")
+
+    # card against CPU: the first 7 layers and the first shared slot of the
+    # same weights, at full width
+    small_cfg = cfg.replace(n_layers=HYBRID_CPU_LAYERS)
+    n_small = n_shared_slots(small_cfg)
+    small = dict(params, layers=tree_map(lambda t: t[:HYBRID_CPU_LAYERS], params["layers"]),
+                 lora=tree_map(lambda t: t[:n_small], params["lora"]))
+    cpu = torch.device("cpu")
+    small_cpu = tree_map(lambda t: t.to(cpu), small)
+    few = prompts[:HYBRID_CPU_BATCH]
+    gpu2 = generate(small, small_cfg, few, HYBRID_CPU_GEN)
+    t0 = time.perf_counter()
+    cpu2 = generate(small_cpu, small_cfg, few.to(cpu), HYBRID_CPU_GEN)
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
+        lg_gpu, _ = api.prefill_fn(small, small_cfg, {"tokens": few, "labels": few})
+        lg_cpu, _ = api.prefill_fn(small_cpu, small_cfg, {"tokens": few.to(cpu),
+                                                          "labels": few.to(cpu)})
+    diff = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+    same = torch.equal(gpu2.tokens.cpu(), cpu2.tokens)
+    print(f"{HYBRID_CPU_LAYERS} layers ({n_small} shared slot), batch {HYBRID_CPU_BATCH}, "
+          f"{HYBRID_CPU_GEN} tokens on the host CPU ({cpu_s:.2f} s): greedy tokens identical="
+          f"{same}, max |prefill logits card - cpu| {diff:.3g}")
+    if not same or not diff <= 1e-3:
+        fail("hybrid serve: card and CPU disagree")
+    rec.update(cpu_layers=HYBRID_CPU_LAYERS, cpu_tokens_identical=same,
+               cpu_prefill_logits_max_abs_diff=diff)
+    del small_cpu, small
+    return params, rec
+
+
+def phase_hybrid_loss(params):
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import get_api
+    from repro_torch.models.hybrid import n_shared_slots
+
+    print(f"== phase 15: the forward loss of {HYBRID_ARCH} at full depth on the card")
+    cfg = get_config(HYBRID_ARCH)
+    pallas = cfg.replace(use_pallas=True)
+    api = get_api(cfg)
+    dev = torch.device("cuda")
+    tokens = prng.randint(prng.PRNGKey(1, device=dev), (HYBRID_LOSS_B, HYBRID_LOSS_S), 0,
+                          cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": tokens}
+    L, slots = cfg.n_layers, n_shared_slots(cfg)
+    want = {"flash_attention": slots, "ssd_scan": L, "gated_rmsnorm": L,
+            "rmsnorm": L + 2 * slots + 1}
+    with torch.no_grad():
+        api.loss_fn(params, pallas, batch)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        loss, _ = api.loss_fn(params, pallas, batch)
+        launches = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss_plain, _ = api.loss_fn(params, cfg, batch)
+        torch.cuda.synchronize()
+        peak_plain = torch.cuda.max_memory_allocated()
+        ms = time_ms(lambda: api.loss_fn(params, pallas, batch), reps=3)
+        ms_plain = time_ms(lambda: api.loss_fn(params, cfg, batch), reps=3)
+    if launches != want:
+        fail(f"hybrid loss: launches {launches}, expected {want}")
+    diff = abs(loss.item() - loss_plain.item())
+    print(f"loss B={HYBRID_LOSS_B} S={HYBRID_LOSS_S}: use_pallas {loss.item():.6f}, plain path "
+          f"{loss_plain.item():.6f}, |diff| {diff:.3g} (tol 2e-4); {ms:.2f} ms per forward "
+          f"({ms_plain:.2f} ms without the kernels); peak memory {peak / 2**30:.3f} GiB "
+          f"({peak_plain / 2**30:.3f} GiB); launches {launches}")
+    if not torch.isfinite(loss) or not diff <= 2e-4:
+        fail(f"hybrid loss: use_pallas {loss.item()} vs {loss_plain.item()}")
+    return {"B": HYBRID_LOSS_B, "S": HYBRID_LOSS_S, "loss": loss.item(),
+            "loss_plain_path": loss_plain.item(), "ms": ms, "ms_plain_path": ms_plain,
+            "peak_bytes": peak, "peak_bytes_plain_path": peak_plain, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -864,6 +1222,13 @@ def main() -> int:
     flash_errs, flash_timed = phase_flash()
     params, served = phase_serve()
     loss = phase_loss(params)
+    del params
+    torch.cuda.empty_cache()
+    gated = phase_gated()
+    ssd_err, ssd_timed = phase_ssd()
+    hparams, hserved = phase_hybrid_serve()
+    hloss = phase_hybrid_loss(hparams)
+    del hparams
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -905,13 +1270,16 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:74",
         "launches": loss["launches"]["flash_attention"],
+        "launches_zamba2_loss": hloss["launches"]["flash_attention"],
         "max_abs_err": flash_errs["float32"],
         "max_abs_err_bf16": flash_errs["bfloat16"],
         "shape": list(FLASH_SHAPES[0]),
         "causal": True,
         "dtype": "float32",
-        **flash_timed["float32"],
-        "bf16": flash_timed["bfloat16"],
+        **flash_timed[FLASH_SHAPES[0], "float32"],
+        "bf16": flash_timed[FLASH_SHAPES[0], "bfloat16"],
+        "zamba2_hd112": {"shape": list(FLASH_ZAMBA), "float32": flash_timed[FLASH_ZAMBA, "float32"],
+                         "bf16": flash_timed[FLASH_ZAMBA, "bfloat16"]},
     }
     rms = {
         "name": "rmsnorm",
@@ -920,10 +1288,33 @@ def main() -> int:
         "replaces": "src/repro/kernels/rmsnorm.py:39",
         "launches": served["rmsnorm_launches"],
         "launches_loss": loss["launches"]["rmsnorm"],
+        "launches_zamba2_serve": hserved["launches"]["rmsnorm"],
+        "launches_zamba2_loss": hloss["launches"]["rmsnorm"],
         **norm,
     }
-    print(json.dumps({"serve": served, "loss": loss}))
-    print(json.dumps({"kernels": [fedavg, fused, flash, rms]}))
+    gated_rec = {
+        "name": "gated_rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gated_rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:63",
+        "launches": hserved["launches"]["gated_rmsnorm"],
+        "launches_loss": hloss["launches"]["gated_rmsnorm"],
+        **gated,
+    }
+    ssd = {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:64",
+        "launches": hserved["launches"]["ssd_scan"],
+        "launches_loss": hloss["launches"]["ssd_scan"],
+        "max_abs_err": ssd_err,
+        **ssd_timed["loss"],
+        "serve_prefill": ssd_timed["serve"],
+    }
+    print(json.dumps({"serve": served, "loss": loss, "zamba2_serve": hserved,
+                      "zamba2_loss": hloss}))
+    print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

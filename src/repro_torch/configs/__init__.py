@@ -1,6 +1,7 @@
 """Config registry of the port: importing this package registers the
-dense archs it runs. The other six archs of the JAX package come with
-their families (ROADMAP queue 1 items 10-11)."""
+archs it runs (the dense ones and the zamba2 hybrid). The other five archs
+of the JAX package come with their families (ROADMAP queue 1 items
+10-11)."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     InputShape,
@@ -14,4 +15,5 @@ from repro_torch.configs import (  # noqa: F401
     qwen1_5_110b,
     qwen3_0_6b,
     smollm_135m,
+    zamba2_7b,
 )

@@ -2,7 +2,8 @@
 
 ``ModelConfig`` is a frozen dataclass with the JAX package's fields and
 defaults, so a config built on either side describes the same model; the
-port runs the ``dense`` ones (``models.get_api`` refuses the others). The
+port runs the ``dense`` and ``hybrid`` ones (``models.get_api`` refuses
+the others). The
 registry maps ``--arch <id>`` to a config factory; ``smoke_config`` gives
 the reduced variant of the same family that the CPU tests run.
 """
@@ -144,11 +145,12 @@ def list_archs() -> Tuple[str, ...]:
 
 def smoke_config(name: str) -> ModelConfig:
     """Reduced variant of the same family: 2 layers, d_model 128, 4 heads
-    of 32, vocab 512. Only dense archs are registered in the port, so the
-    JAX package's MoE/MLA/SSM/hybrid/xlstm/encdec/vlm reductions come with
-    their families (ROADMAP queue 1 items 10-11)."""
+    of 32, vocab 512; an SSM state of 16 with heads of 16 and chunks of 8,
+    and a shared attention every 2 layers with LoRA rank 8, as the JAX
+    package reduces them. Its MoE/MLA/xlstm/encdec/vlm reductions come
+    with those families (ROADMAP queue 1 items 10-11)."""
     cfg = get_config(name)
-    return cfg.replace(
+    kw = dict(
         name=cfg.name + "-smoke",
         n_layers=2,
         d_model=128,
@@ -162,3 +164,8 @@ def smoke_config(name: str) -> ModelConfig:
         remat=False,
         activation_shard="none",
     )
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    if cfg.attn_every:
+        kw.update(attn_every=2, shared_attn_lora_rank=8)
+    return cfg.replace(**kw)

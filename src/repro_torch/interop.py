@@ -43,12 +43,13 @@ def _tensor(a) -> torch.Tensor:
 def lm_params_from_numpy(tree: Any, cfg, device=None) -> Any:
     """A JAX LM param tree (nested dicts of numpy arrays) -> the port's
     params on ``device`` (``None`` means CUDA). Every key, shape and dtype
-    must be those of the port's ``init_lm`` tree for ``cfg``; a mismatch
-    raises ``ValueError`` naming the leaf."""
-    from repro_torch.models.transformer import init_lm
+    must be those of the tree the port's ``get_api(cfg).init_params``
+    builds (the dense LM or the hybrid); a mismatch raises ``ValueError``
+    naming the leaf."""
+    from repro_torch.models import get_api
 
     dev = resolve_device(device)
-    want = init_lm(prng.PRNGKey(0, device="meta"), cfg, device="meta")
+    want = get_api(cfg).init_params(prng.PRNGKey(0, device="meta"), cfg, device="meta")
 
     def carry(got, ref, path):
         if isinstance(ref, dict):

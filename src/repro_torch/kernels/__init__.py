@@ -5,13 +5,18 @@
 optimizer in one pass (``csrc/fused_aggregate.cu``, replacing
 ``fused_aggregate_pallas``); ``flash_attention`` is the LM's forward
 attention (``csrc/flash_attention.cu``, replacing
-``flash_attention_pallas``); ``rmsnorm`` is every norm of the dense LM
-(``csrc/rmsnorm.cu``, replacing ``rmsnorm_pallas``). ``ref`` holds the
-plain PyTorch versions; ``build.LAUNCHES`` counts launches per kernel.
+``flash_attention_pallas``); ``rmsnorm`` is every norm of the LMs
+(``csrc/rmsnorm.cu``, replacing ``rmsnorm_pallas``); ``gated_rmsnorm`` is
+Mamba2's output gate (``csrc/gated_rmsnorm.cu``, replacing
+``gated_rmsnorm_pallas``); ``ssd_scan`` is Mamba2's chunked state-space
+scan (``csrc/ssd_scan.cu``, replacing ``ssd_scan_pallas``). ``ref`` holds
+the plain PyTorch versions; ``build.LAUNCHES`` counts launches per kernel.
 """
 
-from repro_torch.kernels.build import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.kernels.build import KERNELS, LAUNCHES, reset_launches  # noqa: F401
 from repro_torch.kernels.fedavg import fedavg  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.fused_aggregate import FUSED_MODES, fused_aggregate  # noqa: F401
+from repro_torch.kernels.gated_rmsnorm import gated_rmsnorm  # noqa: F401
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401

@@ -31,6 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# every kernel of the port, by the name of its csrc/<name>.cu
+KERNELS = ("fedavg", "fused_aggregate", "flash_attention", "rmsnorm", "gated_rmsnorm",
+           "ssd_scan")
+
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -68,10 +72,10 @@ def load(name: str) -> Built:
     return load_all([name])[name]
 
 
-def load_all(names) -> Dict[str, Built]:
-    """Compile every named ``csrc/<name>.cu`` that needs it, with one
-    ``nvcc`` per source, all started together, then load each (once per
-    process)."""
+def load_all(names=KERNELS) -> Dict[str, Built]:
+    """Compile every named ``csrc/<name>.cu`` (all of ``KERNELS`` by
+    default) that needs it, with one ``nvcc`` per source, all started
+    together, then load each (once per process)."""
     started = {}
     for name in names:
         if name in _LOADED or name in started:

@@ -12,7 +12,8 @@
 // probabilities are rounded to v's dtype before the PV product, whose sums
 // are f32; the running denominator l sums the unrounded probabilities; the
 // output is acc / max(l, 1e-30) in q's dtype. q, k, v share one dtype (f32
-// or bf16); hd is 16, 32, 64 or 128; Sq and Sk are any length.
+// or bf16); hd is 16, 32, 64, 112 (zamba2-7b's 3584 / 32) or 128; Sq and Sk
+// are any length.
 //
 // The TPU kernel keeps m, l and acc in VMEM scratch across a kv grid axis
 // that the TPU runs in order. Hopper runs blocks in any order, so the kv
@@ -81,6 +82,9 @@ struct Args {
   float scale;
 };
 
+// q, k, v tiles and p: at hd = 112, 64 * 113 + 2 * 64 * 113 + 64 * 65 =
+// 25,856 floats (103,424 bytes); at hd = 128, 115,712 bytes; both within
+// the 232,448 bytes a block may use
 template <int HD>
 constexpr int smem_floats() {
   return BQ * (HD + 1) + 2 * BK * (HD + 1) + BQ * (BK + 1);
@@ -241,6 +245,8 @@ int launch(const Args& a, int B, int hd, bool causal, cudaStream_t s) {
     case 16: return causal ? launch_one<T, 16, true>(a, B, s) : launch_one<T, 16, false>(a, B, s);
     case 32: return causal ? launch_one<T, 32, true>(a, B, s) : launch_one<T, 32, false>(a, B, s);
     case 64: return causal ? launch_one<T, 64, true>(a, B, s) : launch_one<T, 64, false>(a, B, s);
+    case 112:
+      return causal ? launch_one<T, 112, true>(a, B, s) : launch_one<T, 112, false>(a, B, s);
     case 128:
       return causal ? launch_one<T, 128, true>(a, B, s) : launch_one<T, 128, false>(a, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -253,7 +259,7 @@ extern "C" {
 
 // q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o (B, H, Sq, hd), each given by
 // its base pointer and element strides of batch, head and sequence (the last
-// axis contiguous). dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128};
+// axis contiguous). dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 112, 128};
 // scale is hd^-0.5 rounded to f32 by the caller.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            long long q_sb, long long q_sh, long long q_ss,

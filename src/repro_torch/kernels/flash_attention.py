@@ -26,7 +26,7 @@ from repro_torch.kernels.rmsnorm import NO_BACKWARD
 
 # dtype codes of csrc/flash_attention.cu::flash_attention_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 @functools.lru_cache(maxsize=None)

@@ -75,3 +75,37 @@ def ref_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Te
     x32 = x.to(torch.float32)
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+
+
+def ref_gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of ``gated_rmsnorm`` (Mamba2's output gate): in f32,
+    ``g = x * silu(z)``, then ``g * rsqrt(mean(g^2) + eps) * w`` per row of
+    the last axis, cast back to x's dtype."""
+    z32 = z.to(torch.float32)
+    g = x.to(torch.float32) * (z32 * torch.sigmoid(z32))
+    var = g.square().mean(dim=-1, keepdim=True)
+    return (g * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+
+
+def ref_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            return_state: bool = False):
+    """Plain version of ``ssd_scan``: the sequential SSD recurrence in f32.
+    x: (B, H, L, P); a: (B, H, L) log-decay; b, c: (B, H, L, N).
+
+        h_t = exp(a_t) h_{t-1} + b_t^T x_t ;  y_t = c_t h_t,  h_0 = 0.
+
+    Returns y in x's dtype, and with ``return_state`` also the final state
+    h_L, (B, H, N, P) f32."""
+    B, H, L, P = x.shape
+    N = b.shape[-1]
+    f32 = torch.float32
+    xf, af, bf, cf = (t.to(f32) for t in (x, a, b, c))
+    h = torch.zeros(B, H, N, P, dtype=f32, device=x.device)
+    ys = []
+    for t in range(L):
+        h = (h * torch.exp(af[:, :, t])[..., None, None]
+             + bf[:, :, t, :, None] * xf[:, :, t, None, :])
+        ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, :, t], h))
+    y = (torch.stack(ys, dim=2) if ys else xf.new_zeros(B, H, 0, P)).to(x.dtype)
+    return (y, h) if return_state else y

@@ -1,0 +1,122 @@
+"""The chunked SSD scan of Mamba2 behind one wrapper.
+
+``ssd_scan`` is the port's counterpart of the JAX package's
+``kernels/ssm_scan.py::ssd_scan_pallas`` with the same contract: x (B, H,
+L, P) values, a (B, H, L) log-decays, b and c (B, H, L, N); the recurrence
+``h_t = exp(a_t) h_{t-1} + b_t^T x_t``, ``y_t = c_t h_t`` from a zero state,
+computed chunk by chunk in f32 and written in x's dtype. With
+``return_state`` it also returns the final state (B, H, N, P) in f32, the
+``h_fin`` of the model's ``ssd_chunked`` that Mamba2's prefill hands to
+decode. ``chunk`` is cut to L, and a length that is not a multiple of it is
+padded with identity steps (a = 0, b = x = 0), exactly as ``ssd_chunked``
+pads, which changes neither y nor the final state.
+
+On a CUDA tensor it launches the hand-written kernel of
+``csrc/ssd_scan.cu`` (or raises); on a CPU tensor it takes the plain
+version, ``ref.ref_ssd``, the sequential recurrence. The kernel reads its
+inputs through their strides, so Mamba2's B and C (one group shared by all
+heads) go in as stride-0 head views and x as a transposed (B, L, H, P)
+view, without copies; y takes x's memory layout. It has no backward yet:
+on CUDA a call that autograd would record raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.build import LAUNCHES, load
+from repro_torch.kernels.ref import ref_ssd
+from repro_torch.kernels.rmsnorm import NO_BACKWARD
+
+# dtype codes of csrc/ssd_scan.cu::ssd_scan_launch
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load("ssd_scan").lib
+    lib.ssd_scan_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p])
+    lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _pad_seq(t: torch.Tensor, Lp: int) -> torch.Tensor:
+    """Zero-pad axis 2 (the sequence) to Lp; a stride-0 head axis stays one."""
+    pad = [0, 0] * (t.ndim - 3) + [0, Lp - t.shape[2]]
+    if t.shape[1] > 1 and t.stride(1) == 0:
+        return F.pad(t[:, :1], pad).expand(-1, t.shape[1], *([-1] * (t.ndim - 2)))
+    return F.pad(t, pad)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             chunk: int = 128, return_state: bool = False):
+    """x: (B, H, L, P); a: (B, H, L); b, c: (B, H, L, N). Returns y like x,
+    and with ``return_state`` the pair (y, final state (B, H, N, P) f32).
+    Raises ``ValueError`` for shapes that do not fit, a chunk < 1 or
+    tensors on two devices, ``TypeError`` for non-float or mixed x/b/c
+    dtypes, and on CUDA ``NotImplementedError`` where autograd is live and
+    ``RuntimeError`` where the kernel refuses the launch (a chunk whose
+    tiles do not fit in shared memory)."""
+    if x.ndim != 4 or a.shape != x.shape[:3] or b.ndim != 4 or b.shape[:3] != x.shape[:3] \
+            or c.shape != b.shape:
+        raise ValueError(f"ssd_scan: x must be (B, H, L, P), a (B, H, L) and b, c (B, H, L, N), "
+                         f"got {tuple(x.shape)}, {tuple(a.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    if int(chunk) < 1:
+        raise ValueError(f"ssd_scan: chunk must be >= 1, got {chunk}")
+    if not all(t.is_floating_point() for t in (x, a, b, c)) or b.dtype != x.dtype \
+            or c.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: x, b, c must share one float dtype and a be float, got "
+                        f"{x.dtype}, {a.dtype}, {b.dtype}, {c.dtype}")
+    if not (x.device == a.device == b.device == c.device):
+        raise ValueError(f"ssd_scan: x, a, b, c on {x.device}, {a.device}, {b.device}, "
+                         f"{c.device}")
+    B, H, L, P = x.shape
+    N = b.shape[-1]
+    chunk = max(1, min(int(chunk), L))
+    Lp = -(-L // chunk) * chunk
+    if Lp != L:
+        x, a, b, c = (_pad_seq(t, Lp) for t in (x, a, b, c))
+    if x.device.type == "cpu":
+        y, h = ref_ssd(x, a, b, c, return_state=True)
+        y = y[:, :, :L]
+        return (y, h) if return_state else y
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
+        raise NotImplementedError(f"ssd_scan: the CUDA kernel {NO_BACKWARD}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"ssd_scan: the CUDA kernel takes float32/bfloat16, got {x.dtype}")
+    y = torch.empty_like(x)             # x's layout: (B, L, H, P) memory for the model's views
+    h = torch.empty(B, H, N, P, dtype=torch.float32, device=x.device) if return_state else None
+    if x.numel() == 0 or b.numel() == 0:
+        if h is not None:
+            h.zero_()
+        y.zero_()
+        return (y[:, :, :L], h) if return_state else y[:, :, :L]
+    lib = _lib()
+    x, b, c, y = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c, y))
+    a = a.to(torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    strides = [s for t in (x, a, b, c, y) for s in t.stride()[:3]]
+    rc = lib.ssd_scan_launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                             y.data_ptr(), 0 if h is None else h.data_ptr(), *strides,
+                             B, H, Lp, P, N, chunk, _DTYPE_CODE[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"ssd_scan: kernel launch failed: {lib.ssd_scan_error_string(rc).decode()} (chunk "
+            f"{chunk}, N={N}, P={P}: {lib.ssd_scan_smem_bytes(N, P, chunk)} bytes of shared "
+            "memory per block; a block has 232448)")
+    LAUNCHES["ssd_scan"] += 1
+    y = y[:, :, :L]
+    return (y, h) if return_state else y

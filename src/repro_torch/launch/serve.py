@@ -1,4 +1,4 @@
-"""Batched serving: prefill + greedy decode loop for a dense LM.
+"""Batched serving: prefill + greedy decode loop for any ported LM.
 
 A batch of prompts is prefilled (building per-layer caches), the caches are
 grown to the serving horizon, then tokens are decoded step by step with
@@ -34,6 +34,12 @@ class Generation:
     tokens: torch.Tensor
     prefill_s: float
     decode_s: float
+
+
+def serve_config(cfg, prompt_len: int):
+    """The config a serve run uses: the SSM chunk cut to half the prompt
+    (at least 8), as the JAX package's serve driver cuts it."""
+    return cfg.replace(ssm_chunk=min(cfg.ssm_chunk, max(8, prompt_len // 2)))
 
 
 def _clock(device: torch.device) -> float:
@@ -74,6 +80,7 @@ def main(argv=None) -> Generation:
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.preset == "tiny" else get_config(args.arch)
+    cfg = serve_config(cfg, args.prompt_len)
     dev = resolve_device(args.device)
     api = get_api(cfg)
     key = prng.PRNGKey(args.seed, device=dev)

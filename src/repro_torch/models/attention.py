@@ -1,4 +1,5 @@
-"""GQA attention of the dense LM: qk-norm, qkv-bias, RoPE, sliding window.
+"""GQA attention of the LMs: qk-norm, qkv-bias, RoPE, sliding window, and
+per-invocation LoRA adapters on q/k/v (the zamba2 shared block).
 
 Three entry modes, as in the JAX package:
   * ``attn_train``   — full-sequence causal (the forward loss)
@@ -13,8 +14,8 @@ overwrite. Keys are stored RoPE'd at their absolute positions.
 ``attn_train`` runs the ``flash_attention`` kernel when ``cfg.use_pallas``
 is set and S % 128 == 0, the JAX package's gate; otherwise, and in prefill
 and decode, the model's own chunked softmax attention ``_sdpa_chunked``.
-MLA, cross-attention and LoRA adapters are not ported (ROADMAP queue 1
-item 11); per-row (continuous-batching) decode is item 13.
+MLA and cross-attention are not ported (ROADMAP queue 1 item 11);
+per-row (continuous-batching) decode is item 13.
 """
 
 from __future__ import annotations
@@ -32,6 +33,12 @@ PER_ROW_DECODE = ("per-row (continuous-batching) decode is not ported yet "
 
 def _bias(y, p, name):
     return y + p[name] if name in p else y
+
+
+def _maybe_lora(w, lora, name):
+    if lora is None or f"a_{name}" not in lora:
+        return w
+    return w + lora[f"a_{name}"] @ lora[f"b_{name}"]
 
 
 def init_attention(key, cfg):
@@ -56,15 +63,32 @@ def init_attention(key, cfg):
     return p
 
 
+def init_attention_lora(key, cfg, n_slots, rank):
+    """Per-invocation LoRA adapters for a shared attention block (zamba2):
+    ``a_*`` (n_slots, d, rank) drawn, ``b_*`` (n_slots, rank, out) zero."""
+    dt = dtype_of(cfg)
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lead = tuple(key.shape[:-1])
+    ks = prng.split(key, 3)
+    std = d ** -0.5
+
+    def one(k, out):
+        kab = prng.split(k, 2)
+        return (normal(kab[..., 0, :], (n_slots, d, rank), std, dt),
+                torch.zeros(*lead, n_slots, rank, out, dtype=dt, device=key.device))
+
+    aq, bq = one(ks[..., 0, :], H * hd)
+    ak, bk = one(ks[..., 1, :], KV * hd)
+    av, bv = one(ks[..., 2, :], KV * hd)
+    return {"a_q": aq, "b_q": bq, "a_k": ak, "b_k": bk, "a_v": av, "b_v": bv}
+
+
 def _project_qkv(p, cfg, x, lora=None):
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters on attention (the zamba2 shared block) are "
-                                  "not ported yet (ROADMAP queue 1 item 11)")
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _bias(x @ p["wq"], p, "bq").reshape(B, S, H, hd)
-    k = _bias(x @ p["wk"], p, "bk").reshape(B, S, KV, hd)
-    v = _bias(x @ p["wv"], p, "bv").reshape(B, S, KV, hd)
+    q = _bias(x @ _maybe_lora(p["wq"], lora, "q"), p, "bq").reshape(B, S, H, hd)
+    k = _bias(x @ _maybe_lora(p["wk"], lora, "k"), p, "bk").reshape(B, S, KV, hd)
+    v = _bias(x @ _maybe_lora(p["wv"], lora, "v"), p, "bv").reshape(B, S, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)

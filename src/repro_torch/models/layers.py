@@ -27,8 +27,9 @@ def dtype_of(cfg) -> torch.dtype:
 
 def normal(key, shape, std, dtype):
     """``std * N(0, 1)`` drawn in f32, cast to ``dtype``; key (..., 2) ->
-    (..., *shape)."""
-    return (std * prng.normal(key, shape)).to(dtype)
+    (..., *shape). Scaled in place: a stacked leaf of a deep model is the
+    largest tensor of its init."""
+    return prng.normal(key, shape).mul_(std).to(dtype)
 
 
 def rms_norm(x, scale, eps=1e-6):

@@ -1,4 +1,5 @@
-"""Unified model API: the dense LM exposes the JAX package's five functions.
+"""Unified model API: the dense LM and the zamba2 hybrid expose the JAX
+package's five functions.
 
     init_params(key, cfg, device=None)          -> params
     loss_fn(params, cfg, batch)                 -> (loss, metrics)
@@ -17,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.tree import tree_leaves
 
 
@@ -30,18 +31,25 @@ class ModelApi:
     decode_fn: Callable
 
 
-_LM_API = ModelApi(transformer.init_lm, transformer.lm_loss, transformer.lm_prefill,
-                   transformer.init_lm_cache, transformer.lm_decode)
+_APIS = {
+    "dense": ModelApi(transformer.init_lm, transformer.lm_loss, transformer.lm_prefill,
+                      transformer.init_lm_cache, transformer.lm_decode),
+    "hybrid": ModelApi(hybrid.init_hybrid, hybrid.hybrid_loss, hybrid.hybrid_prefill,
+                       hybrid.init_hybrid_cache, hybrid.hybrid_decode),
+}
 
 
 def get_api(cfg) -> ModelApi:
-    """The API of ``cfg``'s arch type; only ``dense`` is ported."""
+    """The API of ``cfg``'s arch type; ``dense`` and ``hybrid`` are ported."""
     transformer.check_ported(cfg)
-    return _LM_API
+    return _APIS[cfg.arch_type]
 
 
 def pad_cache(caches, old_len: int, new_len: int):
-    """Grow a prefill cache to a larger serving length (zeros / -1 pos)."""
+    """Grow a prefill cache to a larger serving length (zeros / -1 pos):
+    the attention leaves ``k``, ``v`` and ``positions`` grow along the
+    sequence; every other leaf (the hybrid's Mamba2 ``state`` and ``conv``)
+    is left as it is."""
     def grow(t, axis, fill):
         extra = list(t.shape)
         extra[axis] = new_len - old_len

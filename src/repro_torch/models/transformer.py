@@ -5,7 +5,8 @@ Params keep the JAX package's tree, with the layers stacked on axis 0
 a JAX param tree across by key. Where the JAX package ``lax.scan``s over
 the stack, the port loops over it in Python. Its sharding constraints have
 no counterpart on one GPU (multi-GPU is ROADMAP queue 1 item 14).
-MoE, MLA, vlm and the other families are refused by name.
+MoE, MLA, vlm and the families other than the hybrid (``hybrid.py``) are
+refused by name.
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embe
                                        init_swiglu, normal, rms_norm, stacked_init, swiglu)
 from repro_torch.tree import tree_map
 
+PORTED_ARCHS = ("dense", "hybrid")
 # arch types of the JAX package that the port does not run yet, with the
 # ROADMAP queue 1 item that brings each
 UNPORTED_ARCHS = {
     "moe": "MoE and MLA (qwen2-moe, deepseek-v2-lite) are ROADMAP queue 1 item 11",
     "vlm": "the vlm family (phi3-vision) is ROADMAP queue 1 item 10",
-    "hybrid": "the hybrid family (zamba2) is ROADMAP queue 1 item 11",
     "ssm": "the ssm family (xlstm) is ROADMAP queue 1 item 11",
     "audio": "the audio family (whisper) is ROADMAP queue 1 item 11",
 }
@@ -32,7 +33,7 @@ UNPORTED_ARCHS = {
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot run."""
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in PORTED_ARCHS:
         why = UNPORTED_ARCHS.get(cfg.arch_type, "it is not an arch type of the JAX package")
         raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported: {why}")
     if cfg.use_mla or cfg.is_moe:

@@ -14,6 +14,11 @@ int64 tensor whose last axis holds the two uint32 words; every uint32 value
 is carried in int64 and wrapped with ``& 0xFFFFFFFF``. All functions
 broadcast over leading key axes, so a cohort of keys is one call. They run
 on whatever device the key tensor lies on.
+
+A batched draw holds several int64 temporaries of the whole batch's size,
+so ``uniform`` and ``normal`` draw key by key along the leading axis once a
+batch exceeds ``MAX_BATCHED_DRAW`` values: each key's draw is independent
+of the others, so the values are the same either way.
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 IntLike = Union[int, torch.Tensor]
+
+# values drawn in one threefry call at most (1 GiB per int64 temporary,
+# several of them live at once); a larger batch of keys goes key by key
+MAX_BATCHED_DRAW = 2**27
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -150,9 +159,25 @@ def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
+def _key_by_key(draw, key: torch.Tensor, shape: Sequence[int], *args):
+    """``draw(key, shape, *args)`` into one f32 tensor, one leading key at a
+    time where the whole batch would exceed ``MAX_BATCHED_DRAW`` values;
+    ``None`` where it fits in one call."""
+    shape = tuple(int(s) for s in shape)
+    if key.ndim < 2 or key[..., 0].numel() * math.prod(shape) <= MAX_BATCHED_DRAW:
+        return None
+    out = torch.empty(*key.shape[:-1], *shape, dtype=torch.float32, device=key.device)
+    for i in range(key.shape[0]):
+        out[i] = draw(key[i], shape, *args)
+    return out
+
+
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits."""
+    out = _key_by_key(uniform, key, shape, minval, maxval)
+    if out is not None:
+        return out
     bits = random_bits(key, shape)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
@@ -163,5 +188,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` with u
     uniform on ``(nextafter(-1, 0), 1)``."""
+    out = _key_by_key(normal, key, shape)
+    if out is not None:
+        return out
     u = uniform(key, shape, float(_LO), float(_HI))
     return _SQRT2.item() * _erfinv_f32(u)

@@ -34,7 +34,9 @@ LM_SLICE = ["configs/__init__.py", "configs/base.py", "configs/smollm_135m.py",
             "configs/qwen3_0_6b.py", "configs/qwen1_5_0_5b.py", "configs/qwen1_5_110b.py",
             "kernels/flash_attention.py", "kernels/rmsnorm.py", "models/__init__.py",
             "models/layers.py", "models/attention.py", "models/transformer.py",
-            "models/model.py", "launch/__init__.py", "launch/serve.py"]
+            "models/model.py", "launch/__init__.py", "launch/serve.py",
+            "configs/zamba2_7b.py", "kernels/gated_rmsnorm.py", "kernels/ssd_scan.py",
+            "models/ssm.py", "models/hybrid.py"]
 
 
 @pytest.mark.parametrize("rel", LM_SLICE)

@@ -30,7 +30,6 @@ from repro_torch.interop import lm_params_from_numpy
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.launch import serve
 from repro_torch.models import get_api, pad_cache, param_count
-from repro_torch.models import attention as attn
 from repro_torch.models.transformer import init_lm
 from repro_torch.tree import tree_map
 
@@ -58,7 +57,7 @@ def _tokens(cfg, B, S, seed=0):
 # ----------------------------------------------------------------- configs
 
 def test_port_registers_the_dense_archs():
-    assert list_archs() == DENSE
+    assert list_archs() == tuple(sorted(DENSE + ("zamba2-7b",)))
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -255,7 +254,7 @@ def test_serve_without_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("change,item", [
     (dict(arch_type="moe"), "item 11"), (dict(arch_type="vlm"), "item 10"),
-    (dict(arch_type="hybrid"), "item 11"), (dict(arch_type="ssm"), "item 11"),
+    (dict(arch_type="ssm", slstm_every=2), "item 11"), (dict(arch_type="ssm"), "item 11"),
     (dict(arch_type="audio"), "item 11"), (dict(use_mla=True), "item 11"),
     (dict(n_experts=4, top_k=2), "item 11"), (dict(n_img_tokens=8), "item 10"),
 ])
@@ -277,10 +276,9 @@ def test_unported_inputs_are_refused_by_name():
                                   "img_embeds": torch.zeros(1, 2, cfg.d_model)})
     with pytest.raises(NotImplementedError, match="item 13"):
         api.init_cache_fn(params, cfg, 1, 8, torch.float32, per_row=True)
-    layer = {k: v[0] for k, v in params["dense_layers"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        attn.attn_train(layer, cfg, torch.zeros(1, 4, cfg.d_model),
-                        torch.arange(4)[None], lora={"a_q": None})
+    with pytest.raises(NotImplementedError, match="items 10-11"):
+        api.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens,
+                                  "frames": torch.zeros(1, 16, cfg.d_model)})
 
 
 # ------------------------------------------------------------- on the card

@@ -1,6 +1,8 @@
 """repro_torch.prng against jax.random (threefry2x32, partitionable):
 keys, fold_in, split, random_bits and randint bit for bit; normal within
 1e-6 (the two erfinv implementations round differently)."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,3 +91,22 @@ def test_normal_close(seed, shape):
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("draw", ["normal", "uniform"])
+@pytest.mark.parametrize("lead", [(5,), (3, 4)])
+def test_key_by_key_draw_equals_the_batched_draw(monkeypatch, draw, lead):
+    """A batch of keys too large for one call goes key by key along the
+    leading axis (``MAX_BATCHED_DRAW``); each key's draw is independent, so
+    the values are the same bit for bit, and ``jax.vmap`` of the draw over
+    the keys gives them too."""
+    keys = prng.split(prng.PRNGKey(11), math.prod(lead)).reshape(*lead, 2)
+    fn = getattr(prng, draw)
+    batched = fn(keys, (6, 7))
+    monkeypatch.setattr(prng, "MAX_BATCHED_DRAW", 0)
+    one_by_one = fn(keys, (6, 7))
+    assert one_by_one.shape == (*lead, 6, 7)
+    assert torch.equal(batched.view(torch.int32), one_by_one.view(torch.int32))
+    jkeys = jax.random.split(jax.random.PRNGKey(11), math.prod(lead))
+    want = jax.vmap(lambda k: getattr(jax.random, draw)(k, (6, 7)))(jkeys).reshape(*lead, 6, 7)
+    np.testing.assert_allclose(_np(one_by_one), np.asarray(want), atol=1e-6, rtol=0)

@@ -1,0 +1,322 @@
+"""The port's gated RMSNorm and SSD scan against the Pallas kernels they replace.
+
+On the CPU each wrapper takes its plain version (``ref_gated_rmsnorm``,
+``ref_ssd``); it is held against the Pallas kernel in interpret mode
+(``gated_rmsnorm_pallas``, ``ssd_scan_pallas``) and against the JAX
+package's oracles on the same numpy inputs, at the gates of
+tests/test_kernels.py: gated RMSNorm atol 2e-5 f32 (5e-2 bf16, the RMSNorm
+gate); the SSD scan atol 5e-4 / rtol 1e-3, chunk invariance 5e-5 / 1e-4.
+The final state that ``ssd_scan(..., return_state=True)`` adds is held
+against the ``h_fin`` of the JAX package's ``ssd_chunked`` at the scan's
+gate. The CUDA kernels (and flash attention at zamba2-7b's head dim 112)
+run only on a card (marker ``cuda``):
+
+    python -m pytest -q -m cuda tests/test_torch_ssm_kernels.py tests/test_torch_hybrid.py
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ref import ref_gated_rmsnorm as jax_ref_gated_rmsnorm
+from repro.kernels.ref import ref_ssd as jax_ref_ssd
+from repro.kernels.rmsnorm import gated_rmsnorm_pallas
+from repro.kernels.ssm_scan import ssd_scan_pallas
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels import LAUNCHES, flash_attention, gated_rmsnorm, reset_launches, ssd_scan
+from repro_torch.kernels.ref import ref_attention, ref_gated_rmsnorm, ref_ssd
+
+_JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+GATED_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+SSD_TOL = dict(atol=5e-4, rtol=1e-3)
+SSD_CHUNK_TOL = dict(atol=5e-5, rtol=1e-4)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _normal(shape, seed, scale=1.0, shift=0.0):
+    rng = np.random.default_rng(seed)
+    return (shift + scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _to_torch(a, dtype):
+    """numpy f32 -> torch ``dtype``, rounding exactly as JAX's astype."""
+    if dtype == "bfloat16":
+        bits = a.astype(ml_dtypes.bfloat16).view(np.uint16).astype(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _np32(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+def _ssd_inputs(B, H, L, P, N, seed, shared_bc=False):
+    """The inputs of tests/test_kernels.py::test_ssd_scan_sweep, from numpy:
+    x scaled 0.5, a = -softplus(normal), b and c scaled 0.3. With
+    ``shared_bc`` b and c are one (B, L, N) group broadcast over heads."""
+    x = _normal((B, H, L, P), seed, 0.5)
+    a = -np.logaddexp(_normal((B, H, L), seed + 1), 0).astype(np.float32)
+    bc_shape = (B, 1, L, N) if shared_bc else (B, H, L, N)
+    b = np.broadcast_to(_normal(bc_shape, seed + 2, 0.3), (B, H, L, N))
+    c = np.broadcast_to(_normal(bc_shape, seed + 3, 0.3), (B, H, L, N))
+    return x, a, np.array(b), np.array(c)
+
+
+# ------------------------------------------------------------ gated RMSNorm
+
+@pytest.mark.parametrize("shape", [(6, 128), (130, 96), (3, 7168), (2, 5, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_rmsnorm_matches_pallas(shape, dtype):
+    x, z = _normal(shape, 32), _normal(shape, 33)
+    w = _normal(shape[-1:], 34, scale=0.1, shift=1.0)
+    got = gated_rmsnorm(_to_torch(x, dtype), _to_torch(z, dtype), _to_torch(w, dtype))
+    assert got.shape == shape and got.dtype == _TORCH[dtype]
+    xj, zj, wj = (jnp.asarray(a).astype(_JNP[dtype]) for a in (x, z, w))
+    want = gated_rmsnorm_pallas(xj, zj, wj, blk_rows=64, interpret=True)
+    np.testing.assert_allclose(_np32(got), _np32(want), atol=GATED_TOL[dtype])
+    np.testing.assert_allclose(_np32(got), _np32(jax_ref_gated_rmsnorm(xj, zj, wj)),
+                               atol=GATED_TOL[dtype])
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+def test_gated_rmsnorm_matches_jax_model_gate(eps):
+    """The kernel's contract equals Mamba2's unfused gate of the JAX model,
+    ``rms_norm(y * silu(z))``."""
+    from repro.models.layers import rms_norm as jax_rms_norm
+
+    x, z, w = _normal((5, 96), 35), _normal((5, 96), 36), _normal((96,), 37)
+    got = gated_rmsnorm(*(torch.from_numpy(a) for a in (x, z, w)), eps)
+    want = jax_rms_norm(jnp.asarray(x) * jax.nn.silu(jnp.asarray(z)), jnp.asarray(w), eps)
+    np.testing.assert_allclose(got.numpy(), _np32(want), atol=GATED_TOL["float32"])
+
+
+def test_gated_rmsnorm_cpu_is_the_plain_version_and_differentiable():
+    x = torch.from_numpy(_normal((6, 64), 38)).requires_grad_()
+    z = torch.from_numpy(_normal((6, 64), 39))
+    w = torch.from_numpy(_normal((64,), 40))
+    reset_launches()
+    out = gated_rmsnorm(x, z, w)
+    torch.testing.assert_close(out, ref_gated_rmsnorm(x, z, w), rtol=0, atol=0)
+    out.sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert LAUNCHES["gated_rmsnorm"] == 0
+
+
+@pytest.mark.parametrize("x,z,w,err", [
+    (torch.zeros(4, 8), torch.zeros(4, 7), torch.zeros(8), ValueError),
+    (torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(7), ValueError),
+    (torch.zeros(4, 8, dtype=torch.int32), torch.zeros(4, 8), torch.zeros(8), TypeError),
+    (torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(8, dtype=torch.int64), TypeError),
+])
+def test_gated_rmsnorm_validation(x, z, w, err):
+    with pytest.raises(err):
+        gated_rmsnorm(x, z, w)
+
+
+# ----------------------------------------------------------------- SSD scan
+
+@pytest.mark.parametrize("B,H,L,P,N,chunk", [
+    (1, 1, 64, 16, 8, 16),
+    (2, 3, 128, 32, 16, 32),
+    (1, 2, 96, 8, 4, 48),
+    (2, 1, 256, 64, 64, 128),    # mamba2-like dims
+])
+def test_ssd_scan_matches_pallas(B, H, L, P, N, chunk):
+    x, a, b, c = _ssd_inputs(B, H, L, P, N, seed=10 + L + P)
+    got = ssd_scan(*(torch.from_numpy(t) for t in (x, a, b, c)), chunk=chunk)
+    assert got.shape == (B, H, L, P) and got.dtype == torch.float32
+    xj, aj, bj, cj = (jnp.asarray(t) for t in (x, a, b, c))
+    want = ssd_scan_pallas(xj, aj, bj, cj, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np32(want), **SSD_TOL)
+    np.testing.assert_allclose(got.numpy(), _np32(jax_ref_ssd(xj, aj, bj, cj)), **SSD_TOL)
+
+
+def test_ssd_scan_chunk_invariance():
+    """The chunk is a schedule, not a result: chunks of 16 and 128 agree,
+    on the port's side and with the Pallas kernel at each chunk."""
+    x, a, b, c = _ssd_inputs(1, 2, 128, 16, 8, seed=14)
+    tt = [torch.from_numpy(t) for t in (x, a, b, c)]
+    o16, o128 = ssd_scan(*tt, chunk=16), ssd_scan(*tt, chunk=128)
+    np.testing.assert_allclose(o16.numpy(), o128.numpy(), **SSD_CHUNK_TOL)
+    jj = [jnp.asarray(t) for t in (x, a, b, c)]
+    for chunk, got in ((16, o16), (128, o128)):
+        want = ssd_scan_pallas(*jj, chunk=chunk, interpret=True)
+        np.testing.assert_allclose(got.numpy(), _np32(want), **SSD_TOL)
+
+
+@pytest.mark.parametrize("L,chunk", [(100, 32), (7, 4), (5, 16)])
+def test_ssd_scan_pads_the_tail_with_identity_steps(L, chunk):
+    """L not a multiple of the chunk: the wrapper pads a = 0, b = x = 0,
+    which leaves y and the final state as the unpadded recurrence's."""
+    x, a, b, c = _ssd_inputs(2, 3, L, 8, 4, seed=20 + L, shared_bc=True)
+    tt = [torch.from_numpy(t) for t in (x, a, b, c)]
+    got, h = ssd_scan(*tt, chunk=chunk, return_state=True)
+    assert got.shape == (2, 3, L, 8) and h.shape == (2, 3, 4, 8)
+    jj = [jnp.asarray(t) for t in (x, a, b, c)]
+    np.testing.assert_allclose(got.numpy(), _np32(jax_ref_ssd(*jj)), **SSD_TOL)
+    _, jh = jax_ssd_chunked(jj[0].transpose(0, 2, 1, 3)[:, :, None],
+                            jj[1].transpose(0, 2, 1)[:, :, None], jj[2][:, 0, :, None],
+                            jj[3][:, 0, :, None], chunk)
+    np.testing.assert_allclose(h.numpy(), _np32(jh[:, 0]), **SSD_TOL)
+
+
+@pytest.mark.parametrize("B,H,L,P,N,chunk", [(2, 4, 64, 16, 8, 16), (1, 3, 96, 8, 16, 32)])
+def test_ssd_scan_final_state_matches_jax_ssd_chunked(B, H, L, P, N, chunk):
+    """``return_state`` gives the ``h_fin`` of the JAX package's
+    ``ssd_chunked`` for one group shared by the heads (Mamba2's call)."""
+    x, a, b, c = _ssd_inputs(B, H, L, P, N, seed=30 + L, shared_bc=True)
+    y, h = ssd_scan(*(torch.from_numpy(t) for t in (x, a, b, c)), chunk=chunk,
+                    return_state=True)
+    assert h.shape == (B, H, N, P) and h.dtype == torch.float32
+    jy, jh = jax_ssd_chunked(jnp.asarray(x).transpose(0, 2, 1, 3)[:, :, None],
+                             jnp.asarray(a).transpose(0, 2, 1)[:, :, None],
+                             jnp.asarray(b)[:, 0, :, None], jnp.asarray(c)[:, 0, :, None], chunk)
+    np.testing.assert_allclose(h.numpy(), _np32(jh[:, 0]), **SSD_TOL)
+    np.testing.assert_allclose(y.numpy(), _np32(jy[:, :, 0].transpose(0, 2, 1, 3)), **SSD_TOL)
+
+
+def test_ssd_scan_cpu_is_the_plain_version():
+    x, a, b, c = (torch.from_numpy(t) for t in _ssd_inputs(1, 2, 32, 8, 4, seed=40))
+    reset_launches()
+    y, h = ssd_scan(x, a, b, c, chunk=8, return_state=True)
+    want, want_h = ref_ssd(x, a, b, c, return_state=True)
+    torch.testing.assert_close(y, want, rtol=0, atol=0)
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+    assert LAUNCHES["ssd_scan"] == 0
+
+
+@pytest.mark.parametrize("shapes,err", [
+    (((1, 2, 8, 4), (1, 2, 8), (1, 2, 8, 3), (1, 2, 8, 3)), None),
+    (((1, 2, 8), (1, 2, 8), (1, 2, 8, 3), (1, 2, 8, 3)), ValueError),
+    (((1, 2, 8, 4), (1, 2, 7), (1, 2, 8, 3), (1, 2, 8, 3)), ValueError),
+    (((1, 2, 8, 4), (1, 2, 8), (1, 2, 8, 3), (1, 2, 8, 2)), ValueError),
+    (((1, 2, 8, 4), (1, 2, 8), (1, 3, 8, 3), (1, 3, 8, 3)), ValueError),
+])
+def test_ssd_scan_validation(shapes, err):
+    x, a, b, c = (torch.zeros(s) for s in shapes)
+    if err is None:
+        assert ssd_scan(x, a, b, c, chunk=4).shape == x.shape
+        with pytest.raises(ValueError):
+            ssd_scan(x, a, b, c, chunk=0)
+        with pytest.raises(TypeError):
+            ssd_scan(x, a, b.to(torch.float64), c, chunk=4)
+        return
+    with pytest.raises(err):
+        ssd_scan(x, a, b, c, chunk=4)
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels cannot run on the CPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(1, 7168), (300, 7168), (257, 128), (33, 96), (5, 100),
+                                    (3, 9000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_rmsnorm_cuda_matches_plain(cuda_device, rows, d, dtype):
+    x = _to_torch(_normal((rows, d), 80), dtype).to(cuda_device)
+    z = _to_torch(_normal((rows, d), 81), dtype).to(cuda_device)
+    w = _to_torch(_normal((d,), 82, scale=0.1, shift=1.0), dtype).to(cuda_device)
+    reset_launches()
+    got, want = gated_rmsnorm(x, z, w), ref_gated_rmsnorm(x, z, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gated_rmsnorm"] == 1
+    assert got.dtype == _TORCH[dtype] and got.shape == (rows, d)
+    assert (got.float() - want.float()).abs().max().item() <= GATED_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_gated_rmsnorm_cuda_reads_strided_rows(cuda_device):
+    """Mamba2's z is a column slice of its input projection: rows strided."""
+    proj = torch.from_numpy(_normal((2, 64, 3 * 256 + 8), 83)).to(cuda_device)
+    y = torch.from_numpy(_normal((2, 64, 256), 84)).to(cuda_device)
+    z = proj[..., 8:8 + 256]
+    w = torch.from_numpy(_normal((256,), 85)).to(cuda_device)
+    got, want = gated_rmsnorm(y, z, w), ref_gated_rmsnorm(y, z, w)
+    assert got.is_contiguous() and (got - want).abs().max().item() <= GATED_TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,P,N,chunk", [
+    (1, 1, 64, 16, 8, 16), (2, 3, 128, 32, 16, 32), (1, 2, 96, 8, 4, 48),
+    (2, 1, 256, 64, 64, 128), (1, 4, 512, 64, 64, 256), (2, 2, 100, 16, 16, 32),
+    (1, 3, 40, 12, 6, 10),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_cuda_matches_plain(cuda_device, B, H, L, P, N, chunk, dtype):
+    x, a, b, c = _ssd_inputs(B, H, L, P, N, seed=90 + L)
+    xt, bt, ct = (_to_torch(t, dtype).to(cuda_device) for t in (x, b, c))
+    at = torch.from_numpy(a).to(cuda_device)
+    reset_launches()
+    got, h = ssd_scan(xt, at, bt, ct, chunk=chunk, return_state=True)
+    want, want_h = ref_ssd(xt, at, bt, ct, return_state=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 1
+    assert got.dtype == _TORCH[dtype] and got.shape == (B, H, L, P)
+    # bf16: y is rounded to bf16 after the same f32 arithmetic
+    tol = SSD_TOL if dtype == "float32" else dict(atol=5e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(h, want_h, **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_cuda_reads_mamba2_views(cuda_device):
+    """Mamba2's call: x a transposed (B, L, H, P) view, B and C one
+    (B, L, N) group as stride-0 head views; y takes x's layout."""
+    B, L, H, P, N = 2, 128, 6, 16, 8
+    xm = torch.from_numpy(_normal((B, L, H, P), 95, 0.5)).to(cuda_device)
+    am = -torch.nn.functional.softplus(torch.from_numpy(_normal((B, L, H), 96))).to(cuda_device)
+    bm, cm = (torch.from_numpy(_normal((B, L, N), s, 0.3)).to(cuda_device) for s in (97, 98))
+    args = (xm.transpose(1, 2), am.transpose(1, 2), bm[:, None].expand(B, H, L, N),
+            cm[:, None].expand(B, H, L, N))
+    got = ssd_scan(*args, chunk=32)
+    want = ref_ssd(*(t.contiguous() for t in args))
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, want, **SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_head_dim_112(cuda_device, causal, dtype):
+    """zamba2-7b's shared attention: 32 heads of 3584 / 32 = 112."""
+    q, k, v = (_to_torch(_normal((1, 4, 256, 112), 100 + i), dtype).to(cuda_device)
+               for i in range(3))
+    reset_launches()
+    got, want = flash_attention(q, k, v, causal=causal), ref_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_kernels_refuse_autograd(cuda_device):
+    x = torch.ones(4, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        gated_rmsnorm(x, x.detach(), torch.ones(64, device=cuda_device))
+    xs = torch.ones(1, 2, 16, 8, device=cuda_device, requires_grad=True)
+    a = torch.zeros(1, 2, 16, device=cuda_device)
+    bc = torch.ones(1, 2, 16, 4, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ssd_scan(xs, a, bc, bc, chunk=8)
+    with torch.no_grad():
+        assert gated_rmsnorm(x, x, torch.ones(64, device=cuda_device)).shape == x.shape
+        assert ssd_scan(xs, a, bc, bc, chunk=8).shape == xs.shape
+
+
+@pytest.mark.cuda
+def test_ssd_scan_cuda_refuses_a_chunk_too_large_for_shared_memory(cuda_device):
+    """At N = P = 64 a chunk of 512 needs more shared memory than a block
+    has: the launch is refused and the wrapper raises, naming the size."""
+    x = torch.zeros(1, 1, 512, 64, device=cuda_device)
+    bc = torch.zeros(1, 1, 512, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ssd_scan(x, torch.zeros(1, 1, 512, device=cuda_device), bc, bc, chunk=512)
