@@ -39,10 +39,13 @@ printed only when every phase passed:
    times at (8192, 576) f32 beside the bytes bound, the plain version and
    ``torch.nn.functional.rms_norm``.
 9. The flash_attention kernel against its plain version on the card at
-   smollm-135m's and a qwen3-like attention shape, a small one and a
-   ragged Sq != Sk one, causal and not, f32 and bf16 (atol 2e-5 / 3e-2),
-   with times at smollm's shape beside the FLOP and bytes bound, the plain
-   version and ``scaled_dot_product_attention``.
+   smollm-135m's, a qwen3-like and zamba2-7b's attention shape, a small one
+   and a ragged Sq != Sk one, causal and not, f32 and bf16 (atol 2e-5 /
+   3e-2), with times at smollm's and zamba2's shapes in both dtypes beside
+   the operations and bytes bound (f32 at the three-pass TF32 rate, with
+   the CUDA cores' 67 TFLOP/s figure beside it), the plain version and
+   ``scaled_dot_product_attention`` in the same run, eager and as device
+   time inside a CUDA graph.
 10. Serving smollm-135m at full width on the card through
    ``repro_torch.launch.serve.generate`` (weights from PRNGKey(0), batch 8,
    prompt 128, 32 greedy tokens): prefill and decode tokens/s, and exactly
@@ -65,8 +68,13 @@ printed only when every phase passed:
    model's ``ssd_chunked`` (y and final state) at zamba2-7b's loss shape
    (1, 112, 2048, 64), chunk 256, and serve-prefill shape (8, 112, 128, 64),
    chunk 64, with B and C as stride-0 head views, and chunks 64 and 256
-   against each other at the loss shape. Times at both shapes beside the
-   operations and bytes bounds, ``ref_ssd`` and ``ssd_chunked``.
+   against each other at the loss shape; bf16 against ``ref_ssd`` at both.
+   Times at both shapes in f32 and bf16 (eager, and as device time inside
+   a CUDA graph) beside the operations and bytes bounds (at the three-pass
+   TF32 rate, the CUDA cores' figure beside it), ``ref_ssd`` and
+   ``ssd_chunked``, and the kernel's device launches per call (4 at the loss shape: chunk scores, chunk states, the state pass,
+   chunk outputs; 2 at the serve shape: chunk scores, then a block per
+   (batch, head) walking its chunks).
 14. Serving zamba2-7b at full width and depth (81 layers, 13 shared slots,
    f32 weights from PRNGKey(0)) with ``use_pallas=True``: batch 8, prompt
    128 (so chunk 64), 32 greedy tokens; prefill and decode tokens/s and the
@@ -102,6 +110,11 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+# f32-accurate products on the tensor cores: the dense TF32 rate over the
+# three passes of the big/small split (one TF32 pass keeps ~3 digits). The
+# least time the card can take for f32 attention or SSD products; a kernel
+# on that route may beat the CUDA-core bound at PEAK_F32_FLOP_PER_S.
+PEAK_TF32X3_FLOP_PER_S = 494.7e12 / 3
 
 MAIN_K = (1, 3, 4, 8, 16)           # sync cohorts; K=4 is the async slice's flush
 MAIN_N = (1738, 3786, 6922, 2049)   # synth-mnist, -fmnist, -cifar MLPs; a ragged N
@@ -153,6 +166,7 @@ SSD_LOSS = (1, 112, 2048, 64, 64, 256)
 SSD_SERVE = (8, 112, 128, 64, 64, 64)
 SSD_TOL = dict(atol=5e-4, rtol=1e-3)               # tests/test_kernels.py
 SSD_CHUNK_TOL = dict(atol=5e-5, rtol=1e-4)         # test_ssd_scan_state_continuity
+SSD_BF16_TOL = dict(atol=5e-2, rtol=1e-2)          # y in bf16 (tests/test_torch_ssm_kernels.py)
 HYBRID_CPU_LAYERS, HYBRID_CPU_BATCH, HYBRID_CPU_GEN = 7, 2, 4
 HYBRID_LOSS_B, HYBRID_LOSS_S = 1, 2048
 
@@ -715,7 +729,7 @@ def phase_flash():
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import device_launches, flash_attention
     from repro_torch.kernels.ref import ref_attention
 
     print("== phase 9: flash_attention kernel vs plain version on the card")
@@ -727,7 +741,7 @@ def phase_flash():
         q32 = torch.randn(B, H, Sq, hd, generator=gen, device=dev)
         k32 = torch.randn(B, KV, Sk, hd, generator=gen, device=dev)
         v32 = torch.randn(B, KV, Sk, hd, generator=gen, device=dev)
-        for name, dtype, size, peak in (("float32", torch.float32, 4, PEAK_F32_FLOP_PER_S),
+        for name, dtype, size, peak in (("float32", torch.float32, 4, PEAK_TF32X3_FLOP_PER_S),
                                         ("bfloat16", torch.bfloat16, 2, PEAK_BF16_FLOP_PER_S)):
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
             for causal in (True, False):
@@ -746,21 +760,34 @@ def phase_flash():
             if (B, H, KV, Sq, Sk, hd) not in (FLASH_SHAPES[0], FLASH_ZAMBA):
                 continue
             bound, by = flash_bound_ms(B, H, KV, Sq, Sk, hd, True, size, peak)
-            timed[(B, H, KV, Sq, Sk, hd), name] = {
+            rec = timed[(B, H, KV, Sq, Sk, hd), name] = {
                 "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), reps=10),
                 "plain_ms": time_ms(lambda: ref_attention(q, k, v, True), reps=10),
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True), reps=10),
                 "bound_ms": bound, "bound_by": by,
+                "device_launches_per_call": device_launches(
+                    lambda: flash_attention(q, k, v, causal=True)),
+                # device time without the host's per-call work (CUDA graph)
+                "device_ms": graph_ms(lambda: flash_attention(q, k, v, causal=True), inner=10),
+                "library_device_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), inner=10),
             }
+            if name == "float32":
+                rec["bound_ms_cuda_cores"] = flash_bound_ms(
+                    B, H, KV, Sq, Sk, hd, True, size, PEAK_F32_FLOP_PER_S)[0]
             torch.cuda.empty_cache()
     for name, (err, where) in errs.items():
         print(f"{name}: max |err| {err:.3g} (tol {FLASH_TOL[name]}) at {where}")
     for (shape, name), r in timed.items():
+        cores = (f"; {r['bound_ms_cuda_cores']:.4f} ms at 67 TFLOP/s on the CUDA cores"
+                 if "bound_ms_cuda_cores" in r else "")
         print(f"flash causal {shape} {name}: kernel {r['ms']:.4f} ms "
               f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_by']} bound "
-              f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library (SDPA) "
-              f"{r['library_ms']:.4f} ms")
+              f"{r['bound_ms']:.4f} ms{cores}), plain {r['plain_ms']:.4f} ms, library (SDPA) "
+              f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x); device time (CUDA "
+              f"graph): kernel {r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} ms "
+              f"({r['device_ms'] / r['library_device_ms']:.2f}x)")
     torch.cuda.empty_cache()
     return {name: err for name, (err, _) in errs.items()}, timed
 
@@ -947,18 +974,36 @@ def phase_gated():
     return rec
 
 
-def ssd_bound_ms(B, H, L, P, N, chunk, shared_bc: bool) -> tuple:
-    """Least time for one scan. Operations: per chunk of Q steps, 2 (N + P)
-    flops per causal (i, j <= i) pair (scores and their product with x)
-    and 2 N P per step for each of the carry-in and the state update, at
-    the f32 rate; bytes: x read and y written once, a once, b and c once
-    per distinct (batch, head) view, the final state written once, at the
+def ssd_bound_ms(B, H, L, P, N, chunk, shared_bc: bool, size: int = 4,
+                 cuda_cores: bool = False) -> tuple:
+    """Least time for one scan. Operations, per chunk of Q steps: the
+    scores C_i . B_j, 2 N flops per causal (i, j <= i) pair, once per
+    (batch, chunk) when b and c are one group for all heads, else per
+    head; per head, their product with x, 2 P flops per pair, and 2 N P
+    flops per step for each of the carry-in and the chunk state. Each
+    product at f32 accuracy, at the fastest rate its operands allow: two
+    f32 operands (the f32 inputs, or a decay-scaled factor times the f32
+    state) at the three-pass TF32 rate; with bf16 inputs (``size`` 2), the
+    scores of two bf16 inputs at the bf16 rate (their products are exact),
+    and an input times an f32 factor at a third of it (the factor split
+    into three bf16 parts). ``cuda_cores`` counts every flop at the f32
+    rate outside the tensor cores instead. Bytes: x read and y written once
+    (``size`` bytes each, like b and c), a once, b and c once per distinct
+    (batch, head) view, the final state written once in f32, at the
     data-sheet bandwidth. The larger wins."""
     Z, Q = -(-L // chunk), min(chunk, L)
-    ops = B * H * Z * (Q * (Q + 1) // 2 * 2 * (N + P) + 4 * Q * N * P)
+    pairs = B * Z * Q * (Q + 1) // 2
     bc_heads = 1 if shared_bc else H
-    nbytes = 4 * (2 * B * H * L * P + B * H * L + 2 * B * bc_heads * L * N + B * H * N * P)
-    ops_ms = ops / PEAK_F32_FLOP_PER_S * 1e3
+    scores = 2 * N * pairs * bc_heads
+    mixed = H * (2 * P * pairs + 4 * B * Z * Q * N * P)
+    if cuda_cores:
+        ops_ms = (scores + mixed) / PEAK_F32_FLOP_PER_S * 1e3
+    elif size == 2:
+        ops_ms = (scores / PEAK_BF16_FLOP_PER_S + mixed / (PEAK_BF16_FLOP_PER_S / 3)) * 1e3
+    else:
+        ops_ms = (scores + mixed) / PEAK_TF32X3_FLOP_PER_S * 1e3
+    nbytes = (size * (2 * B * H * L * P + 2 * B * bc_heads * L * N)
+              + 4 * (B * H * L + B * H * N * P))
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -1001,7 +1046,7 @@ def _close(got, want, tol, what: str) -> float:
 def phase_ssd():
     import torch
 
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import device_launches, ssd_scan
     from repro_torch.kernels.ref import ref_ssd
 
     print("== phase 13: ssd_scan kernel vs plain versions on the card")
@@ -1037,19 +1082,68 @@ def phase_ssd():
             rec["chunk64_vs_256_max_abs_diff"] = _close(ssd_scan(x, a, b, c, 64), got, SSD_TOL,
                                                          "ssd_scan loss shape chunk 64 vs 256")
         rec["bound_ms"], rec["bound_by"] = ssd_bound_ms(B, H, L, P, N, chunk, True)
+        rec["bound_ms_cuda_cores"] = ssd_bound_ms(B, H, L, P, N, chunk, True,
+                                                  cuda_cores=True)[0]
+        rec["device_launches_per_call"] = device_launches(
+            lambda: ssd_scan(x, a, b, c, chunk, return_state=True))
         rec["ms"] = time_ms(lambda: ssd_scan(x, a, b, c, chunk, return_state=True), inner=5)
+        rec["device_ms"] = graph_ms(lambda: ssd_scan(x, a, b, c, chunk, return_state=True),
+                                    inner=10)
+        if label == "serve":
+            # the other route at the same inputs: the size rule sends the
+            # serve prefill to the kernel that walks each (b, h)'s chunks
+            rec["chunks_path"] = {
+                "max_abs_err_vs_chunked": _close(
+                    ssd_scan(x, a, b, c, chunk, path="chunks"), want, SSD_TOL,
+                    f"{where}: y on the chunk-parallel path"),
+                "device_launches_per_call": device_launches(
+                    lambda: ssd_scan(x, a, b, c, chunk, return_state=True, path="chunks")),
+                "device_ms": graph_ms(lambda: ssd_scan(x, a, b, c, chunk, return_state=True,
+                                                       path="chunks"), inner=10)}
         rec["plain_ms"] = time_ms(lambda: ref_ssd(x, a, b, c, return_state=True), reps=3)
         rec["chunked_ms"] = time_ms(lambda: _chunked(x, a, b, c, chunk), reps=5)
         rec["library_ms"] = None          # no PyTorch call computes the scan
+        # bf16 x, b, c (b and c still one group as stride-0 head views)
+        xh, bh, ch = (t[:, :1].to(torch.bfloat16).expand(B, H, L, t.shape[-1]) if t is not x
+                      else t.to(torch.bfloat16) for t in (x, b, c))
+        got16, h16 = ssd_scan(xh, a, bh, ch, chunk, return_state=True)
+        want16, want_h16 = ref_ssd(xh, a, bh, ch, return_state=True)
+        torch.cuda.synchronize()
+        bf16 = {"max_abs_err_vs_ref_ssd": max(
+            _close(got16, want16, SSD_BF16_TOL, f"{where} bf16 vs ref_ssd: y"),
+            _close(h16, want_h16, SSD_TOL, f"{where} bf16 vs ref_ssd: state"))}
+        bf16["bound_ms"], bf16["bound_by"] = ssd_bound_ms(B, H, L, P, N, chunk, True, 2)
+        bf16["device_launches_per_call"] = device_launches(
+            lambda: ssd_scan(xh, a, bh, ch, chunk, return_state=True))
+        bf16["ms"] = time_ms(lambda: ssd_scan(xh, a, bh, ch, chunk, return_state=True),
+                             inner=5)
+        bf16["device_ms"] = graph_ms(lambda: ssd_scan(xh, a, bh, ch, chunk, return_state=True),
+                                     inner=10)
+        bf16["chunked_ms"] = time_ms(lambda: _chunked(xh, a, bh, ch, chunk), reps=5)
+        bf16["library_ms"] = None
+        rec["bf16"] = bf16
         timed[label] = rec
         print(f"ssd_scan {label} {(B, H, L, P, N)} chunk {chunk} f32: y max |err| vs ssd_chunked "
               f"{e_y:.3g}, state {e_h:.3g}"
               + (f", chunk 64 vs 256 {rec['chunk64_vs_256_max_abs_diff']:.3g}" if label == "loss"
                  else "")
-              + f"; kernel {rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.1%} of the "
-              f"{rec['bound_by']} bound {rec['bound_ms']:.4f} ms), ref_ssd {rec['plain_ms']:.3f} "
-              f"ms, ssd_chunked {rec['chunked_ms']:.4f} ms")
-        del x, a, b, c, got, h, want, want_h
+              + f"; kernel {rec['ms']:.4f} ms eager, {rec['device_ms']:.4f} ms device (CUDA "
+              f"graph; {rec['bound_ms'] / rec['device_ms']:.1%} of the "
+              f"{rec['bound_by']} bound {rec['bound_ms']:.4f} ms; "
+              f"{rec['bound_ms_cuda_cores']:.4f} ms at 67 TFLOP/s on the CUDA cores; "
+              f"{rec['device_launches_per_call']} device launches), ref_ssd "
+              f"{rec['plain_ms']:.3f} "
+              f"ms, ssd_chunked {rec['chunked_ms']:.4f} ms; bf16: max |err| vs ref_ssd "
+              f"{bf16['max_abs_err_vs_ref_ssd']:.3g}, kernel {bf16['ms']:.4f} ms eager, "
+              f"{bf16['device_ms']:.4f} ms device ({bf16['bound_ms'] / bf16['device_ms']:.1%} "
+              f"of {bf16['bound_ms']:.4f} ms), "
+              f"ssd_chunked {bf16['chunked_ms']:.4f} ms")
+        if label == "serve":
+            alt = rec["chunks_path"]
+            print(f"ssd_scan serve shape on the chunk-parallel path: "
+                  f"{alt['device_launches_per_call']} device launches, {alt['device_ms']:.4f} ms "
+                  f"device, against {rec['device_ms']:.4f} ms on the path the size rule takes")
+        del x, a, b, c, got, h, want, want_h, xh, bh, ch, got16, h16, want16, want_h16
     torch.cuda.empty_cache()
     return err, timed
 

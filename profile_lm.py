@@ -27,9 +27,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-# first match wins: gated_rmsnorm_rows before rmsnorm_rows
+# first match wins: gated_rmsnorm_rows before rmsnorm_rows, the port's
+# kernels before the matmul keys; "ssd_" covers every launch of the scan
+# (ssd_chunk_scores, ssd_chunk_state, ssd_state_pass, ssd_chunk_out,
+# ssd_scan_seq)
 FAMILIES = (("flash_attention", ("flash_fwd",)), ("gated_rmsnorm", ("gated_rmsnorm_rows",)),
-            ("ssd_scan", ("ssd_chunk_scan",)), ("rmsnorm", ("rmsnorm_rows",)),
+            ("ssd_scan", ("ssd_",)), ("rmsnorm", ("rmsnorm_rows",)),
             ("matmul", ("gemm", "cutlass", "xmma", "splitk")))
 
 

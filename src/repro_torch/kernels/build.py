@@ -10,7 +10,8 @@ edited source is rebuilt and an unchanged one is reused.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. ``device_launches`` counts
+the device kernels one wrapper call enqueues (a call may make several).
 """
 
 from __future__ import annotations
@@ -41,6 +42,37 @@ LAUNCHES: collections.Counter = collections.Counter()
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     LAUNCHES.clear()
+
+
+def device_launches(fn) -> int:
+    """Kernels one call of ``fn`` enqueues on the current CUDA device:
+    the call is run once, then captured once in a CUDA graph (never
+    replayed) whose kernel nodes are counted through libcuda's
+    ``cuGraphGetNodes``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0      # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
 
 
 @dataclass

@@ -8,9 +8,10 @@ causal is top-left aligned (query i sees keys 0..i). On a CUDA tensor it
 launches the hand-written kernel of ``csrc/flash_attention.cu`` (or
 raises); on a CPU tensor it takes the plain version, ``ref.ref_attention``.
 The kernel reads its inputs through their strides, so the model's
-transposed (B, S, H, hd) views go in without a copy, and the output has
-q's memory layout. It has no backward yet: on CUDA a call that autograd
-would record raises.
+transposed (B, S, H, hd) views go in without a copy (a view whose rows do
+not start on 16 bytes is copied first), and the output has q's memory
+layout. It has no backward yet: on CUDA a call that autograd would record
+raises.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import functools
 
 import torch
 
+from repro_torch.device import on_device
 from repro_torch.kernels.build import LAUNCHES, load
 from repro_torch.kernels.ref import ref_attention
 from repro_torch.kernels.rmsnorm import NO_BACKWARD
@@ -27,6 +29,14 @@ from repro_torch.kernels.rmsnorm import NO_BACKWARD
 # dtype codes of csrc/flash_attention.cu::flash_attention_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128)
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` (its last axis) is contiguous and starts on
+    16 bytes, as the kernel's 16-byte ``cp.async`` copies need."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:-1]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,14 +79,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPE_CODE or hd not in HEAD_DIMS:
         raise TypeError(f"flash_attention: the CUDA kernel takes float32/bfloat16 and hd in "
                         f"{HEAD_DIMS}, got {q.dtype} and hd={hd}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if rows_aligned(t) else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)  # q's layout: (B, S, H, hd) memory for the model's views
     lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    rc = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    *strides, B, H, KV, Sq, Sk, hd, hd ** -0.5, int(causal),
-                                    _DTYPE_CODE[q.dtype], stream)
+    with on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        rc = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        out.data_ptr(), *strides, B, H, KV, Sq, Sk, hd,
+                                        hd ** -0.5, int(causal), _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError("flash_attention: kernel launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch, and none of
-chip_smoke.py, profile_async.py and profile_lm.py, imports jax or the JAX
-package."""
+chip_smoke.py, profile_async.py, profile_kernels.py and profile_lm.py,
+imports jax or the JAX package."""
 import os
 import re
 import subprocess
@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_async.py", ROOT / "profile_lm.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_async.py", ROOT / "profile_kernels.py",
+    ROOT / "profile_lm.py"]
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)", re.M)
 
 

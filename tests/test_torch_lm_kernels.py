@@ -22,6 +22,7 @@ from repro.kernels.ref import ref_rmsnorm as jax_ref_rmsnorm
 from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro.models.layers import rms_norm as jax_rms_norm
 from repro_torch.kernels import LAUNCHES, flash_attention, reset_launches, rmsnorm
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.ref import ref_attention, ref_rmsnorm
 from repro_torch.models.layers import rms_norm
 
@@ -226,3 +227,56 @@ def test_cuda_kernels_refuse_autograd(cuda_device):
     with torch.no_grad():
         assert rmsnorm(x, w).shape == x.shape
         assert flash_attention(q, kv, kv).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [
+    (1, 2, 1, 65, 33, 64),      # Sq, Sk one past the q tile and the f32 kv tile
+    (2, 3, 3, 129, 97, 32),     # ragged in both, no GQA
+    (1, 2, 2, 257, 130, 128),   # Sq > Sk, neither a multiple of a tile
+    (1, 2, 1, 70, 200, 112),    # Sq < Sk at zamba2's head dim
+    (1, 4, 2, 1, 77, 64),       # one query row
+    (8, 32, 8, 128, 128, 64),   # a large batch of heads
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_ragged_tiles(cuda_device, B, H, KV, Sq, Sk, hd, causal, dtype):
+    q, k, v = (_to_torch(_normal(s, 200 + i), dtype).to(cuda_device) for i, s in
+               enumerate([(B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)]))
+    reset_launches()
+    got = flash_attention(q, k, v, causal=causal)
+    want = ref_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.dtype == _TORCH[dtype] and got.shape == (B, H, Sq, hd)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_every_head_dim(cuda_device, hd, dtype):
+    q, k, v = (_to_torch(_normal((2, 4, 160, hd), 210 + i), dtype).to(cuda_device)
+               for i in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    want = ref_attention(q, k, v, causal=True)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_reads_transposed_and_unaligned_views(cuda_device, dtype):
+    """(B, S, H, hd) views at zamba2's head dim, read in place; then views
+    whose rows start one element past 16 bytes, which the wrapper copies."""
+    B, S, H, KV, hd = 2, 200, 4, 2, 112
+    q, k, v = (_to_torch(_normal(s, 220 + i), dtype).to(cuda_device) for i, s in
+               enumerate([(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)]))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = flash_attention(*views)
+    assert got.transpose(1, 2).is_contiguous()
+    assert (got.float() - ref_attention(*views).float()).abs().max().item() \
+        <= ATTN_TOL[dtype]
+    shifted = [torch.cat([t, t[..., :1]], dim=-1)[..., 1:].transpose(1, 2) for t in (q, k, v)]
+    want = ref_attention(*(t.contiguous() for t in shifted))
+    assert (flash_attention(*shifted).float() - want.float()).abs().max().item() \
+        <= ATTN_TOL[dtype]

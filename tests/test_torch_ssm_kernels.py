@@ -203,9 +203,24 @@ def test_ssd_scan_validation(shapes, err):
             ssd_scan(x, a, b, c, chunk=0)
         with pytest.raises(TypeError):
             ssd_scan(x, a, b.to(torch.float64), c, chunk=4)
+        with pytest.raises(ValueError, match="path"):
+            ssd_scan(x, a, b, c, chunk=4, path="fast")
         return
     with pytest.raises(err):
         ssd_scan(x, a, b, c, chunk=4)
+
+
+@pytest.mark.parametrize("path", ["auto", "chunks", "seq"])
+def test_ssd_scan_cpu_takes_the_plain_version_on_every_path(path):
+    """``path`` picks among the CUDA kernels; a CPU tensor takes the plain
+    version whichever is asked for."""
+    x, a, b, c = (torch.from_numpy(t) for t in _ssd_inputs(1, 2, 24, 8, 4, seed=140))
+    reset_launches()
+    y, h = ssd_scan(x, a, b, c, chunk=8, return_state=True, path=path)
+    want, want_h = ref_ssd(x, a, b, c, return_state=True)
+    torch.testing.assert_close(y, want, rtol=0, atol=0)
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+    assert LAUNCHES["ssd_scan"] == 0
 
 
 # ------------------------------------------------------------- on the card
@@ -314,9 +329,124 @@ def test_cuda_ssm_kernels_refuse_autograd(cuda_device):
 
 @pytest.mark.cuda
 def test_ssd_scan_cuda_refuses_a_chunk_too_large_for_shared_memory(cuda_device):
-    """At N = P = 64 a chunk of 512 needs more shared memory than a block
-    has: the launch is refused and the wrapper raises, naming the size."""
-    x = torch.zeros(1, 1, 512, 64, device=cuda_device)
-    bc = torch.zeros(1, 1, 512, 64, device=cuda_device)
+    """A block keeps its chunk's cumsum of a in shared memory beside its
+    tiles: at N = P = 64 a chunk of 65536 steps needs more than a block
+    has, so the launch is refused and the wrapper raises, naming the size."""
+    L = 65536
+    x = torch.zeros(1, 1, L, 64, device=cuda_device)
+    bc = torch.zeros(1, 1, L, 64, device=cuda_device)
     with pytest.raises(RuntimeError, match="shared memory"):
-        ssd_scan(x, torch.zeros(1, 1, 512, device=cuda_device), bc, bc, chunk=512)
+        ssd_scan(x, torch.zeros(1, 1, L, device=cuda_device), bc, bc, chunk=L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,P,N,chunk", [
+    (1, 2, 60, 12, 6, 20),      # N, P and the chunk no multiples of the mma tile
+    (2, 3, 90, 20, 10, 30),
+    (1, 2, 9, 8, 4, 1),         # a chunk of 1
+    (1, 2, 7, 8, 4, 16),        # L < chunk
+    (1, 2, 512, 16, 8, 16),     # 32 chunks: the state pass walks them in order
+    (2, 3, 640, 8, 6, 16),      # 40 chunks
+    (1, 2, 200, 100, 16, 72),   # P = 100 pads to the 128-wide tile; 3 row tiles of 64
+    (1, 1, 256, 128, 72, 256),  # P = 128, N = 72: two blocks of state rows
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_cuda_tile_edges(cuda_device, B, H, L, P, N, chunk, dtype):
+    """The chunk-parallel kernel's tile edges, with B and C one group read
+    as stride-0 head views, y and the final state against ``ref_ssd``."""
+    x, a, b, c = _ssd_inputs(B, H, L, P, N, seed=110 + L + P, shared_bc=True)
+    xt = _to_torch(x, dtype).to(cuda_device)
+    bt, ct = (_to_torch(np.ascontiguousarray(t[:, :1]), dtype).to(cuda_device)
+              .expand(B, H, L, N) for t in (b, c))
+    at = torch.from_numpy(a).to(cuda_device)
+    reset_launches()
+    got, h = ssd_scan(xt, at, bt, ct, chunk=chunk, return_state=True)
+    want, want_h = ref_ssd(xt, at, bt.contiguous(), ct.contiguous(), return_state=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 1
+    assert got.dtype == _TORCH[dtype] and got.shape == (B, H, L, P) and h.shape == (B, H, N, P)
+    tol = SSD_TOL if dtype == "float32" else dict(atol=5e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(h, want_h, **SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,P,N,chunk", [
+    (3, 100, 128, 64, 64, 64),  # the serve prefill's chunk and widths
+    (4, 70, 100, 12, 6, 32),    # ragged L, N and P
+    (2, 140, 40, 8, 4, 1),      # a chunk of 1: 40 chunks
+    (2, 150, 20, 16, 72, 64),   # N past 64: the four-launch path
+])
+@pytest.mark.parametrize("shared_bc", [True, False])
+def test_ssd_scan_cuda_many_heads(cuda_device, B, H, L, P, N, chunk, shared_bc):
+    """At least two (batch, head) pairs per SM: chunks and states of at
+    most 64 take the kernel that walks each pair's chunks in one block (the
+    state kept in shared memory), two device launches beside the tail's
+    padding, as a CUDA graph of the call counts them; the chunk-parallel
+    kernels (four launches) agree when forced. B and C per head or one
+    shared group."""
+    from repro_torch.kernels import device_launches
+    from repro_torch.kernels.ssd_scan import _pad_seq
+
+    assert B * H >= 2 * torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    x, a, b, c = _ssd_inputs(B, H, L, P, N, seed=130 + L + N, shared_bc=shared_bc)
+    xt, at = (torch.from_numpy(t).to(cuda_device) for t in (x, a))
+    if shared_bc:
+        bt, ct = (torch.from_numpy(np.ascontiguousarray(t[:, :1])).to(cuda_device)
+                  .expand(B, H, L, N) for t in (b, c))
+    else:
+        bt, ct = (torch.from_numpy(t).to(cuda_device) for t in (b, c))
+    got, h = ssd_scan(xt, at, bt, ct, chunk=chunk, return_state=True)
+    want, want_h = ref_ssd(xt, at, bt.contiguous(), ct.contiguous(), return_state=True)
+    torch.testing.assert_close(got, want, **SSD_TOL)
+    torch.testing.assert_close(h, want_h, **SSD_TOL)
+    Q = min(chunk, L)
+    Lp = -(-L // Q) * Q
+    padding = device_launches(lambda: [_pad_seq(t, Lp) for t in (xt, at, bt, ct)]) \
+        if Lp != L else 0
+    assert device_launches(lambda: ssd_scan(xt, at, bt, ct, chunk=chunk)) \
+        == padding + (2 if N <= 64 else 4)
+    got_c, h_c = ssd_scan(xt, at, bt, ct, chunk=chunk, return_state=True, path="chunks")
+    torch.testing.assert_close(got_c, want, **SSD_TOL)
+    torch.testing.assert_close(h_c, want_h, **SSD_TOL)
+    assert device_launches(lambda: ssd_scan(xt, at, bt, ct, chunk=chunk, path="chunks")) \
+        == padding + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,P,N,chunk", [
+    (1, 2, 60, 12, 6, 20),      # N, P and the chunk no multiples of the mma tile
+    (1, 2, 9, 8, 4, 1),         # a chunk of 1
+    (1, 2, 7, 8, 4, 16),        # L < chunk
+    (2, 3, 640, 8, 6, 16),      # 40 chunks
+    (1, 2, 256, 100, 64, 64),   # P = 100 pads to the 128-wide tile; the widest chunk and N
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_cuda_sequential_path_tile_edges(cuda_device, B, H, L, P, N, chunk, dtype):
+    """The kernel that walks each (batch, head)'s chunks, forced at few
+    pairs, at its tile edges; it refuses chunks or states wider than 64."""
+    x, a, b, c = _ssd_inputs(B, H, L, P, N, seed=150 + L + P, shared_bc=True)
+    xt = _to_torch(x, dtype).to(cuda_device)
+    bt, ct = (_to_torch(np.ascontiguousarray(t[:, :1]), dtype).to(cuda_device)
+              .expand(B, H, L, N) for t in (b, c))
+    at = torch.from_numpy(a).to(cuda_device)
+    got, h = ssd_scan(xt, at, bt, ct, chunk=chunk, return_state=True, path="seq")
+    want, want_h = ref_ssd(xt, at, bt.contiguous(), ct.contiguous(), return_state=True)
+    tol = SSD_TOL if dtype == "float32" else dict(atol=5e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(h, want_h, **SSD_TOL)
+    zx, zbc = (torch.zeros(1, 1, 128, w, device=cuda_device) for w in (8, 4))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ssd_scan(zx, torch.zeros(1, 1, 128, device=cuda_device), zbc, zbc, chunk=128,
+                 path="seq")
+
+
+@pytest.mark.cuda
+def test_ssd_scan_cuda_chunk_invariance_over_many_chunks(cuda_device):
+    """64 chunks of 16 against 16 chunks of 64 at Mamba2's N = P = 64."""
+    x, a, b, c = (torch.from_numpy(t).to(cuda_device)
+                  for t in _ssd_inputs(1, 2, 1024, 64, 64, seed=120))
+    y16, h16 = ssd_scan(x, a, b, c, chunk=16, return_state=True)
+    y64, h64 = ssd_scan(x, a, b, c, chunk=64, return_state=True)
+    torch.testing.assert_close(y16, y64, **SSD_CHUNK_TOL)
+    torch.testing.assert_close(h16, h64, **SSD_CHUNK_TOL)
