@@ -86,7 +86,34 @@ printed only when every phase passed:
    (13 flash_attention, 81 ssd_scan, 81 gated_rmsnorm, 108 rmsnorm
    launches) and without: ms per forward, peak memory, the two losses
    within 2e-4.
-16. A JSON line describing every kernel, the card line, and the final
+16. Sync incentives and policies (``benchmarks/experiments.py`` at
+   fast=False, one seed, vmap backend): exp5 (synth-mnist and synth-cifar,
+   40 clients, participation 0.6, 100 rounds, budget 29, ``exp4`` bids)
+   under maxmin_fair, budget_fair and gmmfair; exp11's policies (3 tasks,
+   120 clients, participation 0.25, 100 rounds) ucb_bandit and grad_norm;
+   exp11's incentives (gmmfair, budget 20, 60 rounds) one_shot and
+   periodic_auction every 5. Rounds/s, min-accuracy and the auction
+   summary of each; fedavg exactly once per non-empty fold. The kernel is
+   then held against its plain version at every (K, N) fold those runs
+   made (each cohort is folded at its own size). The exp5 gmmfair and the
+   periodic runs with round_robin on the card and on the CPU: identical
+   auction ledgers and allocation traces.
+17. Async robust aggregators and cost models: exp13 (synth-mnist and
+   synth-fmnist, 16 clients, 600 arrivals, buffer 3, beta 0.5, bimodal
+   speeds with spread 8) under fedmedian and trimmed_mean (no kernel
+   launch) and qfedavg (fedavg once per flush); exp14 (spread 4,
+   lognormal_straggler) under thompson and ucb_bandit, with cost_dropouts
+   and time to accuracy 0.55; fedadam (server lr 0.1) under
+   lognormal_straggler (fused_aggregate once per flush); trace_replay with
+   an inline trace drawn from the seed. Flushes/s and min-accuracy of
+   each; fedavg and fused_aggregate then held against their plain
+   versions at every flush shape those runs made.
+   Card against CPU: lognormal_straggler with round_robin gives identical
+   event traces and cost_dropouts; fedmedian with round_robin at buffer 4
+   params within 1e-4. A 2x2 sweep (alpha x fedmedian/qfedavg, 600
+   arrivals a point) with two spawned workers equals the sequential
+   payload but for wall times.
+18. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Needs CUDA, nvcc (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``)
@@ -169,6 +196,22 @@ SSD_CHUNK_TOL = dict(atol=5e-5, rtol=1e-4)         # test_ssd_scan_state_continu
 SSD_BF16_TOL = dict(atol=5e-2, rtol=1e-2)          # y in bf16 (tests/test_torch_ssm_kernels.py)
 HYBRID_CPU_LAYERS, HYBRID_CPU_BATCH, HYBRID_CPU_GEN = 7, 2, 4
 HYBRID_LOSS_B, HYBRID_LOSS_S = 1, 2048
+
+# benchmarks/experiments.py at fast=False, one seed: exp5 (auctions feeding
+# FedFairMMFL), exp11 (policies; incentives), exp13 (aggregators), exp14
+# (cost models)
+EXP5 = dict(tasks=("synth-mnist", "synth-cifar"), clients=40, participation=0.6, rounds=100,
+            budget=29.0, mechanisms=("maxmin_fair", "budget_fair", "gmmfair"))
+EXP11 = dict(tasks=TASKS, clients=120, participation=0.25, rounds=100,
+             policies={"ucb_bandit": {"epsilon": 0.2}, "grad_norm": {}})
+# exp11's incentive half: exp5's tasks and clients at another budget and length
+EXP11_INC = dict(budget=20.0, rounds=60,
+                 incentives={"one_shot": {}, "periodic_auction": {"every": 5}})
+EXP13 = dict(tasks=("synth-mnist", "synth-fmnist"), clients=16, arrivals=600, buffer=3,
+             spread=8.0, aggregators={"fedmedian": {}, "trimmed_mean": {"trim": 0.2},
+                                      "qfedavg": {"q": 1.0}})
+EXP14_SPREAD, EXP14_TARGET = 4.0, 0.55
+LOGNORMAL = {"sigma": 0.6, "straggler_frac": 0.25, "straggler_factor": 4.0, "dropout_prob": 0.05}
 
 
 def fail(msg: str) -> None:
@@ -607,7 +650,7 @@ def check_server_moments(res) -> None:
 
     from repro_torch.api.registry import TASK_FAMILIES
 
-    runner = TASK_FAMILIES.get("synthetic")().async_engine(async_spec("fedadam"), "cuda")
+    runner = TASK_FAMILIES.get("synthetic")().async_engine(async_spec("fedadam"), device="cuda")
     again = runner.run()
     moments = _devices(runner.engine._server_state)
     if not np.array_equal(again.time, res.time) or moments != {"cuda"}:
@@ -1298,6 +1341,313 @@ def phase_hybrid_loss(params):
             "peak_bytes": peak, "peak_bytes_plain_path": peak_plain, "launches": launches}
 
 
+def exp5_spec(mechanism: str, strategy: str = "fedfair", incentive: str = "one_shot",
+              rounds: int = EXP5["rounds"], budget: float = EXP5["budget"],
+              incentive_options=None):
+    """exp5 (and exp11's incentive runs, which differ only in budget,
+    rounds and incentive) on the vmap backend."""
+    from repro_torch.api import (AllocationSpec, AuctionSpec, ClientPopulationSpec,
+                                 RuntimeSpec, ScenarioSpec, TaskSpec)
+
+    return ScenarioSpec(
+        name=f"exp5-{mechanism}-{incentive}-{strategy}", seed=0, data_seed=0,
+        tasks=[TaskSpec(t, options={"n_range": [60, 90]}) for t in EXP5["tasks"]],
+        clients=ClientPopulationSpec(n_clients=EXP5["clients"],
+                                     participation=EXP5["participation"]),
+        allocation=AllocationSpec(strategy=strategy, alpha=3.0),
+        auction=AuctionSpec(mechanism=mechanism, budget=budget, bid_model="exp4", bid_seed=0,
+                            incentive=incentive, incentive_options=dict(incentive_options or {})),
+        runtime=RuntimeSpec(backend="vmap", rounds=rounds, tau=3))
+
+
+def exp11_spec(policy: str):
+    from repro_torch.api import (AllocationSpec, ClientPopulationSpec, PolicySpec, RuntimeSpec,
+                                 ScenarioSpec, TaskSpec)
+
+    return ScenarioSpec(
+        name=f"exp11-{policy}", seed=0, data_seed=0,
+        tasks=[TaskSpec(t, options={"n_range": [60, 90]}) for t in EXP11["tasks"]],
+        clients=ClientPopulationSpec(n_clients=EXP11["clients"],
+                                     participation=EXP11["participation"]),
+        allocation=AllocationSpec(strategy="fedfair", alpha=3.0),
+        policy=PolicySpec(policy, dict(EXP11["policies"][policy])),
+        runtime=RuntimeSpec(backend="vmap", rounds=EXP11["rounds"], tau=3))
+
+
+def exp11_incentive_spec(incentive: str, strategy: str = "fedfair"):
+    return exp5_spec("gmmfair", strategy, incentive, EXP11_INC["rounds"], EXP11_INC["budget"],
+                     EXP11_INC["incentives"][incentive])
+
+
+def run_sync_counted(label: str, spec, device: str = "cuda"):
+    """One sync run through ``run_counted``: on the card, fedavg must
+    launch once per non-empty (round, task) fold and nothing else."""
+    import numpy as np
+
+    res, launches = run_counted(spec, device)
+    rounds = spec.runtime.rounds
+    folds = int((res.alloc_counts > 0).sum())
+    if device == "cuda" and launches != {"fedavg": folds}:
+        fail(f"{label}: launches {launches} for {folds} non-empty (round, task) folds")
+    if res.acc.shape != (rounds, len(spec.tasks)) or not np.isfinite(res.acc).all():
+        fail(f"{label}: accuracy curve {res.acc.shape} not finite")
+    if device == "cuda":
+        print(f"{label}: {rounds / res.wall_time:.2f} rounds/s ({res.wall_time:.3f} s), fedavg "
+              f"launches {launches['fedavg']} = non-empty folds {folds}, min-acc "
+              f"{res.fairness['min_acc']:.4f}"
+              + ("" if res.auction is None else f", auction {json.dumps(res.auction)}"))
+    return res, launches
+
+
+class FoldShapes:
+    """Records the shapes the runs of phases 16-17 hand to the fold
+    kernels: (K, N, dtype) of each ``fedavg`` call of the vmap backend
+    (every sync fold, every qfedavg and fedavg flush) and (K, N, mode) of
+    each ``fused_aggregate`` flush. A pass-through around the port's two
+    call sites that only records; each wrapper still counts its launches."""
+
+    def __init__(self):
+        self.fedavg, self.fused = set(), set()
+
+    def __enter__(self):
+        import repro_torch.api.aggregator as aggregator
+        import repro_torch.api.backend as backend
+
+        self._saved = fedavg, fused = backend.fedavg, aggregator.fused_aggregate
+
+        def fedavg_rec(stacked, weights):
+            self.fedavg.add((*stacked.shape, str(stacked.dtype).removeprefix("torch.")))
+            return fedavg(stacked, weights)
+
+        def fused_rec(x, *args, mode, **kw):
+            self.fused.add((*x.shape, mode))
+            return fused(x, *args, mode=mode, **kw)
+
+        backend.fedavg, aggregator.fused_aggregate = fedavg_rec, fused_rec
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.api.aggregator as aggregator
+        import repro_torch.api.backend as backend
+
+        backend.fedavg, aggregator.fused_aggregate = self._saved
+
+
+def check_run_shapes(label: str, shapes: FoldShapes) -> dict:
+    """Hold each fold kernel against its plain version at every shape the
+    runs gave it (phase 2 and 5 check a fixed grid of K; the vmap backend
+    folds each cohort at its own size), on seeded inputs, at ``TOL`` and
+    ``FUSED_TOL``. Made after the runs' counts were read, so these
+    launches count nowhere."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fedavg
+    from repro_torch.kernels.ref import ref_fedavg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err = {"fedavg": 0.0, "fused_aggregate": 0.0}
+    for K, N, name in sorted(shapes.fedavg):
+        x32, w = _fold_inputs(rng, K, N, dev)
+        x = x32.to(getattr(torch, name))
+        got, want = fedavg(x, w), ref_fedavg(x, w)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        if got.dtype != x.dtype or got.shape != (N,) or not e <= TOL[name]:
+            fail(f"{label}: fedavg at the run shape K={K} N={N} {name}: {got.dtype} "
+                 f"{tuple(got.shape)}, max |err| {e} (tol {TOL[name]})")
+        err["fedavg"] = max(err["fedavg"], e)
+    for K, N, mode in sorted(shapes.fused):
+        e, _ = check_fused(*_flush_inputs(gen, K, N, dev), mode, f"{label} run shape K={K} N={N}")
+        err["fused_aggregate"] = max(err["fused_aggregate"], e)
+    ks = sorted({k for k, _, _ in shapes.fedavg})
+    print(f"{label}: fedavg held against ref_fedavg at all {len(shapes.fedavg)} (K, N, dtype) "
+          f"folds the runs made (K {ks[0]}-{ks[-1]}, N in {sorted({n for _, n, _ in shapes.fedavg})}"
+          f", {sorted({d for _, _, d in shapes.fedavg})}): max |err| {err['fedavg']:.3g} "
+          f"(tol {TOL})"
+          + (f"; fused_aggregate at all {len(shapes.fused)} (K, N, mode) flushes "
+             f"({sorted(shapes.fused)}): max |err| {err['fused_aggregate']:.3g} "
+             f"(rtol/atol {FUSED_TOL})" if shapes.fused else ""))
+    return {"fedavg_shapes": len(shapes.fedavg), "fused_shapes": len(shapes.fused), **err}
+
+
+def phase_incentives(line: str):
+    """Phase 16: the sync slice under the auctions and the stateful policies."""
+    import numpy as np
+
+    print("== phase 16: sync incentives and policies on the card (run_scenario, vmap backend)")
+    print(f"card: {line}")
+    runs = {}
+    with FoldShapes() as shapes:
+        for mech in EXP5["mechanisms"]:
+            runs[f"exp5-{mech}"] = run_sync_counted(f"exp5 {mech}", exp5_spec(mech))
+        for policy in EXP11["policies"]:
+            runs[f"exp11-{policy}"] = run_sync_counted(f"exp11 {policy}", exp11_spec(policy))
+        for incentive in EXP11_INC["incentives"]:
+            runs[f"exp11-{incentive}"] = run_sync_counted(f"exp11 {incentive}",
+                                                          exp11_incentive_spec(incentive))
+    checked = check_run_shapes("phase 16", shapes)
+    if runs["exp11-periodic_auction"][0].auction["auctions_run"] < 2:
+        fail("exp11 periodic_auction ran fewer than two auctions")
+    for label, make in (("exp5 gmmfair", lambda: exp5_spec("gmmfair", "round_robin")),
+                        ("exp11 periodic_auction",
+                         lambda: exp11_incentive_spec("periodic_auction", "round_robin"))):
+        gpu, _ = run_sync_counted(f"{label} round_robin", make())
+        cpu, _ = run_sync_counted(f"{label} round_robin (CPU)", make(), "cpu")
+        same = gpu.auction == cpu.auction and np.array_equal(gpu.alloc, cpu.alloc)
+        diff = float(np.abs(gpu.acc - cpu.acc).max())
+        print(f"{label} round_robin card vs CPU: auction ledgers and allocation traces "
+              f"identical={same}, max |acc card - acc cpu| {diff:.6f}, CPU "
+              f"{len(cpu.alloc) / cpu.wall_time:.2f} rounds/s")
+        if not same or not diff <= 0.01:
+            fail(f"{label} round_robin card vs CPU disagree")
+    return {k: launches for k, (_, launches) in runs.items()}, checked
+
+
+def exp13_spec(aggregator, options=None, strategy: str = "fedfair", buffer: int = EXP13["buffer"],
+               spread: float = EXP13["spread"], cost_model=None, cost_options=None,
+               policy=None, name: str = "exp13"):
+    """exp13's skewed two-task async scenario; exp14 is the same at spread
+    4 with a cost model and a policy."""
+    from repro_torch.api import (AllocationSpec, ClientPopulationSpec, PolicySpec, RuntimeSpec,
+                                 ScenarioSpec, TaskSpec)
+
+    return ScenarioSpec(
+        name=f"{name}-{aggregator or 'fedavg'}-{cost_model or 'constant'}-{policy or strategy}",
+        seed=0, data_seed=0,
+        tasks=[TaskSpec(t, options={"n_range": [60, 90]}) for t in EXP13["tasks"]],
+        clients=ClientPopulationSpec(n_clients=EXP13["clients"], speed_profile="bimodal",
+                                     speed_spread=spread),
+        allocation=AllocationSpec(strategy=strategy, alpha=3.0),
+        policy=None if policy is None else PolicySpec(policy),
+        runtime=RuntimeSpec(mode="async", backend="vmap", tau=3,
+                            total_arrivals=EXP13["arrivals"], buffer_size=buffer, beta=0.5,
+                            aggregator=aggregator, aggregator_options=dict(options or {}),
+                            cost_model=cost_model, cost_model_options=dict(cost_options or {})))
+
+
+def exp14_spec(policy=None, strategy: str = "fedfair", aggregator=None, options=None):
+    return exp13_spec(aggregator, options, strategy, spread=EXP14_SPREAD,
+                      cost_model="lognormal_straggler", cost_options=LOGNORMAL, policy=policy,
+                      name="exp14")
+
+
+def trace_spec():
+    """exp14's scenario under ``trace_replay``: an inline trace of eight
+    latencies per client, drawn from a lognormal with the script's seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lat = rng.lognormal(0.0, 0.6, (EXP13["clients"], 8)).round(4) + 0.05
+    trace = {"latencies": {str(c): lat[c].tolist() for c in range(EXP13["clients"])}}
+    return exp13_spec(None, spread=EXP14_SPREAD, cost_model="trace_replay",
+                      cost_options={"trace": trace}, name="trace")
+
+
+def run_async_counted(label: str, spec, kernel, device: str = "cuda"):
+    """One async run through ``run_counted``: on the card ``kernel`` must
+    launch once per flush and nothing else (``None``: nothing at all)."""
+    import numpy as np
+
+    res, launches = run_counted(spec, device)
+    flushes = len(res.time)
+    want = {} if kernel is None else {kernel: flushes}
+    if flushes == 0 or (device == "cuda" and launches != want):
+        fail(f"{label}: launches {launches} for {flushes} flushes, expected {want}")
+    if res.acc.shape != (flushes, len(spec.tasks)) or not np.isfinite(res.acc).all():
+        fail(f"{label}: accuracy curve {res.acc.shape} not finite")
+    if device == "cuda":
+        print(f"{label}: {flushes / res.wall_time:.2f} flushes/s ({flushes} flushes of "
+              f"{spec.runtime.total_arrivals} arrivals, {res.wall_time:.3f} s), launches "
+              f"{launches or 'none (no hand-written kernel)'}, cost_dropouts "
+              f"{res.cost_dropouts}, min-acc {res.fairness['min_acc']:.4f}")
+    return res, launches
+
+
+def _same_events(a, b) -> bool:
+    import numpy as np
+
+    return (all(np.array_equal(getattr(a, k), getattr(b, k))
+                for k in ("time", "versions", "arrivals", "buffer_sizes", "staleness_mean"))
+            and a.assignments == b.assignments and a.cost_dropouts == b.cost_dropouts)
+
+
+def phase_robust_costs(line: str):
+    """Phase 17: the async slice under the robust rules, qfedavg and the
+    heavy-tailed and replayed cost models; the sweep."""
+    import numpy as np
+
+    from repro_torch.api import sweep_scenarios
+    from repro_torch.interop import params_to_numpy
+
+    print("== phase 17: async robust aggregators and cost models on the card "
+          "(run_scenario mode='async', vmap backend)")
+    print(f"card: {line}")
+    runs = {}
+    with FoldShapes() as shapes:
+        for agg, opts in EXP13["aggregators"].items():
+            kernel = "fedavg" if agg == "qfedavg" else None
+            runs[f"exp13-{agg}"] = run_async_counted(f"exp13 {agg}", exp13_spec(agg, opts),
+                                                     kernel)
+        print("fedmedian and trimmed_mean are plain torch (a sort along the cohort axis, as "
+              "the JAX package's jnp): they launch no hand-written kernel")
+        for policy in ("thompson", "ucb_bandit"):
+            res, _ = runs[f"exp14-{policy}"] = run_async_counted(
+                f"exp14 lognormal_straggler {policy}", exp14_spec(policy), "fedavg")
+            t2a = res.time_to_accuracy(EXP14_TARGET)
+            print(f"exp14 lognormal_straggler {policy}: time_to_accuracy({EXP14_TARGET}) "
+                  f"{json.dumps(t2a)}")
+            if res.cost_dropouts <= 0:
+                fail(f"exp14 {policy}: no cost-model dropouts")
+        runs["fedadam-lognormal"] = run_async_counted(
+            "fedadam (server lr 0.1) lognormal_straggler",
+            exp14_spec(aggregator="fedadam", options=SERVER_OPTIONS["fedadam"]),
+            "fused_aggregate")
+        runs["trace_replay"] = run_async_counted("trace_replay", trace_spec(), "fedavg")
+    checked = check_run_shapes("phase 17", shapes)
+
+    gpu, _ = run_async_counted("exp14 lognormal_straggler round_robin",
+                               exp14_spec(strategy="round_robin"), "fedavg")
+    cpu, _ = run_async_counted("(CPU)", exp14_spec(strategy="round_robin"), "fedavg", "cpu")
+    same = _same_events(gpu, cpu)
+    print(f"exp14 lognormal_straggler round_robin card vs CPU: event traces and cost_dropouts "
+          f"({gpu.cost_dropouts}) identical={same}, CPU {len(cpu.time) / cpu.wall_time:.2f} "
+          "flushes/s")
+    if not same:
+        fail("lognormal_straggler round_robin card vs CPU event traces differ")
+    gpu, _ = run_async_counted("exp13 fedmedian round_robin buffer 4",
+                               exp13_spec("fedmedian", strategy="round_robin", buffer=4), None)
+    cpu, _ = run_async_counted("(CPU)", exp13_spec("fedmedian", strategy="round_robin", buffer=4),
+                               None, "cpu")
+    diff = max(float(np.abs(a - b).max())
+               for pa, pb in zip(params_to_numpy(gpu.params), params_to_numpy(cpu.params))
+               for la, lb in zip(pa, pb) for a, b in ((la["w"], lb["w"]), (la["b"], lb["b"])))
+    same = _same_events(gpu, cpu)
+    print(f"exp13 fedmedian round_robin buffer 4 card vs CPU: event traces identical={same}, "
+          f"max |params card - params cpu| {diff:.3g}")
+    if not same or not diff <= 1e-4:
+        fail("fedmedian round_robin card vs CPU disagree")
+
+    base = exp13_spec(None, name="sweep")
+    grid = {"allocation.alpha": [1.0, 3.0], "runtime.aggregator": ["fedmedian", "qfedavg"]}
+    t0 = time.perf_counter()
+    seq = sweep_scenarios(base, grid, device="cuda")
+    t1 = time.perf_counter()
+    par = sweep_scenarios(base, grid, device="cuda", max_workers=2)
+    t2 = time.perf_counter()
+    for payload in (seq, par):
+        for run in payload["runs"]:
+            run.pop("wall_time")
+            run["result"].pop("wall_time")
+    print(f"sweep 2x2 (alpha x aggregator), {EXP13['arrivals']} arrivals a point: sequential {t1 - t0:.2f} s, "
+          f"2 spawned workers {t2 - t1:.2f} s; payloads equal but for wall times={seq == par}")
+    if seq != par or len(seq["runs"]) != 4:
+        fail("sweep: the parallel payload differs from the sequential one")
+    return {k: launches for k, (_, launches) in runs.items()}, checked
+
+
 def main() -> int:
     import torch
 
@@ -1323,6 +1673,9 @@ def main() -> int:
     hparams, hserved = phase_hybrid_serve()
     hloss = phase_hybrid_loss(hparams)
     del hparams
+    torch.cuda.empty_cache()
+    sync_launches, sync_checked = phase_incentives(line)
+    async_launches, async_checked = phase_robust_costs(line)
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -1330,8 +1683,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/fedavg.py:43",
         "launches": runs["fedfair"][1]["fedavg"],
         "launches_async_fedavg": async_runs["fedavg"][1]["fedavg"],
-        "max_abs_err": errs["float32"],
+        # phases 16-17: each run's fedavg launches (0 for the robust rules)
+        "launches_incentives": {k: v.get("fedavg", 0) for k, v in sync_launches.items()},
+        "launches_robust_costs": {k: v.get("fedavg", 0) for k, v in async_launches.items()},
+        "max_abs_err": max(errs["float32"], sync_checked["fedavg"], async_checked["fedavg"]),
         "max_abs_err_bf16": errs["bfloat16"],
+        # phases 16-17: the (K, N) folds those runs made, each held against
+        # ref_fedavg after the runs
+        "run_shapes_checked": sync_checked["fedavg_shapes"] + async_checked["fedavg_shapes"],
         "shape": list(TIMED_MAIN),
         "dtype": "float32",
         **timed[TIMED_MAIN],
@@ -1344,7 +1703,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/fused_aggregate.cu",
         "replaces": "src/repro/kernels/fedavg.py:145",
         "launches": async_runs["fedadam"][1]["fused_aggregate"],
-        "max_abs_err": f_err,
+        "launches_lognormal_fedadam": async_launches["fedadam-lognormal"]["fused_aggregate"],
+        "max_abs_err": max(f_err, async_checked["fused_aggregate"]),
+        "run_shapes_checked": async_checked["fused_shapes"],
         "yogi_ties": f_ties,
         "mode": "fedadam",
         "shape": list(FUSED_TIMED),

@@ -8,12 +8,15 @@
     result = run_scenario(spec, device="cpu")
 
 ``run_scenario`` drives the sync round loop and the async FedAST engine
-on the synthetic task family; spec features of later slices raise
-``NotImplementedError``. The numpy-only axes (arrival processes, buffer
-controllers, cost models) are imported here and register themselves; the
-modules that import torch's engines are imported lazily, on first use of
-one of their names, so those modules can import this package without a
-cycle.
+on the synthetic task family, with the recruitment auctions and their
+incentive mechanisms, the stateful policies, every aggregator and every
+cost model; ``sweep_scenarios`` runs a grid of spec overrides. Spec
+features of later slices raise ``NotImplementedError``. The numpy-only
+axes (arrival processes, buffer controllers, cost models, policies,
+incentives and auctions) are imported here and register themselves; the
+engines, aggregators, backends and the sweep are imported lazily, on
+first use of one of their names, so those modules can import this
+package without a cycle.
 """
 
 from __future__ import annotations
@@ -24,18 +27,22 @@ from repro_torch.api.registry import (  # noqa: F401
     AGGREGATORS,
     ALLOCATORS,
     ARRIVAL_PROCESSES,
+    AUCTIONS,
     BACKENDS,
     BUFFER_CONTROLLERS,
     COST_MODELS,
+    INCENTIVES,
     POLICIES,
     TASK_FAMILIES,
     Registry,
     register_aggregator,
     register_allocator,
     register_arrival_process,
+    register_auction,
     register_backend,
     register_buffer_controller,
     register_cost_model,
+    register_incentive,
     register_policy,
     register_task_family,
 )
@@ -66,14 +73,34 @@ from repro_torch.api.costmodel import (  # noqa: F401
     ClientCostModel,
     DeviceTiers,
     LatencySample,
+    LognormalStraggler,
+    TraceReplay,
     get_cost_model,
+)
+from repro_torch.api.policy import (  # noqa: F401  (registers the policies, incentives, auctions)
+    AllocationPolicy,
+    EligibilityUpdate,
+    GradNormPolicy,
+    IncentiveMechanism,
+    LegacyStrategyPolicy,
+    OneShotAuction,
+    PeriodicAuction,
+    RoundContext,
+    RoundObservation,
+    ThompsonPolicy,
+    UCBBanditPolicy,
+    build_eligibility,
+    incentive_from_spec,
+    policy_from_spec,
 )
 
 _LAZY = {
     "repro_torch.api.engine": ("AsyncEngineRunner", "Engine", "RunResult", "SyncFedEngine",
                                "run_scenario"),
-    "repro_torch.api.aggregator": ("Aggregator", "FedAdam", "FedAvg", "FedAvgM", "FedYogi",
+    "repro_torch.api.aggregator": ("Aggregator", "FedAdam", "FedAvg", "FedAvgM", "FedMedian",
+                                   "FedYogi", "QFedAvg", "TrimmedMean",
                                    "aggregator_from_config", "get_aggregator"),
+    "repro_torch.api.sweep": ("apply_override", "sweep_scenarios"),
     "repro_torch.api.backend": ("ClientBatch", "CohortResult", "CohortTask",
                                 "ExecutionBackend", "SerialBackend", "VmapBackend",
                                 "get_backend"),

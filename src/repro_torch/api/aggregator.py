@@ -1,10 +1,12 @@
-"""Server-side aggregation rules: ``fedavg`` and the FedOpt server
-optimizers.
+"""Server-side aggregation rules: ``fedavg``, the FedOpt server
+optimizers, the robust rules and ``qfedavg``.
 
-The port's counterpart of the JAX package's ``api/aggregator.py``,
-limited to ``fedavg``, ``fedavgm``, ``fedadam`` and ``fedyogi``; the
-robust rules (``fedmedian``, ``trimmed_mean``) and ``qfedavg`` come with
-a later slice.
+The port's counterpart of the JAX package's ``api/aggregator.py``:
+``fedavg``, ``fedavgm``, ``fedadam``, ``fedyogi``, the coordinate-wise
+``fedmedian`` and ``trimmed_mean`` (plain torch: a sort along the cohort
+axis, as the reference's are plain ``jnp``), and ``qfedavg``, whose fold
+goes through the backend (the CUDA fedavg kernel under ``vmap`` on a
+card) with rescaled weights.
 
 Contract
 --------
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.api.backend import get_backend
@@ -332,6 +335,92 @@ class FedYogi(_AdaptiveServerOpt):
         return v - (1.0 - self.beta2) * d2 * torch.sign(v - d2)
 
 
+@register_aggregator("fedmedian")
+class FedMedian(Aggregator):
+    """Coordinate-wise median over the cohort axis (byzantine-robust).
+    Aggregation weights and staleness discounts are ignored. As
+    ``jnp.median``: an even cohort takes the mean of its two middle
+    values, in f32, and a column holding a NaN gives NaN."""
+
+    name = "fedmedian"
+
+    def aggregate(self, stacked_deltas, weights, server_state, normalizer=None):
+        del weights, normalizer
+
+        def median(leaf):
+            K = leaf.shape[0]
+            x = torch.sort(leaf.to(torch.float32), dim=0).values
+            mid = (x[(K - 1) // 2] + x[K // 2]) * 0.5
+            nan = torch.isnan(x).any(dim=0)
+            return torch.where(nan, torch.nan, mid).to(leaf.dtype)
+
+        return tree_map(median, stacked_deltas), server_state
+
+
+@register_aggregator("trimmed_mean")
+class TrimmedMean(Aggregator):
+    """Coordinate-wise trimmed mean: drop the ``trim`` fraction of extreme
+    values at each end of the cohort axis (``int(trim * K)`` of them) and
+    average the rest, in f32. Weights are ignored; ``trim=0`` is the
+    unweighted mean."""
+
+    name = "trimmed_mean"
+
+    def __init__(self, trim: float = 0.1):
+        super().__init__()
+        if not 0.0 <= trim < 0.5:
+            raise ValueError(f"trimmed_mean: trim must be in [0, 0.5), got {trim}")
+        self.trim = float(trim)
+        self._options = {"trim": self.trim}
+
+    def aggregate(self, stacked_deltas, weights, server_state, normalizer=None):
+        del weights, normalizer
+
+        def trimmed(leaf):
+            K = leaf.shape[0]
+            k = int(self.trim * K)
+            x = torch.sort(leaf.to(torch.float32), dim=0).values
+            return x[k:K - k].mean(dim=0).to(leaf.dtype)
+
+        return tree_map(trimmed, stacked_deltas), server_state
+
+
+@register_aggregator("qfedavg")
+class QFedAvg(Aggregator):
+    """q-FedAvg-style fold (Li et al. 2020): each client's weight is
+    scaled by ``(|delta| / mean|delta|)^q`` (l2 norms, in f64), cast to
+    f32 and folded by the backend. ``q=0`` hands the weights to the
+    backend unchanged, so it is fedavg bit for bit. With a normaliser (the
+    async flush) the normaliser is rescaled by ``ws.sum() / w.sum()``, so
+    the staleness damping ratio is kept."""
+
+    name = "qfedavg"
+
+    def __init__(self, q: float = 1.0):
+        super().__init__()
+        if q < 0:
+            raise ValueError(f"qfedavg: q must be >= 0, got {q}")
+        self.q = float(q)
+        self._options = {"q": self.q}
+
+    def aggregate(self, stacked_deltas, weights, server_state, normalizer=None):
+        backend = self._agg_backend(stacked_deltas)
+        if self.q == 0.0:
+            return backend.aggregate(stacked_deltas, weights, normalizer=normalizer), server_state
+        from repro_torch.api.policy import stacked_delta_norms
+
+        norms = stacked_delta_norms(stacked_deltas)
+        scale = (np.maximum(norms, 1e-12) / max(float(norms.mean()), 1e-12)) ** self.q
+        w = torch.as_tensor(weights).detach().cpu().numpy().astype(np.float64)
+        ws = w * scale
+        norm = None
+        if normalizer is not None:
+            norm = float(normalizer) * float(ws.sum()) / max(float(w.sum()), 1e-12)
+        agg = backend.aggregate(stacked_deltas, torch.from_numpy(ws.astype(np.float32)),
+                                normalizer=norm)
+        return agg, server_state
+
+
 def get_aggregator(name: str, options: Optional[Dict[str, Any]] = None,
                    backend=None) -> Aggregator:
     """Resolve + construct an aggregator from its registry key; ``backend``
@@ -366,7 +455,10 @@ __all__ = [
     "FedAdam",
     "FedAvg",
     "FedAvgM",
+    "FedMedian",
     "FedYogi",
+    "QFedAvg",
+    "TrimmedMean",
     "aggregator_from_config",
     "get_aggregator",
     "register_aggregator",

@@ -1,25 +1,29 @@
 """Client cost models: how long a dispatched local job takes.
 
 The port's counterpart of the JAX package's ``api/costmodel.py``, numpy
-only and bit-exact with it, limited to two models:
+only and bit-exact with it:
 
-  * ``constant``     — every job costs exactly its base duration, with no
-    comm latency, no dropouts and no RNG draws;
-  * ``device_tiers`` — compute tiers x bandwidth classes drawn per client
-    from the model's own stream, scaled per task by model size.
+  * ``constant``            — every job costs exactly its base duration,
+    with no comm latency, no dropouts and no RNG draws;
+  * ``device_tiers``        — compute tiers x bandwidth classes drawn per
+    client from the model's own stream, scaled per task by model size;
+  * ``lognormal_straggler`` — heavy-tailed lognormal latency, correlated
+    stragglers fixed at reset, and a dropout probability;
+  * ``trace_replay``        — per-client latency sequences from a JSON
+    trace (or an inline dict), replayed cyclically.
 
-``lognormal_straggler`` and ``trace_replay`` are not ported yet
-(``run_scenario`` refuses them), nor the models' ``state_dict`` /
-``load_state``, which come with checkpointing. Arrival processes
-schedule a job's dispatch; the cost model determines its completion. A
-sync round's simulated duration is the max over its cohort's latencies
-(the lockstep barrier), accumulated into ``wall_clock_sim``.
+The models' ``state_dict`` / ``load_state`` come with checkpointing.
+Arrival processes schedule a job's dispatch; the cost model determines
+its completion. A sync round's simulated duration is the max over its
+cohort's latencies (the lockstep barrier), accumulated into
+``wall_clock_sim``.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -151,6 +155,157 @@ class DeviceTiers(ClientCostModel):
         return LatencySample(
             compute=float(base_duration) * cost / float(self._speed[client]),
             comm=self.comm_scale * cost / float(self._rate[client]))
+
+
+@register_cost_model("lognormal_straggler")
+class LognormalStraggler(ClientCostModel):
+    """Heavy-tailed latency: each job's duration is the base scaled by a
+    LogNormal(0, sigma) draw; a ``straggler_frac`` subset of clients
+    (fixed at reset — CORRELATED stragglers, the same clients are
+    persistently slow) is further scaled by ``straggler_factor``. With
+    probability ``dropout_prob`` a job drops out: it still occupies the
+    client until its completion event, but contributes no update — the
+    async engine releases the pinned version and re-enqueues the
+    client."""
+
+    name = "lognormal_straggler"
+
+    def __init__(self, sigma: float = 0.5, straggler_frac: float = 0.2,
+                 straggler_factor: float = 4.0, dropout_prob: float = 0.0):
+        if sigma < 0:
+            raise ValueError(
+                f"lognormal_straggler: sigma must be >= 0, got {sigma}")
+        if not 0.0 <= straggler_frac <= 1.0:
+            raise ValueError(
+                "lognormal_straggler: straggler_frac must be in [0, 1], "
+                f"got {straggler_frac}")
+        if straggler_factor < 1.0:
+            raise ValueError(
+                "lognormal_straggler: straggler_factor must be >= 1, "
+                f"got {straggler_factor}")
+        if not 0.0 <= dropout_prob <= 1.0:
+            raise ValueError(
+                "lognormal_straggler: dropout_prob must be in [0, 1], "
+                f"got {dropout_prob}")
+        self.sigma = float(sigma)
+        self.straggler_frac = float(straggler_frac)
+        self.straggler_factor = float(straggler_factor)
+        self.dropout_prob = float(dropout_prob)
+
+    def reset(self, n_clients, n_tasks, rng, task_sizes=None) -> None:
+        super().reset(n_clients, n_tasks, rng, task_sizes)
+        self._straggler = rng.random(self.n_clients) < self.straggler_frac
+
+    def sample_latency(self, client, task, base_duration, time=0.0,
+                       version=0) -> LatencySample:
+        del task, time, version
+        mult = float(self.rng.lognormal(mean=0.0, sigma=self.sigma))
+        if self._straggler[client]:
+            mult *= self.straggler_factor
+        dropped = (self.dropout_prob > 0.0
+                   and float(self.rng.random()) < self.dropout_prob)
+        return LatencySample(compute=float(base_duration) * mult,
+                             dropout=dropped)
+
+
+def _load_trace(path: Optional[str], trace: Optional[Dict[str, Any]]):
+    """Load + validate a latency trace. Format (byteprofile-style
+
+    per-device event sequences, flattened to latencies)::
+
+        {"latencies": {"0": [1.2, 0.8, ...], "1": [...], "*": [...]}}
+
+    Keys are client ids (or ``"*"`` as the fallback sequence for clients
+    without their own); values are positive latency sequences replayed
+    cyclically. Malformed traces raise ValueError naming the defect."""
+    if (path is None) == (trace is None):
+        raise ValueError(
+            "trace_replay: exactly one of 'path' (a JSON trace file) or "
+            "'trace' (an inline trace dict) is required")
+    if path is not None:
+        try:
+            with open(path) as f:
+                trace = json.load(f)
+        except OSError as e:
+            raise ValueError(
+                f"trace_replay: cannot read trace file {path!r}: {e}"
+            ) from None
+        except json.JSONDecodeError as e:
+            raise ValueError(
+                f"trace_replay: {path!r} is not valid JSON: {e}") from None
+    if not isinstance(trace, dict) or "latencies" not in trace:
+        raise ValueError(
+            "trace_replay: trace must be a dict with a 'latencies' key, "
+            f"got {type(trace).__name__}")
+    lat = trace["latencies"]
+    if not isinstance(lat, dict) or not lat:
+        raise ValueError(
+            "trace_replay: 'latencies' must be a non-empty dict of "
+            "client id (or '*') -> latency sequence")
+    seqs: Dict[str, List[float]] = {}
+    for key, seq in lat.items():
+        if key != "*":
+            try:
+                int(key)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    "trace_replay: latency keys must be client ids or "
+                    f"'*', got {key!r}") from None
+        if not isinstance(seq, (list, tuple)) or not seq:
+            raise ValueError(
+                f"trace_replay: latency sequence for {key!r} must be a "
+                "non-empty list")
+        vals = []
+        for v in seq:
+            if not isinstance(v, (int, float)) or isinstance(v, bool) \
+                    or not np.isfinite(v) or v <= 0:
+                raise ValueError(
+                    "trace_replay: latencies must be finite positive "
+                    f"numbers, got {v!r} for {key!r}")
+            vals.append(float(v))
+        seqs[str(key)] = vals
+    return seqs
+
+
+@register_cost_model("trace_replay")
+class TraceReplay(ClientCostModel):
+    """Replay EMPIRICAL latency distributions from a JSON trace file
+    (byteprofile-style event replay): each client cycles deterministically
+    through its recorded latency sequence (falling back to the ``"*"``
+    sequence), scaled by ``scale`` and by the per-task model-size factor.
+    The cursors start at 0 at every ``reset``."""
+
+    name = "trace_replay"
+
+    def __init__(self, path: Optional[str] = None,
+                 trace: Optional[Dict[str, Any]] = None,
+                 scale: float = 1.0):
+        if scale <= 0:
+            raise ValueError(
+                f"trace_replay: scale must be > 0, got {scale}")
+        self.path = path
+        self.scale = float(scale)
+        self._seqs = _load_trace(path, trace)
+
+    def reset(self, n_clients, n_tasks, rng, task_sizes=None) -> None:
+        super().reset(n_clients, n_tasks, rng, task_sizes)
+        missing = [c for c in range(self.n_clients)
+                   if str(c) not in self._seqs and "*" not in self._seqs]
+        if missing:
+            raise ValueError(
+                f"trace_replay: no latency sequence for clients "
+                f"{missing} and no '*' fallback in the trace")
+        self._cursor = np.zeros(self.n_clients, np.int64)
+        self._task_cost = self._relative_task_cost()
+
+    def sample_latency(self, client, task, base_duration, time=0.0,
+                       version=0) -> LatencySample:
+        del base_duration, time, version
+        seq = self._seqs.get(str(client)) or self._seqs["*"]
+        lat = seq[int(self._cursor[client]) % len(seq)]
+        self._cursor[client] += 1
+        return LatencySample(
+            compute=self.scale * lat * float(self._task_cost[task]))
 
 
 def get_cost_model(name: str,

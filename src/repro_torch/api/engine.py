@@ -2,10 +2,12 @@
 
 The port's counterpart of the JAX package's ``api/engine.py``. A
 ``ScenarioSpec`` resolves through the registries to the synthetic task
-family and either the sync lockstep round loop or the async FedAST
-engine, and returns the same ``RunResult`` as the reference. Spec
-features that the port has not ported raise ``NotImplementedError``
-naming the ROADMAP item that brings them; none is ignored.
+family, an optional recruitment auction and its incentive mechanism
+(which produce the eligibility matrix), and either the sync lockstep
+round loop or the async FedAST engine, and returns the same
+``RunResult`` as the reference. Spec features that the port has not
+ported raise ``NotImplementedError`` naming the ROADMAP item that brings
+them; none is ignored.
 
     result = run_scenario(ScenarioSpec(tasks=[TaskSpec("synth-mnist")]))
     result.fairness["min_acc"], result.to_json()
@@ -20,7 +22,7 @@ from typing import Any, Dict, List, Optional, Protocol
 
 import numpy as np
 
-from repro_torch.api.policy import LEGACY_POLICIES, policy_from_spec
+from repro_torch.api.policy import RoundContext, incentive_from_spec, policy_from_spec
 from repro_torch.api.registry import (
     AGGREGATORS,
     ALLOCATORS,
@@ -237,9 +239,11 @@ class SyncFedEngine:
     """The sync lockstep round loop (``MMFLTrainer``) behind the Engine
     protocol."""
 
-    def __init__(self, spec: ScenarioSpec, tasks, device=None):
+    def __init__(self, spec: ScenarioSpec, tasks, eligibility=None, incentive=None,
+                 device=None):
         self.spec = spec
-        self.trainer = MMFLTrainer(tasks, _train_config(spec), device=device)
+        self.trainer = MMFLTrainer(tasks, _train_config(spec), eligibility=eligibility,
+                                   incentive=incentive, device=device)
 
     def run(self, verbose: bool = False) -> RunResult:
         h = self.trainer.run(verbose=verbose)
@@ -310,22 +314,19 @@ class SyntheticFamily:
                                              spec.clients.n_clients, **kw))
         return tasks
 
-    def sync_engine(self, spec: ScenarioSpec, device=None) -> Engine:
-        return SyncFedEngine(spec, self.build_tasks(spec), device)
+    def sync_engine(self, spec: ScenarioSpec, eligibility=None, incentive=None,
+                    device=None) -> Engine:
+        return SyncFedEngine(spec, self.build_tasks(spec), eligibility, incentive, device)
 
-    def async_engine(self, spec: ScenarioSpec, device=None) -> Engine:
+    def async_engine(self, spec: ScenarioSpec, eligibility=None, incentive=None,
+                     device=None) -> Engine:
         acfg = _async_config(spec)
         adapters = [FedAsyncTask(t, s, acfg, device)
                     for s, t in enumerate(self.build_tasks(spec))]
         for a, ts in zip(adapters, spec.tasks):
             a.work = ts.work
-        engine = AsyncMMFLEngine(adapters, acfg, device=device)
+        engine = AsyncMMFLEngine(adapters, acfg, eligibility, incentive, device=device)
         return AsyncEngineRunner(spec, engine, has_acc=True)
-
-
-# reference keys that the port does not register yet, with their ROADMAP item
-_UNPORTED_AGGREGATORS = ("fedmedian", "trimmed_mean", "qfedavg")
-_UNPORTED_COST_MODELS = ("lognormal_straggler", "trace_replay")
 
 
 def _require_ported(spec: ScenarioSpec) -> None:
@@ -333,20 +334,12 @@ def _require_ported(spec: ScenarioSpec) -> None:
     rt = spec.runtime
     if spec.family == "arch":
         raise _unported("the 'arch' task family", "items 10-12: models and arch runtime")
-    if spec.auction is not None:
-        raise _unported("an auction", "item 3: core/auctions.py and the incentives")
     if spec.clients.population is not None:
         raise _unported("a client population", "item 7: population")
     if rt.checkpoint_dir is not None:
         raise _unported("checkpoint_dir", "item 8: checkpointing")
     if rt.backend == "sharded":
         raise _unported("the 'sharded' backend", "item 14: multi-GPU")
-    if rt.cost_model in _UNPORTED_COST_MODELS:
-        raise _unported(f"cost_model {rt.cost_model!r}", "item 3: api/costmodel.py")
-    if rt.aggregator in _UNPORTED_AGGREGATORS:
-        raise _unported(f"aggregator {rt.aggregator!r}", "item 5: the aggregator axis")
-    if spec.policy is not None and spec.policy.name not in LEGACY_POLICIES:
-        raise _unported(f"policy {spec.policy.name!r}", "item 3: api/policy.py")
 
 
 def _require_named_options(spec: ScenarioSpec) -> None:
@@ -376,7 +369,9 @@ def run_scenario(spec: ScenarioSpec, verbose: bool = False, device=None) -> RunR
     passes ``device="cpu"``).
 
     Resolves every registry key up front, so typos fail fast with the
-    valid names, and refuses features the port has not ported.
+    valid names, refuses features the port has not ported, runs the
+    optional recruitment auction (round 0 of its incentive mechanism) to
+    produce the eligibility matrix, then drives the sync or async runtime.
     """
     dev = resolve_device(device)
     # snapshot: the RunResult's provenance record must not change if the
@@ -401,11 +396,43 @@ def run_scenario(spec: ScenarioSpec, verbose: bool = False, device=None) -> RunR
     if spec.runtime.cost_model is not None:
         COST_MODELS.get(spec.runtime.cost_model)
     _require_named_options(spec)
+    auction_summary = None
+    eligibility = None
+    incentive = None
+    if spec.auction is not None:
+        if spec.auction.budget <= 0:
+            raise ValueError(
+                f"auction.budget must be positive, got {spec.auction.budget}: "
+                "a non-positive budget recruits no clients (all-False "
+                "eligibility matrix), so no task could ever train")
+        K, S = spec.clients.n_clients, len(spec.tasks)
+        incentive = incentive_from_spec(spec.auction, K, S)
+        # prime round 0; a mechanism may defer (return None), and then
+        # everyone stays eligible until it first auctions
+        upd = incentive.recruit(
+            RoundContext(round=0, task_names=[t.name for t in spec.tasks], n_clients=K))
+        auction_summary = {"mechanism": spec.auction.mechanism, "budget": spec.auction.budget}
+        if upd is not None:
+            eligibility = upd.eligibility
+            res = upd.result
+            if res is not None:
+                auction_summary.update({
+                    "take_up": res.take_up.tolist(),
+                    "min_take_up": res.min_take_up,
+                    "diff_take_up": res.diff_take_up,
+                    "spent": float(res.spent),
+                })
     if spec.runtime.mode == "sync":
-        engine = family.sync_engine(spec, dev)
+        engine = family.sync_engine(spec, eligibility, incentive, dev)
     else:
-        engine = family.async_engine(spec, dev)
+        engine = family.async_engine(spec, eligibility, incentive, dev)
     t0 = time.time()
     result = engine.run(verbose=verbose)
     result.wall_time = time.time() - t0
+    if incentive is not None:
+        # the cross-round ledger: what the per-round protocol spent
+        auction_summary["incentive"] = spec.auction.incentive
+        auction_summary["auctions_run"] = int(incentive.auctions)
+        auction_summary["total_spent"] = float(incentive.spent)
+    result.auction = auction_summary
     return result

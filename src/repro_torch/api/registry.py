@@ -1,10 +1,11 @@
 """String-keyed extension registries for the port's scenario API.
 
 The same ``Registry`` class as the JAX package's ``api/registry.py``.
-Only the registries that the ported slices read are defined here:
-allocators, arrival processes, task families, backends, policies, buffer
-controllers, aggregators and cost models. This module imports nothing, so built-in implementations can
-self-register at import time without cycles.
+It defines the registries of the ported slices: allocators, arrival
+processes, auctions, task families, backends, policies, incentives,
+buffer controllers, aggregators and cost models (the reference's
+populations are not ported). This module imports nothing, so built-in
+implementations can self-register at import time without cycles.
 """
 
 from __future__ import annotations
@@ -55,18 +56,22 @@ class Registry:
 
 ALLOCATORS = Registry("allocator")
 ARRIVAL_PROCESSES = Registry("arrival_process")
+AUCTIONS = Registry("auction")
 TASK_FAMILIES = Registry("task_family")
 BACKENDS = Registry("backend")
 POLICIES = Registry("policy")
+INCENTIVES = Registry("incentive")
 BUFFER_CONTROLLERS = Registry("buffer_controller")
 AGGREGATORS = Registry("aggregator")
 COST_MODELS = Registry("cost_model")
 
 register_allocator = ALLOCATORS.register
 register_arrival_process = ARRIVAL_PROCESSES.register
+register_auction = AUCTIONS.register
 register_task_family = TASK_FAMILIES.register
 register_backend = BACKENDS.register
 register_policy = POLICIES.register
+register_incentive = INCENTIVES.register
 register_buffer_controller = BUFFER_CONTROLLERS.register
 register_aggregator = AGGREGATORS.register
 register_cost_model = COST_MODELS.register

@@ -23,9 +23,11 @@ backend; the server optimizers through ``kernels.fused_aggregate`` on a
 card). With equal client speeds and ``B`` equal to the cohort size the
 engine reproduces the sync round.
 
-Left for later slices (a config that asks for one raises
-``NotImplementedError`` naming its ROADMAP item): checkpointing
-(``checkpoint_dir``/``resume``), client populations and incentives.
+An incentive mechanism may re-recruit the eligible clients after every
+flush (``ctx.round`` is the 1-based flush count). Left for later slices
+(a config that asks for one raises ``NotImplementedError`` naming its
+ROADMAP item): checkpointing (``checkpoint_dir``/``resume``) and client
+populations.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from repro_torch.api.arrivals import get_arrival_process
 from repro_torch.api.backend import ClientBatch, CohortTask, get_backend
 from repro_torch.api.buffer import FlushObservation, get_buffer_controller
 from repro_torch.api.costmodel import get_cost_model
-from repro_torch.api.policy import AllocationPolicy, stacked_delta_norms
+from repro_torch.api.policy import AllocationPolicy, RoundContext, stacked_delta_norms
 from repro_torch.core.allocation import AllocationStrategy
 from repro_torch.core.mmfl import MMFLCoordinator
 from repro_torch.device import resolve_device
@@ -253,9 +255,6 @@ class AsyncMMFLEngine:
                             "item 8: checkpointing")
         if cfg.population is not None or cfg.population_options:
             raise _unported("a client population", "item 7: population")
-        if incentive is not None:
-            raise _unported("an incentive mechanism",
-                            "item 3: core/auctions.py and the incentives")
         self.tasks = list(tasks)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -267,6 +266,8 @@ class AsyncMMFLEngine:
             task_names=[t.name for t in self.tasks], n_clients=self.K,
             alpha=cfg.alpha, strategy=cfg.strategy, seed=cfg.seed,
             eligibility=eligibility, policy=cfg.policy)
+        # per-flush re-recruitment; one_shot never updates after round 0
+        self.incentive = incentive
         self.buffer_size = resolve_buffer_size(cfg.buffer_size, cfg.backend, self.device)
         if cfg.buffer_controller is None and cfg.buffer_controller_options:
             raise ValueError(
@@ -387,6 +388,13 @@ class AsyncMMFLEngine:
             norms[s] = float(stacked_delta_norms(stacked).mean())
         self.coord.observe(counts, norms, task=s)
         self._n_flushes += 1
+        if self.incentive is not None:
+            upd = self.incentive.recruit(RoundContext(
+                round=self._n_flushes, task_names=self.coord.task_names,
+                losses=self.coord.losses, alpha=cfg.alpha, n_clients=self.K,
+                eligibility=self.coord.eligibility))
+            if upd is not None:
+                self.coord.eligibility = np.asarray(upd.eligibility, bool)
         stale_mean = float(np.mean(stale))
         # the controller sees this flush's feedback and emits the sizes in
         # force from the next arrival on

@@ -14,7 +14,9 @@ Per global round:
 The port's counterpart of the JAX package's ``fed/trainer.py``; host-side
 sampling uses the same numpy streams and the device-side randomness the
 same threefry keys (``repro_torch.prng``), so a port run follows the
-reference's allocation trace. Checkpointing and client populations come
+reference's allocation trace. An incentive mechanism
+(``api.policy.IncentiveMechanism``) may re-recruit the eligible clients
+before each round's allocation. Checkpointing and client populations come
 with later slices.
 """
 
@@ -146,7 +148,8 @@ class MMFLTrainer:
     ``repro_torch.device``); params, cohorts and test sets live there."""
 
     def __init__(self, tasks: List[FedTask], cfg: TrainConfig,
-                 eligibility: Optional[np.ndarray] = None, device=None):
+                 eligibility: Optional[np.ndarray] = None, incentive=None,
+                 device=None):
         self.tasks = tasks
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -154,8 +157,8 @@ class MMFLTrainer:
         self.K = tasks[0].n_clients
         if any(t.n_clients != self.K for t in tasks):
             raise ValueError("all tasks must have the same number of clients")
-        # eligibility[i, s]: client i willing to train task s. Default:
-        # everyone trains everything (Section III).
+        # eligibility[i, s]: client i willing to train task s (auction
+        # winners). Default: everyone trains everything (Section III).
         self.elig = (np.ones((self.K, self.S), bool)
                      if eligibility is None else eligibility.astype(bool))
         self.backend = get_backend(cfg.backend, self.device)
@@ -165,6 +168,8 @@ class MMFLTrainer:
         # the RNG stream) stays here, as in the reference
         self.policy = (cfg.policy if cfg.policy is not None
                        else LegacyStrategyPolicy(cfg.strategy))
+        # per-round re-recruitment; one_shot never updates after round 0
+        self.incentive = incentive
         self.aggregator = aggregator_from_config(
             cfg.aggregator, cfg.aggregator_options, backend=self.backend)
         if cfg.cost_model is None and cfg.cost_model_options:
@@ -176,6 +181,7 @@ class MMFLTrainer:
         # run() restores these so repeated run() calls are identical
         self._elig0 = self.elig.copy()
         self._policy_state0 = self.policy.state_dict()
+        self._incentive_state0 = None if incentive is None else incentive.state_dict()
         self._test = [(torch.from_numpy(t.test_x).to(self.device),
                        torch.from_numpy(t.test_y).to(self.device)) for t in tasks]
 
@@ -223,6 +229,8 @@ class MMFLTrainer:
         cfg = self.cfg
         self.elig = self._elig0.copy()
         self.policy.load_state(self._policy_state0)
+        if self.incentive is not None:
+            self.incentive.load_state(self._incentive_state0)
         rng = np.random.default_rng(cfg.seed)
         params = self._init_models(prng.PRNGKey(cfg.seed))
         server_state = [self.aggregator.init(p) for p in params]
@@ -236,6 +244,12 @@ class MMFLTrainer:
         need_norms = getattr(self.policy, "wants_update_norms", False)
         for r in range(cfg.rounds):
             losses = np.maximum(1.0 - accs, 1e-6)   # paper: use test acc
+            if self.incentive is not None:
+                upd = self.incentive.recruit(RoundContext(
+                    round=r, task_names=self._names, losses=losses,
+                    alpha=cfg.alpha, n_clients=self.K, eligibility=self.elig))
+                if upd is not None:
+                    self.elig = np.asarray(upd.eligibility, bool)
             alloc = self._allocate(rng, losses, r)
             if cfg.dropout_prob > 0:
                 failed = rng.random(self.K) < cfg.dropout_prob

@@ -11,10 +11,12 @@ Mamba2's output gate (``csrc/gated_rmsnorm.cu``, replacing
 ``gated_rmsnorm_pallas``); ``ssd_scan`` is Mamba2's chunked state-space
 scan (``csrc/ssd_scan.cu``, replacing ``ssd_scan_pallas``). ``ref`` holds
 the plain PyTorch versions; ``build.LAUNCHES`` counts launches per kernel,
-``build.device_launches`` the device kernels of one call.
+``build.device_launches`` the device kernels of one call and
+``build.graph_kernels`` their names.
 """
 
-from repro_torch.kernels.build import KERNELS, LAUNCHES, device_launches, reset_launches  # noqa: F401
+from repro_torch.kernels.build import (KERNELS, LAUNCHES, device_launches,  # noqa: F401
+                                      graph_kernels, reset_launches)
 from repro_torch.kernels.fedavg import fedavg  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.fused_aggregate import FUSED_MODES, fused_aggregate  # noqa: F401

@@ -11,7 +11,8 @@ edited source is rebuilt and an unchanged one is reused.
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
 that its main path went through the kernels. ``device_launches`` counts
-the device kernels one wrapper call enqueues (a call may make several).
+the device kernels one wrapper call enqueues (a call may make several),
+``graph_kernels`` names them.
 """
 
 from __future__ import annotations
@@ -44,11 +45,46 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def device_launches(fn) -> int:
-    """Kernels one call of ``fn`` enqueues on the current CUDA device:
-    the call is run once, then captured once in a CUDA graph (never
-    replayed) whose kernel nodes are counted through libcuda's
-    ``cuGraphGetNodes``."""
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+
+def _libcuda() -> ctypes.CDLL:
+    """libcuda with the signatures ``graph_kernels`` calls; the naming
+    calls (CUDA 12.3) are left out where libcuda lacks them."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, sz, i = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int)
+    for fn, args in (("cuGraphGetNodes", [vp, vp, sz]), ("cuGraphNodeGetType", [vp, i]),
+                     ("cuGraphKernelNodeGetParams_v2", [vp, vp]),
+                     ("cuFuncGetName", [ctypes.POINTER(ctypes.c_char_p), vp]),
+                     ("cuKernelGetName", [ctypes.POINTER(ctypes.c_char_p), vp])):
+        if hasattr(cu, fn):
+            getattr(cu, fn).argtypes, getattr(cu, fn).restype = args, ctypes.c_int
+    return cu
+
+
+def _kernel_name(cu, node) -> str:
+    """The (mangled) name of a graph kernel node's function, or "?" where
+    libcuda cannot name it (``cuFuncGetName``/``cuKernelGetName`` need
+    CUDA 12.3)."""
+    params = (ctypes.c_void_p * 16)()           # CUDA_KERNEL_NODE_PARAMS_v2 and spare
+    if cu.cuGraphKernelNodeGetParams_v2(node, params) != 0:
+        return "?"
+    func, kern = params[0], params[7]           # .func, and .kern after 56 bytes
+    name = ctypes.c_char_p()
+    for getter, handle in (("cuFuncGetName", func), ("cuKernelGetName", kern)):
+        if handle and hasattr(cu, getter) and getattr(cu, getter)(
+                ctypes.byref(name), ctypes.c_void_p(handle)) == 0 and name.value:
+            return name.value.decode(errors="replace")
+    return "?"
+
+
+def graph_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` enqueues on the
+    current CUDA device, in capture order: the call is run once, then
+    captured once in a CUDA graph (never replayed) whose kernel nodes are
+    read through libcuda. A kernel libcuda cannot name is "?"."""
     import torch
 
     side = torch.cuda.Stream()
@@ -59,20 +95,26 @@ def device_launches(fn) -> int:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    cu = ctypes.CDLL("libcuda.so.1")
+    cu = _libcuda()
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
+    _check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
-    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    kind, kernels = ctypes.c_int(), 0
+    if n.value:
+        _check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, names = ctypes.c_int(), []
     for node in nodes:
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == 0      # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels
+        _check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+        if kind.value == 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append(_kernel_name(cu, ctypes.c_void_p(node)))
+    return names
+
+
+def device_launches(fn) -> int:
+    """Kernels one call of ``fn`` enqueues on the current CUDA device,
+    counted from a CUDA graph of the call (``graph_kernels``)."""
+    return len(graph_kernels(fn))
 
 
 @dataclass

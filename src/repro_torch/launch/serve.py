@@ -49,21 +49,38 @@ def _clock(device: torch.device) -> float:
 
 
 @torch.no_grad()
+def prefill(params, cfg, prompts: torch.Tensor, gen: int):
+    """Prefill ``prompts`` (B, P) and grow the caches to P + ``gen`` slots.
+    Returns the first greedy token (B, 1) and the caches."""
+    api = get_api(cfg)
+    P = prompts.shape[1]
+    logits, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+    caches = pad_cache(caches, P, P + gen)
+    return torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1), caches
+
+
+@torch.no_grad()
+def decode(params, cfg, tok: torch.Tensor, caches, start: int, steps: int) -> list:
+    """``steps`` greedy decode steps from ``tok`` at position ``start``.
+    Returns the tokens, (B, 1) each. No host synchronisation, so a caller
+    may capture it in a CUDA graph."""
+    api = get_api(cfg)
+    out = []
+    for step in range(steps):
+        logits, caches = api.decode_fn(params, cfg, tok, start + step, caches)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
+        out.append(tok)
+    return out
+
+
 def generate(params, cfg, prompts: torch.Tensor, gen: int) -> Generation:
     """Prefill ``prompts`` (B, P) and decode ``gen`` greedy tokens in all,
     on the device the params and prompts lie on."""
-    api = get_api(cfg)
-    B, P = prompts.shape
+    P = prompts.shape[1]
     t0 = _clock(prompts.device)
-    logits, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
-    caches = pad_cache(caches, P, P + gen)
-    tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
-    out = [tok]
+    tok, caches = prefill(params, cfg, prompts, gen)
     t1 = _clock(prompts.device)
-    for step in range(gen - 1):
-        logits, caches = api.decode_fn(params, cfg, tok, P + step, caches)
-        tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
-        out.append(tok)
+    out = [tok] + decode(params, cfg, tok, caches, P, gen - 1)
     t2 = _clock(prompts.device)
     return Generation(torch.cat(out, dim=1), t1 - t0, t2 - t1)
 

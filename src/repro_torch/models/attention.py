@@ -177,7 +177,7 @@ def attn_decode(p, cfg, x, pos, cache, lora=None):
     slot = pos % W
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
-    cache["positions"][slot] = pos
+    cache["positions"][slot].fill_(pos)       # a fill kernel: no host copy
     o = _sdpa_chunked(q, cache["k"], cache["v"], posv[0], cache["positions"], cfg.hd ** -0.5,
                       causal=True, window=cfg.sliding_window)
     return _bias(o.reshape(B, 1, -1) @ p["wo"], p, "bo"), cache

@@ -146,8 +146,72 @@ def _sqrt_f32(w: torch.Tensor) -> torch.Tensor:
     return s.to(torch.float32)
 
 
+# XLA:CPU's f32 log1p (a Cephes rational approximation below sqrt(2) - 1,
+# log(1 + x) above) and f32 log (Cephes, on the mantissa in [sqrt(1/2),
+# sqrt(2))), with the multiply-adds that XLA:CPU contracts into FMAs
+_LOG1P_SMALL = np.float32(0.41421356237309504880)
+_LOG1P_NUM = np.float32([4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+                         6.5787325942061044846969e0, 2.9911919328553073277375e1,
+                         6.0949667980987787057556e1, 5.7112963590585538103336e1,
+                         2.0039553499201281259648e1])
+_LOG1P_DEN = np.float32([1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+                         2.2176239823732856465394e2, 3.0909872225312059774938e2,
+                         2.1642788614495947685003e2, 6.0118660497603843919306e1])
+_LOG_P = np.float32([7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+                     1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+                     3.3333331174e-1])
+_LOG_Q1, _LOG_Q2 = np.float32(-2.12194440e-4), np.float32(0.693359375)
+_SQRTHF = np.float32(0.707106781186547524)
+_MIN_NORMAL = np.float32(np.finfo(np.float32).tiny)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` with one rounding: the f32 product is exact in f64,
+    the f64 sum is rounded to f32."""
+    as64 = (lambda t: t.to(torch.float64) if isinstance(t, torch.Tensor) else float(t))
+    return (as64(a) * as64(b) + as64(c)).to(torch.float32)
+
+
+def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:
+    p = torch.full_like(x, float(coeffs[0]))
+    for c in coeffs[1:]:
+        p = _fma(p, x, c)
+    return p
+
+
+def _log_f32(v: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``log`` for finite v > 0 (not correctly rounded)."""
+    bits = torch.clamp(v, min=float(_MIN_NORMAL)).view(torch.int32)
+    e = ((bits >> 23) - 0x7F).to(torch.float32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    below = m < float(_SQRTHF)
+    e = e - below.to(torch.float32)
+    t = (m - 1.0) + torch.where(below, m, torch.zeros_like(m))
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = _fma(_fma(t, p[0], p[1]), t, p[2])
+    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
+    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, e * float(_LOG_Q1))
+    return (t - x2 * 0.5) + y + e * float(_LOG_Q2)
+
+
+def _log1p_f32(a: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``log1p`` for a > -1."""
+    x2 = a * a
+    r = _horner(_LOG1P_NUM, a) / _horner(_LOG1P_DEN, a)
+    small = a + _fma(-0.5, x2, (a * x2) * r)
+    return torch.where(a.abs() < float(_LOG1P_SMALL), small, _log_f32(1.0 + a))
+
+
 def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
-    w = -torch.log1p(-x * x)
+    """Giles' f32 erfinv as XLA lowers ``jax.lax.erf_inv``, evaluated as
+    XLA:CPU evaluates it (its log1p, and FMAs in the polynomials), so it
+    equals ``jax.random.normal`` bit for bit on every device: each step is
+    one correctly rounded elementwise op."""
+    w = -_log1p_f32(x * -x)
     small = w < 5.0
     # the large branch only sees w >= 5; clamping keeps its unused lanes finite
     w = torch.where(small, w - 2.5, _sqrt_f32(torch.clamp(w, min=5.0)) - 3.0)
@@ -155,7 +219,7 @@ def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     for cs, cl in zip(_ERFINV_SMALL, _ERFINV_LARGE):
         c = torch.where(small, torch.tensor(cs, dtype=x.dtype, device=x.device),
                         torch.tensor(cl, dtype=x.dtype, device=x.device))
-        p = c + p * w
+        p = _fma(p, w, c)
     return p * x
 
 

@@ -318,10 +318,13 @@ def _with(spec, **changes):
 @pytest.mark.parametrize("changes,err,match", [
     (dict(runtime__checkpoint_dir="ckpt"), NotImplementedError, "item 8"),
     (dict(clients__population="vectorized"), NotImplementedError, "item 7"),
-    (dict(runtime__cost_model="lognormal_straggler"), NotImplementedError, "item 3"),
-    (dict(runtime__aggregator="trimmed_mean"), NotImplementedError, "item 5"),
-    (dict(runtime__aggregator="qfedavg"), NotImplementedError, "item 5"),
-    (dict(auction=tapi.AuctionSpec()), NotImplementedError, "item 3"),
+    (dict(runtime__cost_model="lognormal_straggler",
+          runtime__cost_model_options={"sigma": -1.0}), ValueError, "sigma must be >= 0"),
+    (dict(runtime__aggregator="trimmed_mean",
+          runtime__aggregator_options={"trim": 0.5}), ValueError, "trim must be in"),
+    (dict(runtime__aggregator="qfedavg",
+          runtime__aggregator_options={"q": -1.0}), ValueError, "q must be >= 0"),
+    (dict(auction=tapi.AuctionSpec(budget=0.0)), ValueError, "budget must be positive"),
     (dict(clients__arrival_process="diurnal"), KeyError, "arrival_process"),
     (dict(runtime__buffer_controller="pid"), KeyError, "buffer_controller"),
     (dict(runtime__aggregator="fedsgd"), KeyError, "aggregator"),
@@ -345,10 +348,6 @@ def test_engine_refuses_unported_config():
         with pytest.raises(NotImplementedError, match=item):
             t_async.AsyncMMFLEngine.from_fed_tasks(tasks, t_async.AsyncConfig(**kw),
                                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        t_async.AsyncMMFLEngine(
-            [t_async.FedAsyncTask(tasks[0], 0, t_async.AsyncConfig(), "cpu")],
-            t_async.AsyncConfig(), incentive=object(), device="cpu")
 
 
 def test_buffer_controller_in_sync_mode_raises():

@@ -154,3 +154,30 @@ def test_fedavg_cuda_refuses_what_it_cannot_take(cuda_device):
         fedavg(x.double(), w)
     with pytest.raises(ValueError):
         fedavg(x, w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,normalizer", [(4, None), (4, 2.5), (3, 1.75), (8, None)])
+def test_qfedavg_fold_runs_the_kernel_once_on_cuda(cuda_device, K, normalizer):
+    """qfedavg (q=1) under the vmap backend: the rescaled weights and the
+    rescaled normaliser reach the kernel in one launch, and the fold
+    agrees with the same rule's plain fold on the CPU."""
+    from repro_torch.api.aggregator import get_aggregator
+    from repro_torch.api.backend import get_backend
+
+    rng = np.random.default_rng(K)
+    cohort = {"a": rng.standard_normal((K, 33, 7)).astype(np.float32),
+              "b": rng.standard_normal((K, 129)).astype(np.float32)}
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, K).astype(np.float32))
+    agg = get_aggregator("qfedavg", {"q": 1.0}, backend=get_backend("vmap", device=cuda_device))
+    reset_launches()
+    got, _ = agg.aggregate({k: torch.from_numpy(v).to(cuda_device) for k, v in cohort.items()},
+                           w.to(cuda_device), None, normalizer=normalizer)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"fedavg": 1}
+    plain = get_aggregator("qfedavg", {"q": 1.0}, backend=get_backend("vmap", device="cpu"))
+    want, _ = plain.aggregate({k: torch.from_numpy(v) for k, v in cohort.items()}, w, None,
+                              normalizer=normalizer)
+    for k in want:
+        assert got[k].device.type == "cuda"
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-5)

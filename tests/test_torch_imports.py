@@ -45,6 +45,15 @@ def test_lm_slice_modules_are_checked(rel):
     assert ROOT / "src" / "repro_torch" / rel in FILES
 
 
+INCENTIVE_SLICE = ["core/auctions.py", "core/theory.py", "api/sweep.py", "api/policy.py",
+                   "api/costmodel.py", "api/aggregator.py", "api/registry.py"]
+
+
+@pytest.mark.parametrize("rel", INCENTIVE_SLICE)
+def test_incentive_slice_modules_are_checked(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
 def test_importing_every_port_module_loads_no_jax():
     """Import every module of the port in a fresh interpreter, then look at
     what was loaded: neither jax nor the JAX package."""

@@ -1,6 +1,6 @@
 """repro_torch.prng against jax.random (threefry2x32, partitionable):
-keys, fold_in, split, random_bits and randint bit for bit; normal within
-1e-6 (the two erfinv implementations round differently)."""
+keys, fold_in, split, random_bits, randint and normal bit for bit, on the
+CPU and (the ``cuda`` case) on a card."""
 import math
 
 import jax
@@ -87,10 +87,46 @@ def test_local_update_index_stream_matches(tau, batch, n):
 @pytest.mark.parametrize("seed", SEEDS[:4])
 @pytest.mark.parametrize("shape", [(16, 64), (64, 10), (48, 64)])
 def test_normal_close(seed, shape):
+    """Bit for bit: the port evaluates erfinv as XLA:CPU does (its log1p
+    and log, and FMAs in the polynomials)."""
     got = _np(prng.normal(prng.PRNGKey(seed), shape))
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
     assert got.dtype == np.float32
-    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", SEEDS[:4])
+def test_normal_on_the_card_equals_jax_bit_for_bit(seed):
+    """The card takes the same evaluation as the CPU: a key draws the same
+    weights on both, and those of ``jax.random.normal``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    shape = (257, 1031)
+    got = prng.normal(prng.PRNGKey(seed, device=torch.device("cuda")), shape)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(_np(got), _np(prng.normal(prng.PRNGKey(seed), shape)))
+    np.testing.assert_array_equal(
+        _np(got), np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape)))
+
+
+def test_log1p_and_log_match_xla_cpu():
+    """The two pieces that made the draws differ: XLA:CPU's f32 log1p (a
+    rational approximation below sqrt(2) - 1, log(1 + x) above) and its
+    f32 log, over the whole range erfinv gives them and beyond."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    a = np.concatenate([-rng.random(20000), -rng.random(2000) * 1e-4,
+                        -(1 - rng.random(2000) * 1e-6), rng.random(2000) * 0.4,
+                        [0.0, -0.5, -0.41421356, 0.41421356]]).astype(np.float32)
+    a = a[a > -1.0]                       # the documented domain
+    got = _np(prng._log1p_f32(torch.from_numpy(a)))
+    np.testing.assert_array_equal(got, np.asarray(jax.jit(jnp.log1p)(a)))
+    v = np.concatenate([rng.random(20000), rng.random(2000) * 1e-30,
+                        1 + rng.random(2000) * 1e6, [1.0, 0.5, 2.0]]).astype(np.float32)
+    np.testing.assert_array_equal(_np(prng._log_f32(torch.from_numpy(v))),
+                                  np.asarray(jax.jit(jnp.log)(v)))
 
 
 @pytest.mark.parametrize("draw", ["normal", "uniform"])

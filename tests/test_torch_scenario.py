@@ -80,19 +80,30 @@ def _with(spec, **changes):
 
 @pytest.mark.parametrize("changes,item", [
     (dict(runtime__mode="async", clients__population="vectorized"), "item 7"),
-    (dict(auction=tapi.AuctionSpec()), "item 3"),
     (dict(clients__population="vectorized"), "item 7"),
     (dict(runtime__checkpoint_dir="ckpt"), "item 8"),
     (dict(runtime__backend="sharded"), "item 14"),
-    (dict(runtime__cost_model="trace_replay"), "item 3"),
-    (dict(runtime__aggregator="fedmedian"), "item 5"),
-    (dict(policy=tapi.PolicySpec("ucb_bandit")), "item 3"),
-], ids=["async", "auction", "population", "checkpoint", "sharded", "cost_model",
-        "aggregator", "policy"])
+], ids=["async", "population", "checkpoint", "sharded"])
 def test_unported_feature_raises(changes, item):
     spec = _with(_spec(tapi, rounds=1), **changes)
     with pytest.raises(NotImplementedError, match=item):
         tapi.run_scenario(spec, device="cpu")
+
+
+@pytest.mark.parametrize("changes", [
+    dict(auction=tapi.AuctionSpec()),
+    dict(runtime__cost_model="trace_replay",
+         runtime__cost_model_options={"trace": {"latencies": {"*": [1.0, 2.0]}}}),
+    dict(runtime__aggregator="fedmedian"),
+    dict(policy=tapi.PolicySpec("ucb_bandit")),
+], ids=["auction", "cost_model", "aggregator", "policy"])
+def test_formerly_refused_feature_runs(changes):
+    """Auctions, the remaining cost models, aggregators and policies are
+    ported; tests/test_torch_incentives.py holds them against the
+    reference."""
+    res = tapi.run_scenario(_with(_spec(tapi, rounds=1), **changes), device="cpu")
+    assert res.alloc_counts.shape == (1, 3)
+    assert (res.auction is not None) == ("auction" in changes)
 
 
 def test_arch_family_raises():
