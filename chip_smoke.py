@@ -113,7 +113,28 @@ printed only when every phase passed:
    params within 1e-4. A 2x2 sweep (alpha x fedmedian/qfedavg, 600
    arrivals a point) with two spawned workers equals the sequential
    payload but for wall times.
-18. A JSON line describing every kernel, the card line, and the final
+18. LM training, sync (``run_scenario`` on the ``arch`` family, vmap
+   backend): smollm-135m at full width with tau 2 (true FedAvg: the fedavg
+   kernel folds each round's 8 rows at its 134.5 M parameters) and
+   qwen3-0.6b at full width with tau 1 (the fused AdamW server step), seq
+   256, batch 8, 8 clients, participation 0.5, fedfair alpha 3, 3 rounds.
+   s/round, trained tokens/s, final loss and next-token accuracy, peak
+   memory; fedavg exactly once per non-empty smollm fold and never for
+   qwen3, then held against its plain version at every fold shape; the
+   rmsnorm launches of one training step of each (forward through the
+   kernel, backward plain). Then one fused AdamW step of zamba2-7b at full
+   width and 7 of its 81 layers, B=1, S=512 (time, peak memory). Card
+   against CPU: the tiny presets of smollm-135m, qwen1.5-0.5b and zamba2-7b
+   (seq 32, batch 4, tau 2, 6 clients, 2 rounds, round_robin): identical
+   allocation traces, losses within 1e-3.
+19. LM training, async: the same two tasks, both tau 2, 8 clients, 16
+   arrivals, buffer 4, beta 0.5, bimodal speeds, fedadam (server lr 0.1).
+   Flushes/s, the measured next-token accuracy of every flush, peak
+   memory; fused_aggregate exactly once per flush, then held against its
+   plain version at every flush shape. The fold kernels are timed at the
+   LM shapes of phases 18-19. Card against CPU: the tiny three-task spec
+   with 9 arrivals, buffer 3, fedavg, round_robin: identical event traces.
+20. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Needs CUDA, nvcc (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``)
@@ -212,6 +233,23 @@ EXP13 = dict(tasks=("synth-mnist", "synth-fmnist"), clients=16, arrivals=600, bu
                                       "qfedavg": {"q": 1.0}})
 EXP14_SPREAD, EXP14_TARGET = 4.0, 0.55
 LOGNORMAL = {"sigma": 0.6, "straggler_frac": 0.25, "straggler_factor": 4.0, "dropout_prob": 0.05}
+
+# LM training (the arch family): two full-width tasks, smollm-135m as true
+# FedAvg (tau 2: the fedavg fold at its full parameter count) and
+# qwen3-0.6b as the fused AdamW server step (tau 1); async both at tau 2
+# under fedadam (fused_aggregate at both parameter counts)
+ARCH_SYNC = dict(tasks={"smollm-135m": dict(preset="full", seq=256, batch=8, tau=2),
+                        "qwen3-0.6b": dict(preset="full", seq=256, batch=8, tau=1)},
+                 clients=8, participation=0.5, rounds=3)
+ARCH_ASYNC = dict(tau=2, arrivals=16, buffer=4, beta=0.5, aggregator="fedadam",
+                  options={"lr": 0.1})
+# zamba2-7b at full width: 7 of its 81 layers (f32 params, grads and two
+# AdamW moments of all 81 need 108.6 GB), B=1 S=512
+ARCH_ZAMBA = (7, 1, 512)
+# card against CPU: the tiny presets of three archs
+ARCH_TINY = dict(archs=("smollm-135m", "qwen1.5-0.5b", "zamba2-7b"),
+                 options=dict(preset="tiny", seq=32, batch=4, tau=2), clients=6, rounds=2,
+                 arrivals=9, buffer=3)
 
 
 def fail(msg: str) -> None:
@@ -1400,14 +1438,18 @@ def run_sync_counted(label: str, spec, device: str = "cuda"):
 
 
 class FoldShapes:
-    """Records the shapes the runs of phases 16-17 hand to the fold
-    kernels: (K, N, dtype) of each ``fedavg`` call of the vmap backend
-    (every sync fold, every qfedavg and fedavg flush) and (K, N, mode) of
-    each ``fused_aggregate`` flush. A pass-through around the port's two
-    call sites that only records; each wrapper still counts its launches."""
+    """Records the shapes the runs of phases 16-19 hand to the fold
+    kernels, with the number of calls at each: (K, N, dtype) of each
+    ``fedavg`` call of the vmap backend (every sync fold, every qfedavg and
+    fedavg flush) and (K, N, mode) of each ``fused_aggregate`` flush. A
+    pass-through around the port's two call sites that only records; each
+    wrapper still counts its launches."""
 
     def __init__(self):
-        self.fedavg, self.fused = set(), set()
+        import collections
+
+        # shape -> number of calls
+        self.fedavg, self.fused = collections.Counter(), collections.Counter()
 
     def __enter__(self):
         import repro_torch.api.aggregator as aggregator
@@ -1416,11 +1458,11 @@ class FoldShapes:
         self._saved = fedavg, fused = backend.fedavg, aggregator.fused_aggregate
 
         def fedavg_rec(stacked, weights):
-            self.fedavg.add((*stacked.shape, str(stacked.dtype).removeprefix("torch.")))
+            self.fedavg[(*stacked.shape, str(stacked.dtype).removeprefix("torch."))] += 1
             return fedavg(stacked, weights)
 
         def fused_rec(x, *args, mode, **kw):
-            self.fused.add((*x.shape, mode))
+            self.fused[(*x.shape, mode)] += 1
             return fused(x, *args, mode=mode, **kw)
 
         backend.fedavg, aggregator.fused_aggregate = fedavg_rec, fused_rec
@@ -1450,7 +1492,12 @@ def check_run_shapes(label: str, shapes: FoldShapes) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     err = {"fedavg": 0.0, "fused_aggregate": 0.0}
     for K, N, name in sorted(shapes.fedavg):
-        x32, w = _fold_inputs(rng, K, N, dev)
+        if K * N > 2**24:                 # an LM fold: draw it on the card
+            x32 = torch.randn(K, N, generator=gen, device=dev)
+            w = torch.rand(K, generator=gen, device=dev).add_(0.1)
+            w /= w.sum()
+        else:
+            x32, w = _fold_inputs(rng, K, N, dev)
         x = x32.to(getattr(torch, name))
         got, want = fedavg(x, w), ref_fedavg(x, w)
         torch.cuda.synchronize()
@@ -1459,14 +1506,17 @@ def check_run_shapes(label: str, shapes: FoldShapes) -> dict:
             fail(f"{label}: fedavg at the run shape K={K} N={N} {name}: {got.dtype} "
                  f"{tuple(got.shape)}, max |err| {e} (tol {TOL[name]})")
         err["fedavg"] = max(err["fedavg"], e)
+        del x, x32, got, want
     for K, N, mode in sorted(shapes.fused):
         e, _ = check_fused(*_flush_inputs(gen, K, N, dev), mode, f"{label} run shape K={K} N={N}")
         err["fused_aggregate"] = max(err["fused_aggregate"], e)
     ks = sorted({k for k, _, _ in shapes.fedavg})
-    print(f"{label}: fedavg held against ref_fedavg at all {len(shapes.fedavg)} (K, N, dtype) "
-          f"folds the runs made (K {ks[0]}-{ks[-1]}, N in {sorted({n for _, n, _ in shapes.fedavg})}"
-          f", {sorted({d for _, _, d in shapes.fedavg})}): max |err| {err['fedavg']:.3g} "
-          f"(tol {TOL})"
+    print(f"{label}: "
+          + (f"fedavg held against ref_fedavg at all {len(shapes.fedavg)} (K, N, dtype) "
+             f"folds the runs made (K {ks[0]}-{ks[-1]}, N in "
+             f"{sorted({n for _, n, _ in shapes.fedavg})}, "
+             f"{sorted({d for _, _, d in shapes.fedavg})}): max |err| {err['fedavg']:.3g} "
+             f"(tol {TOL})" if ks else "no fedavg fold")
           + (f"; fused_aggregate at all {len(shapes.fused)} (K, N, mode) flushes "
              f"({sorted(shapes.fused)}): max |err| {err['fused_aggregate']:.3g} "
              f"(rtol/atol {FUSED_TOL})" if shapes.fused else ""))
@@ -1648,6 +1698,271 @@ def phase_robust_costs(line: str):
     return {k: launches for k, (_, launches) in runs.items()}, checked
 
 
+def arch_spec(name: str, tasks: dict, clients: int, *, mode: str = "sync",
+              strategy: str = "fedfair", rounds: int = ARCH_SYNC["rounds"],
+              arrivals: int = ARCH_ASYNC["arrivals"], buffer: int = ARCH_ASYNC["buffer"],
+              aggregator=None, options=None):
+    """An ``arch`` scenario on the vmap backend: ``tasks`` maps each arch to
+    its TaskSpec options; bimodal client speeds (the async runs' clock)."""
+    from repro_torch.api import (AllocationSpec, ClientPopulationSpec, RuntimeSpec,
+                                 ScenarioSpec, TaskSpec)
+
+    return ScenarioSpec(
+        name=name, seed=0, data_seed=0,
+        tasks=[TaskSpec(a, family="arch", options=dict(o)) for a, o in tasks.items()],
+        clients=ClientPopulationSpec(n_clients=clients, participation=ARCH_SYNC["participation"],
+                                     speed_profile="bimodal"),
+        allocation=AllocationSpec(strategy=strategy, alpha=3.0),
+        runtime=RuntimeSpec(mode=mode, backend="vmap", rounds=rounds,
+                            tau=max(o["tau"] for o in tasks.values()),
+                            total_arrivals=arrivals, buffer_size=buffer, beta=ARCH_ASYNC["beta"],
+                            aggregator=aggregator, aggregator_options=dict(options or {})))
+
+
+def _trained_tokens(spec, res) -> int:
+    """Tokens the sync run trained on: rows x seq x tau for every task a
+    round gave clients."""
+    return sum(int((res.alloc_counts[:, s] > 0).sum()) * t.options["batch"] * t.options["seq"]
+               * t.options["tau"] for s, t in enumerate(spec.tasks))
+
+
+def norms_per_step(task, params) -> int:
+    """rmsnorm launches of one training forward and backward of ``task``'s
+    model (B 1, its seq), counted alone, after the run's counts were read:
+    every norm's forward is the kernel, its backward plain."""
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models import get_api
+
+    o = task.options
+    cfg = (smoke_config if o["preset"] == "tiny" else get_config)(task.name)
+    toks = torch.randint(0, cfg.vocab_size, (1, o["seq"]), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    reset_launches()
+    loss_and_grads(get_api(cfg), cfg, params, {"tokens": toks, "labels": toks})
+    torch.cuda.synchronize()
+    return LAUNCHES["rmsnorm"]
+
+
+def time_lm_shapes(shapes: FoldShapes) -> dict:
+    """Time the fold kernels at each shape the LM runs gave them (CUDA
+    events, median of 20), beside the bound, the plain version and, for
+    fedavg, ``w @ x``; fused_aggregate also beside ``disc @ x``, the reduce
+    alone (no single PyTorch call computes the fused flush). Inputs drawn
+    on the card."""
+    import torch
+
+    from repro_torch.kernels import fedavg, fused_aggregate
+    from repro_torch.kernels.ref import ref_fedavg, ref_fused_aggregate
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = []
+    for K, N, _ in sorted(shapes.fedavg):
+        x = torch.randn(K, N, generator=gen, device=dev)
+        w = torch.rand(K, generator=gen, device=dev).add_(0.1)
+        w /= w.sum()
+        bound, by = fold_bound_ms(K, N, 4, 4)
+        out.append({"kernel": "fedavg", "shape": [K, N], "ms": time_ms(lambda: fedavg(x, w)),
+                    "plain_ms": time_ms(lambda: ref_fedavg(x, w)),
+                    "library_ms": time_ms(lambda: w @ x), "bound_ms": bound, "bound_by": by})
+        del x
+    for K, N, mode in sorted(shapes.fused):
+        x, w, s, m, v = _flush_inputs(gen, K, N, dev)
+        norm, norm_dev = float(w.sum()), w.sum()
+        disc = w * (1.0 + s) ** -FUSED_SCALARS["beta"] / norm_dev
+        bound, by = fused_bound_ms(K, N, mode)
+        out.append({
+            "kernel": "fused_aggregate", "shape": [K, N], "mode": mode,
+            "ms": time_ms(lambda: fused_aggregate(x, w, s, m, v, mode=mode, normalizer=norm,
+                                                  **FUSED_SCALARS)),
+            "plain_ms": time_ms(lambda: ref_fused_aggregate(x, w, s, m, v, mode=mode,
+                                                            normalizer=norm_dev,
+                                                            **FUSED_SCALARS)),
+            "library_ms": None, "reduce_only_ms": time_ms(lambda: disc @ x),
+            "bound_ms": bound, "bound_by": by})
+        del x, m, v, disc
+    torch.cuda.empty_cache()
+    for r in out:
+        print(f"{r['kernel']} at the run shape K={r['shape'][0]} N={r['shape'][1]}"
+              f"{' ' + r['mode'] if 'mode' in r else ''}: kernel {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_by']} bound "
+              f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              + (f"library (w @ x) {r['library_ms']:.4f} ms" if r["library_ms"] is not None
+                 else f"disc @ x (the reduce alone) {r['reduce_only_ms']:.4f} ms"))
+    return out
+
+
+def _loss_gap(gpu, cpu) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(gpu.loss) - np.asarray(cpu.loss)).max())
+
+
+def phase_arch_sync(line: str):
+    """Phase 18: LM training through run_scenario in sync mode."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import arch_fused_step, server_opt
+    from repro_torch.models import get_api, param_count
+
+    print("== phase 18: sync arch training on the card (run_scenario, vmap backend)")
+    print(f"card: {line}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = arch_spec("arch-sync", ARCH_SYNC["tasks"], ARCH_SYNC["clients"])
+    with FoldShapes() as shapes:
+        res, launches = run_counted(spec, "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    rounds = spec.runtime.rounds
+    names = res.task_names
+    folded = [s for s, t in enumerate(spec.tasks) if t.options["tau"] > 1]
+    folds = int((res.alloc_counts[:, folded] > 0).sum())
+    n = {a: param_count(p) for a, p in zip(names, res.params)}
+    want_shapes = {(t.options["batch"], n[t.name], "float32"): int((res.alloc_counts[:, s] > 0)
+                                                                   .sum())
+                   for s, t in enumerate(spec.tasks) if s in folded}
+    want_shapes = {k: v for k, v in want_shapes.items() if v}
+    if not folds or launches.get("fedavg", 0) != folds or dict(shapes.fedavg) != want_shapes:
+        fail(f"phase 18: fedavg launched {launches.get('fedavg', 0)} times at "
+             f"{dict(shapes.fedavg)} for {folds} non-empty tau>1 folds {want_shapes}")
+    if set(launches) - {"fedavg", "rmsnorm"} or launches.get("rmsnorm", 0) <= 0:
+        fail(f"phase 18: launches {launches}")
+    # the prevailing loss is inf until a task first trains (as in the
+    # reference); from then on every reported loss must be finite
+    trained = np.cumsum(res.alloc_counts > 0, axis=0) > 0
+    if not (trained[-1].all() and np.isfinite(res.loss[trained]).all()
+            and np.isfinite(res.acc).all()):
+        fail(f"phase 18: loss {res.loss} or accuracy {res.acc} not finite, or a task never "
+             f"trained ({res.alloc_counts.tolist()})")
+    tokens = _trained_tokens(spec, res)
+    per_step = {t.name: norms_per_step(t, p) for t, p in zip(spec.tasks, res.params)}
+    rec = {"s_per_round": res.wall_time / rounds, "trained_tokens_per_s": tokens / res.wall_time,
+           "trained_tokens": tokens, "wall_s": res.wall_time, "peak_bytes": peak,
+           "final_loss": res.final_loss, "final_acc": dict(zip(names, res.acc[-1].tolist())),
+           "alloc_counts": res.alloc_counts.tolist(), "params": n, "launches": launches,
+           "fedavg_folds": folds, "rmsnorm_per_training_step": per_step}
+    print(f"arch sync {names}: {rec['s_per_round']:.3f} s/round, {rec['trained_tokens_per_s']:.1f} "
+          f"trained tokens/s ({tokens} tokens in {res.wall_time:.3f} s), peak "
+          f"{peak / 2**30:.3f} GiB; final loss {json.dumps(res.final_loss)}, final acc "
+          f"{json.dumps(rec['final_acc'])}; launches {launches}, fedavg = non-empty tau>1 folds "
+          f"{folds} at {dict(shapes.fedavg)}; rmsnorm launches per training step (forward "
+          f"through the kernel, backward plain) {per_step}")
+    checked = check_run_shapes("phase 18", shapes)
+    del res
+    timed = time_lm_shapes(shapes)
+
+    # zamba2-7b at full width, ARCH_ZAMBA layers: one fused AdamW step
+    L, B, S = ARCH_ZAMBA
+    cfg = get_config("zamba2-7b").replace(n_layers=L)
+    cfg = cfg.replace(ssm_chunk=min(cfg.ssm_chunk, max(8, S // 4)))
+    api = get_api(cfg)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(prng.PRNGKey(zlib.crc32(b"zamba2-7b") % 2**31, device=dev), cfg,
+                             device=dev)
+    opt = server_opt().init(params)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    batch = {"tokens": toks, "labels": toks, "client_weights": torch.ones(B, device=dev)}
+    step, _ = arch_fused_step(api, cfg)
+    times, losses = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    zpeak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        fail(f"phase 18: zamba2-7b step losses {losses}")
+    zrec = {"layers": L, "batch": B, "seq": S, "ssm_chunk": cfg.ssm_chunk,
+            "params": param_count(params), "step_s": times, "losses": losses, "peak_bytes": zpeak}
+    print(f"zamba2-7b full width, {L} of 81 layers, one arch_fused_step at B={B} S={S} (chunk "
+          f"{cfg.ssm_chunk}, checkpointed chunks): {times[1]:.3f} s (first {times[0]:.3f} s), "
+          f"losses {losses}, peak {zpeak / 2**30:.3f} GiB, {zrec['params']} params")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+    tiny = arch_spec("arch-tiny", {a: ARCH_TINY["options"] for a in ARCH_TINY["archs"]},
+                     ARCH_TINY["clients"], strategy="round_robin", rounds=ARCH_TINY["rounds"])
+    gpu, _ = run_counted(tiny, "cuda")
+    cpu, _ = run_counted(tiny, "cpu")
+    same = np.array_equal(gpu.alloc, cpu.alloc)
+    gap = _loss_gap(gpu, cpu)
+    print(f"tiny {list(ARCH_TINY['archs'])} round_robin card vs CPU: allocation traces identical="
+          f"{same}, max |loss card - loss cpu| {gap:.3g}, accuracy curves identical="
+          f"{np.array_equal(gpu.acc, cpu.acc)}")
+    if not same or not gap <= 1e-3:
+        fail("phase 18: tiny arch round_robin card vs CPU disagree")
+    return {**rec, "zamba2_step": zrec, "card_vs_cpu_loss_gap": gap}, checked, timed
+
+
+def phase_arch_async(line: str):
+    """Phase 19: LM training through run_scenario in async mode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import param_count
+
+    print("== phase 19: async arch training on the card (run_scenario mode='async', vmap backend)")
+    print(f"card: {line}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tasks = {a: dict(o, tau=ARCH_ASYNC["tau"]) for a, o in ARCH_SYNC["tasks"].items()}
+    spec = arch_spec("arch-async", tasks, ARCH_SYNC["clients"], mode="async",
+                     aggregator=ARCH_ASYNC["aggregator"], options=ARCH_ASYNC["options"])
+    with FoldShapes() as shapes:
+        res, launches = run_counted(spec, "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    flushes = len(res.time)
+    n = [param_count(p) for p in res.params]
+    if (flushes == 0 or launches.get("fused_aggregate", 0) != flushes
+            or set(launches) - {"fused_aggregate", "rmsnorm"} or not launches.get("rmsnorm")):
+        fail(f"phase 19: launches {launches} for {flushes} flushes")
+    if (sum(shapes.fused.values()) != flushes
+            or {(K, N) for K, N, _ in shapes.fused} - {(ARCH_ASYNC["buffer"], N) for N in n}):
+        fail(f"phase 19: flush shapes {dict(shapes.fused)}, params {n}")
+    if not (np.isfinite(res.loss).all() and np.isfinite(res.acc).all()):
+        fail(f"phase 19: metric {res.loss} or accuracy {res.acc} not finite")
+    rec = {"flushes": flushes, "flushes_per_s": flushes / res.wall_time, "wall_s": res.wall_time,
+           "peak_bytes": peak, "acc_eval": res.acc.tolist(), "metric": res.loss.tolist(),
+           "versions": np.asarray(res.versions).tolist(), "launches": launches,
+           "flush_shapes": {f"{K}x{N} {m}": c for (K, N, m), c in sorted(shapes.fused.items())}}
+    print(f"arch async {res.task_names}: {rec['flushes_per_s']:.3f} flushes/s ({flushes} flushes "
+          f"of {spec.runtime.total_arrivals} arrivals, {res.wall_time:.3f} s), peak "
+          f"{peak / 2**30:.3f} GiB, launches {launches}, flush shapes {rec['flush_shapes']}")
+    for i, (t, acc, metric) in enumerate(zip(res.time, res.acc, res.loss)):
+        print(f"  flush {i + 1}: t={t:.3f} acc_eval {acc.tolist()} eval loss {metric.tolist()}")
+    checked = check_run_shapes("phase 19", shapes)
+    del res
+    timed = time_lm_shapes(shapes)
+
+    tiny = arch_spec("arch-tiny-async",
+                     {a: ARCH_TINY["options"] for a in ARCH_TINY["archs"]}, ARCH_TINY["clients"],
+                     mode="async", strategy="round_robin", arrivals=ARCH_TINY["arrivals"],
+                     buffer=ARCH_TINY["buffer"])
+    gpu, _ = run_counted(tiny, "cuda")
+    cpu, _ = run_counted(tiny, "cpu")
+    same = _same_events(gpu, cpu)
+    gap = _loss_gap(gpu, cpu)
+    print(f"tiny {list(ARCH_TINY['archs'])} async fedavg round_robin card vs CPU: event traces "
+          f"identical={same}, max |eval loss card - cpu| {gap:.3g}, accuracy curves identical="
+          f"{np.array_equal(gpu.acc, cpu.acc)}")
+    if not same or not gap <= 1e-3:
+        fail("phase 19: tiny arch async card vs CPU disagree")
+    return {**rec, "card_vs_cpu_loss_gap": gap}, checked, timed
+
+
 def main() -> int:
     import torch
 
@@ -1676,6 +1991,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     sync_launches, sync_checked = phase_incentives(line)
     async_launches, async_checked = phase_robust_costs(line)
+    arch_sync, arch_sync_checked, arch_sync_timed = phase_arch_sync(line)
+    arch_async, arch_async_checked, arch_async_timed = phase_arch_async(line)
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -1686,16 +2003,21 @@ def main() -> int:
         # phases 16-17: each run's fedavg launches (0 for the robust rules)
         "launches_incentives": {k: v.get("fedavg", 0) for k, v in sync_launches.items()},
         "launches_robust_costs": {k: v.get("fedavg", 0) for k, v in async_launches.items()},
-        "max_abs_err": max(errs["float32"], sync_checked["fedavg"], async_checked["fedavg"]),
+        # phase 18: one per non-empty fold of the tau 2 LM task
+        "launches_arch_sync": arch_sync["launches"]["fedavg"],
+        "max_abs_err": max(errs["float32"], sync_checked["fedavg"], async_checked["fedavg"],
+                           arch_sync_checked["fedavg"]),
         "max_abs_err_bf16": errs["bfloat16"],
-        # phases 16-17: the (K, N) folds those runs made, each held against
+        # phases 16-18: the (K, N) folds those runs made, each held against
         # ref_fedavg after the runs
-        "run_shapes_checked": sync_checked["fedavg_shapes"] + async_checked["fedavg_shapes"],
+        "run_shapes_checked": (sync_checked["fedavg_shapes"] + async_checked["fedavg_shapes"]
+                               + arch_sync_checked["fedavg_shapes"]),
         "shape": list(TIMED_MAIN),
         "dtype": "float32",
         **timed[TIMED_MAIN],
         "async_flush": {"shape": list(FUSED_TIMED), **timed[FUSED_TIMED]},
         "lm_scale": {"shape": [LM_K, LM_N], **lm},
+        "arch_sync_folds": arch_sync_timed,
     }
     fused = {
         "name": "fused_aggregate",
@@ -1704,8 +2026,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/fedavg.py:145",
         "launches": async_runs["fedadam"][1]["fused_aggregate"],
         "launches_lognormal_fedadam": async_launches["fedadam-lognormal"]["fused_aggregate"],
-        "max_abs_err": max(f_err, async_checked["fused_aggregate"]),
-        "run_shapes_checked": async_checked["fused_shapes"],
+        # phase 19: one per flush of the two LM tasks
+        "launches_arch_async": arch_async["launches"]["fused_aggregate"],
+        "max_abs_err": max(f_err, async_checked["fused_aggregate"],
+                           arch_async_checked["fused_aggregate"]),
+        "run_shapes_checked": async_checked["fused_shapes"] + arch_async_checked["fused_shapes"],
         "yogi_ties": f_ties,
         "mode": "fedadam",
         "shape": list(FUSED_TIMED),
@@ -1718,6 +2043,7 @@ def main() -> int:
         "eager_reduce_only_ms": f_reduce[1],
         "modes": f_timed,
         "lm_scale": {"shape": [LM_K, LM_N], "reduce_only_ms": f_lm_reduce, **f_lm},
+        "arch_async_flushes": arch_async_timed,
     }
     flash = {
         "name": "flash_attention",
@@ -1745,6 +2071,11 @@ def main() -> int:
         "launches_loss": loss["launches"]["rmsnorm"],
         "launches_zamba2_serve": hserved["launches"]["rmsnorm"],
         "launches_zamba2_loss": hloss["launches"]["rmsnorm"],
+        # phases 18-19: the training runs (forwards of the steps and the
+        # eval probes) and one training step of each LM alone
+        "launches_arch_sync": arch_sync["launches"]["rmsnorm"],
+        "launches_arch_async": arch_async["launches"]["rmsnorm"],
+        "launches_per_training_step": arch_sync["rmsnorm_per_training_step"],
         **norm,
     }
     gated_rec = {
@@ -1769,6 +2100,7 @@ def main() -> int:
     }
     print(json.dumps({"serve": served, "loss": loss, "zamba2_serve": hserved,
                       "zamba2_loss": hloss}))
+    print(json.dumps({"arch_sync": arch_sync, "arch_async": arch_async}))
     print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's LM forward spends its time, on one NVIDIA GPU.
 
-    python3 profile_lm.py [--arch smollm-135m|zamba2-7b]
+    python3 profile_lm.py [--arch smollm-135m|zamba2-7b] [--train]
 
 Runs the LM configurations of ``chip_smoke.py`` for one arch, at full
 width from PRNGKey(0): serving (batch 8, prompt 128, 32 greedy tokens
@@ -24,6 +24,14 @@ CUDA graph of one run, its device time from replays of that graph and
 from eager runs between CUDA events, beside the profiler's totals and the
 gap. Exits non-zero without CUDA, and when the profiler's launch count of
 one of the port's kernel families differs from the graph's.
+
+With ``--train`` it breaks down one training step instead: the fused
+AdamW server step of the ``arch`` family (``launch.train.arch_fused_step``:
+forward and backward through ``torch.autograd``, the clipped AdamW update)
+of smollm-135m at full width, B=8, S=256 (``TRAIN_B``, ``TRAIN_S``),
+``TRAIN_CALLS`` steps under the profiler, each from the last one's params.
+The step is held against a CUDA graph of it where capture works; where it
+does not, the record says so and is marked unchecked.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from profile_kernels import crosscheck, device_events, family, profile_calls  # 
 PORT_FAMILIES = ("flash_attention", "gated_rmsnorm", "ssd_scan", "rmsnorm")
 CHECK_REPS = 3          # graph replays and eager runs of each piece of work
 LOSS_CALLS = 5          # loss calls in the profiler's measured step
+TRAIN_B, TRAIN_S, TRAIN_CALLS = 8, 256, 3
 
 
 def profiled(label: str, fn, calls: int) -> dict:
@@ -74,6 +83,42 @@ def checked(label: str, fn, failed: list, calls: int = 1) -> dict:
     return rec
 
 
+def profile_train(arch: str, failed: list) -> dict:
+    """One fused AdamW step of ``arch`` at full width, profiled and held
+    against a CUDA graph of it where capture works."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import arch_fused_step, server_opt
+    from repro_torch.models import get_api
+
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    dev = torch.device("cuda")
+    state = [api.init_params(prng.PRNGKey(0), cfg, device=dev)]
+    state.append(server_opt().init(state[0]))
+    tokens = prng.randint(prng.PRNGKey(1, device=dev), (TRAIN_B, TRAIN_S), 0, cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": tokens,
+             "client_weights": torch.full((TRAIN_B,), 1.0 / TRAIN_B, device=dev)}
+    step, _ = arch_fused_step(api, cfg)
+
+    def train():
+        _, state[0], state[1] = step(state[0], state[1], batch)
+
+    train()                                                     # warm-up
+    label = f"train {arch} arch_fused_step B={TRAIN_B} S={TRAIN_S}"
+    rec = profiled(label, train, TRAIN_CALLS)
+    kernels = rec.pop("kernels")
+    try:
+        rec["check"] = crosscheck(label, train, CHECK_REPS, kernels, PORT_FAMILIES)
+    except RuntimeError as e:          # the step could not be captured
+        rec["check"] = {"unchecked": f"{type(e).__name__}: {e}"}
+        print(f"  cross-check {label}: UNCHECKED, no CUDA graph of the step ({e})")
+    failed.extend(f"{label}: {f}" for f in rec["check"].get("mismatch", []))
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
     import json
@@ -85,11 +130,23 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=[LM_ARCH, HYBRID_ARCH], default=LM_ARCH)
+    ap.add_argument("--train", action="store_true",
+                    help="break down one fused AdamW training step of smollm-135m instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_lm: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if args.train:
+        print(f"card: {card_line()}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        failed = []
+        print(json.dumps({"train": profile_train(LM_ARCH, failed)}))
+        if failed:
+            print("profile_lm FAILED: the profiler's launch counts differ from the CUDA "
+                  "graph's for " + "; ".join(failed), file=sys.stderr)
+            return 1
+        return 0
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import decode, generate, prefill, serve_config

@@ -3,7 +3,8 @@
 The package mirrors ``src/repro`` module for module and is tested against
 it; it imports ``torch`` and ``numpy`` and nothing of the JAX package.
 Entry points (``api.run_scenario``, ``fed.trainer.MMFLTrainer``, the
-execution backends) take ``device=None``, which means CUDA: without a
+execution backends, ``launch.train`` and ``launch.serve``) take
+``device=None``, which means CUDA: without a
 card they raise unless the caller passes ``device="cpu"``
 (``repro_torch.device``).
 """

@@ -8,7 +8,8 @@
     result = run_scenario(spec, device="cpu")
 
 ``run_scenario`` drives the sync round loop and the async FedAST engine
-on the synthetic task family, with the recruitment auctions and their
+on the synthetic task family and on the ``arch`` family (LM training:
+the four dense configs and zamba2-7b), with the recruitment auctions and their
 incentive mechanisms, the stateful policies, every aggregator and every
 cost model; ``sweep_scenarios`` runs a grid of spec overrides. Spec
 features of later slices raise ``NotImplementedError``. The numpy-only
@@ -33,7 +34,6 @@ from repro_torch.api.registry import (  # noqa: F401
     COST_MODELS,
     INCENTIVES,
     POLICIES,
-    TASK_FAMILIES,
     Registry,
     register_aggregator,
     register_allocator,
@@ -95,8 +95,10 @@ from repro_torch.api.policy import (  # noqa: F401  (registers the policies, inc
 )
 
 _LAZY = {
-    "repro_torch.api.engine": ("AsyncEngineRunner", "Engine", "RunResult", "SyncFedEngine",
-                               "run_scenario"),
+    # TASK_FAMILIES lives in api.registry, but engine.py registers its
+    # entries: reaching it through the engine keeps the families populated
+    "repro_torch.api.engine": ("ArchFamily", "ArchSyncEngine", "AsyncEngineRunner", "Engine",
+                               "RunResult", "SyncFedEngine", "TASK_FAMILIES", "run_scenario"),
     "repro_torch.api.aggregator": ("Aggregator", "FedAdam", "FedAvg", "FedAvgM", "FedMedian",
                                    "FedYogi", "QFedAvg", "TrimmedMean",
                                    "aggregator_from_config", "get_aggregator"),

@@ -1,8 +1,10 @@
-"""`run_scenario`: one entry point for a synthetic MMFL run, sync or async.
+"""`run_scenario`: one entry point for every MMFL run, sync or async.
 
 The port's counterpart of the JAX package's ``api/engine.py``. A
-``ScenarioSpec`` resolves through the registries to the synthetic task
-family, an optional recruitment auction and its incentive mechanism
+``ScenarioSpec`` resolves through the registries to a task family
+(synthetic FedTask MLPs, or the ``arch`` family of production LMs: the
+four dense configs and zamba2-7b), an optional recruitment auction and its
+incentive mechanism
 (which produce the eligibility matrix), and either the sync lockstep
 round loop or the async FedAST engine, and returns the same
 ``RunResult`` as the reference. Spec features that the port has not
@@ -21,8 +23,13 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Protocol
 
 import numpy as np
+import torch
 
-from repro_torch.api.policy import RoundContext, incentive_from_spec, policy_from_spec
+from repro_torch.api.aggregator import aggregator_from_config
+from repro_torch.api.backend import ClientBatch, CohortTask, get_backend
+from repro_torch.api.costmodel import get_cost_model
+from repro_torch.api.policy import (RoundContext, incentive_from_spec, policy_from_spec,
+                                    stacked_delta_norms)
 from repro_torch.api.registry import (
     AGGREGATORS,
     ALLOCATORS,
@@ -36,11 +43,15 @@ from repro_torch.api.registry import (
 )
 from repro_torch.api.spec import ScenarioSpec
 from repro_torch.core.fairness import fairness_report, time_to_accuracy_report
+from repro_torch.core.mmfl import MMFLCoordinator
 from repro_torch.device import resolve_device
 from repro_torch.fed.async_engine import (AsyncConfig, AsyncMMFLEngine, FedAsyncTask,
                                           _unported)
 from repro_torch.fed.data import _RECIPES, make_synthetic_task, task_seed
 from repro_torch.fed.trainer import MMFLTrainer, TrainConfig
+from repro_torch.launch.train import (ArchAsyncTask, assemble_batch, build_task, make_arch_eval,
+                                      make_dataset)
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -329,11 +340,199 @@ class SyntheticFamily:
         return AsyncEngineRunner(spec, engine, has_acc=True)
 
 
+@register_task_family("arch")
+class ArchFamily:
+    """Production LM architectures (``launch.train``): per-arch train steps
+    on synthetic non-iid token shards. TaskSpec options: ``preset``,
+    ``seq``, ``batch``, ``tau``, ``local_lr``, ``shards``. The arch types
+    the port does not run yet are refused by name when a task is built."""
+
+    def build_tasks(self, spec: ScenarioSpec, device=None):
+        tasks, data = {}, {}
+        for i, ts in enumerate(spec.tasks):
+            o = ts.options
+            seq = o.get("seq", 64)
+            tasks[ts.name] = build_task(ts.name, o.get("preset", "tiny"), seq, o.get("batch", 8),
+                                        tau=o.get("tau", 1), local_lr=o.get("local_lr", 5e-3),
+                                        device=device)
+            data[ts.name] = make_dataset(None, tasks[ts.name]["cfg"], spec.clients.n_clients,
+                                         o.get("shards", 4), seq, seed=spec.data_seed + i)
+        return tasks, data
+
+    def sync_engine(self, spec: ScenarioSpec, eligibility=None, incentive=None,
+                    device=None) -> Engine:
+        tasks, data = self.build_tasks(spec, device)
+        return ArchSyncEngine(spec, tasks, data, eligibility, incentive, device)
+
+    def async_engine(self, spec: ScenarioSpec, eligibility=None, incentive=None,
+                     device=None) -> Engine:
+        tasks, data = self.build_tasks(spec, device)
+        adapters = []
+        for i, ts in enumerate(spec.tasks):
+            a = ArchAsyncTask(ts.name, i, tasks[ts.name], data[ts.name],
+                              tau=max(ts.options.get("tau", 1), 1),
+                              local_lr=ts.options.get("local_lr", 5e-3))
+            a.work = ts.work
+            adapters.append(a)
+        engine = AsyncMMFLEngine(adapters, _async_config(spec), eligibility, incentive,
+                                 device=device)
+        # ArchAsyncTask defines accuracy(): the history carries a measured
+        # next-token accuracy curve
+        return AsyncEngineRunner(spec, engine, has_acc=True)
+
+
+class ArchSyncEngine:
+    """The sync round loop of the arch family: MMFLCoordinator allocation
+    -> per-arch cohort dispatch through the ExecutionBackend API ->
+    loss/accuracy report, on the cost-model clock, with the incentive
+    mechanism re-recruiting each round.
+
+    tau>1 tasks run TRUE FedAvg: each cohort row's tau local SGD steps run
+    through ``backend.run_cohort`` and fold through the aggregator
+    (``fedavg``: ``backend.aggregate``, the fedavg kernel under ``vmap``
+    on a card). tau<=1 tasks are the fused weighted-gradient AdamW server
+    step, dispatched as a single-unit cohort so every engine shares one
+    execution seam. Checkpointing and populations are refused up front
+    (``_require_ported``; items 8 and 7).
+    """
+
+    def __init__(self, spec: ScenarioSpec, tasks, data, eligibility=None, incentive=None,
+                 device=None):
+        self.spec = spec
+        self.tasks = tasks
+        self.data = data
+        self.names = [t.name for t in spec.tasks]
+        self.backend = get_backend(spec.runtime.backend, device)
+        # server aggregation rule of the tau>1 tasks; tau<=1 tasks step
+        # their own AdamW inside the cohort
+        self.aggregator = aggregator_from_config(spec.runtime.aggregator,
+                                                 spec.runtime.aggregator_options,
+                                                 backend=self.backend)
+        self._server_state = {
+            a: (self.aggregator.init(tasks[a]["params"]) if tasks[a]["tau"] > 1 else None)
+            for a in self.names}
+        self._eval_acc = {a: make_arch_eval(tasks[a], data[a])[1] for a in self.names}
+        # each round's simulated duration is the max over the cohort's
+        # sampled latencies (the lockstep barrier)
+        self.cost_model = get_cost_model(spec.runtime.cost_model or "constant",
+                                          spec.runtime.cost_model_options)
+        self.coord = MMFLCoordinator(
+            task_names=self.names,
+            n_clients=spec.clients.n_clients,
+            alpha=spec.allocation.alpha,
+            strategy=ALLOCATORS.get(spec.allocation.strategy),
+            participation=spec.clients.participation,
+            seed=spec.seed,
+            eligibility=eligibility,
+            policy=policy_from_spec(spec.policy, spec.allocation.strategy))
+        self.incentive = incentive
+
+    def _run_task_round(self, name: str, ids, rng, want_norm: bool = False):
+        """One task's round: cohort execution + aggregation through the
+        backend. Returns (reported loss, mean cohort update norm or None,
+        computed only when the allocation policy opts in)."""
+        t = self.tasks[name]
+        w = self.coord.client_weights(ids)
+        batch = assemble_batch(t, self.data[name], ids, w, rng)
+        if t["tau"] <= 1:
+            # the fused server step as a SINGLE-unit cohort (state = params
+            # and opt; the p_k weighting lives in the batch's client_weights)
+            job = ClientBatch(ids[:1], None, (tree_map(lambda v: v[None], batch),))
+            state = CohortTask(name, (t["params"], t["opt"]), t["opt_local_fn"])
+            res = self.backend.run_cohort(state, job)
+            norm = None
+            if want_norm:
+                # displacement of the params (not the opt state) by the step
+                norm = float(stacked_delta_norms(res.updates[0], t["params"])[0])
+            t["params"], t["opt"] = tree_map(lambda leaf: leaf[0], res.updates)
+            return float(res.losses[0]), norm
+        # TRUE FedAvg: one cohort row per batch row (clients tiled to the
+        # task batch size, as assemble_batch lays them out); the rows'
+        # losses are unweighted
+        w_rows = batch["client_weights"]
+        rows = {k: v[:, None] for k, v in batch.items() if k != "client_weights"}
+        reps = int(np.ceil(len(w_rows) / max(len(ids), 1)))
+        row_ids = np.tile(np.asarray(ids), reps)[: len(w_rows)]
+        res = self.backend.run_cohort(CohortTask(name, t["params"], t["local_fn"]),
+                                      ClientBatch(row_ids, None, (rows,)))
+        norm = None
+        if want_norm:
+            norm = float(stacked_delta_norms(res.updates, t["params"]).mean())
+        # the pluggable server fold ("fedavg": the backend's weighted mean
+        # of the absolute cohort params, the reference's trace)
+        t["params"], self._server_state[name] = self.aggregator.aggregate_params(
+            t["params"], res.updates, w_rows, self._server_state[name],
+            normalizer=torch.clamp(w_rows.sum(), min=1e-9))
+        return float(res.losses.mean()), norm
+
+    def run(self, verbose: bool = False) -> RunResult:
+        spec, rt = self.spec, self.spec.runtime
+        rng = np.random.default_rng(spec.seed)
+        loss_hist, count_hist, alloc_hist, acc_hist, clock_hist = [], [], [], [], []
+        # the cost model samples from its OWN stream (seed + 3), sized by
+        # the per-task parameter counts
+        self.cost_model.reset(
+            spec.clients.n_clients, len(self.names), np.random.default_rng(spec.seed + 3),
+            task_sizes=[float(sum(leaf.numel() for leaf in tree_leaves(self.tasks[a]["params"])))
+                        for a in self.names])
+        want_norms = self.coord.wants_update_norms
+        clock = 0.0
+        for r in range(rt.rounds):
+            if self.incentive is not None:
+                upd = self.incentive.recruit(RoundContext(
+                    round=r, task_names=self.names, losses=self.coord.losses,
+                    alpha=spec.allocation.alpha, n_clients=spec.clients.n_clients,
+                    eligibility=self.coord.eligibility))
+                if upd is not None:
+                    self.coord.eligibility = np.asarray(upd.eligibility, bool)
+            alloc = self.coord.next_round()
+            t0 = time.time()
+            line = []
+            row = np.full(spec.clients.n_clients, -1, np.int64)
+            norms = np.full(len(self.names), np.nan) if want_norms else None
+            round_time = 0.0
+            for s, a in enumerate(self.names):
+                ids = alloc[a]
+                if len(ids) == 0:
+                    line.append(f"{a}: -")
+                    continue
+                row[ids] = s
+                for i in ids:
+                    round_time = max(round_time, self.cost_model.sample_latency(
+                        int(i), s, 1.0, time=clock).total)
+                loss, norm = self._run_task_round(a, ids, rng, want_norms)
+                if want_norms and norm is not None:
+                    norms[s] = norm
+                self.coord.report(a, loss)
+                line.append(f"{a}: {loss:.3f} ({len(ids)}c)")
+            self.coord.observe([len(alloc[a]) for a in self.names], norms)
+            loss_hist.append([self.coord.tasks[a].loss for a in self.names])
+            count_hist.append([len(alloc[a]) for a in self.names])
+            alloc_hist.append(row)
+            acc_hist.append([self._eval_acc[a](self.tasks[a]["params"]) for a in self.names])
+            clock += round_time
+            clock_hist.append(clock)
+            if verbose:
+                print(f"round {r + 1:3d} [{time.time() - t0:5.1f}s] " + " | ".join(line))
+        counts = np.array(count_hist, np.int64).reshape(-1, len(self.names))
+        return RunResult(
+            scenario=spec.name,
+            mode="sync",
+            task_names=self.names,
+            loss=np.array(loss_hist),
+            acc=np.array(acc_hist).reshape(-1, len(self.names)),
+            arrivals=counts.sum(axis=0),
+            alloc_counts=counts,
+            alloc=np.array(alloc_hist),
+            wall_clock_sim=np.asarray(clock_hist, np.float64),
+            spec=spec,
+            params=[self.tasks[a]["params"] for a in self.names],
+        )
+
+
 def _require_ported(spec: ScenarioSpec) -> None:
     """Refuse every spec feature the port has not ported."""
     rt = spec.runtime
-    if spec.family == "arch":
-        raise _unported("the 'arch' task family", "items 10-12: models and arch runtime")
     if spec.clients.population is not None:
         raise _unported("a client population", "item 7: population")
     if rt.checkpoint_dir is not None:

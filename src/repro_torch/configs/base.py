@@ -133,7 +133,21 @@ def register(name: str):
     return deco
 
 
+# archs of the JAX package that come with the families the port has not
+# ported yet, with the ROADMAP queue 1 item that brings each
+UNPORTED_ARCHS = {
+    "qwen2-moe-a2.7b": "item 11 (MoE)",
+    "deepseek-v2-lite-16b": "item 11 (MoE and MLA)",
+    "phi-3-vision-4.2b": "item 10 (vlm)",
+    "xlstm-1.3b": "item 11 (ssm)",
+    "whisper-medium": "item 11 (audio)",
+}
+
+
 def get_config(name: str) -> ModelConfig:
+    if name in UNPORTED_ARCHS:
+        raise NotImplementedError(f"arch {name!r} is not ported to repro_torch yet "
+                                  f"(ROADMAP.md queue 1, {UNPORTED_ARCHS[name]})")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()

@@ -150,9 +150,12 @@ def client_speeds(profile: str, n: int, rng: np.random.Generator,
 class AsyncTask:
     """Adapter protocol the engine drives: the cohort update rule as
     ``local_fn`` plus the stacked per-client inputs via ``client_batch``,
-    run through the ExecutionBackend. (The reference's pre-backend
-    adapters, which override ``update()`` instead, and its per-task
-    ``accuracy()`` hook of the arch family are not ported.)"""
+    run through the ExecutionBackend. An adapter may also define
+    ``accuracy(params) -> float`` (the arch family's next-token probe);
+    when every task does, the history carries that measured accuracy
+    (``AsyncHistory.acc_eval``) instead of ``1 - metric``. (The
+    reference's pre-backend adapters, which override ``update()`` instead,
+    are not ported.)"""
 
     name: str
     n_clients: int
@@ -218,6 +221,9 @@ class AsyncHistory:
     cost_dropouts: int = 0      # jobs the cost model dropped out entirely
     # (F, S) per-task buffer sizes in force AFTER each flush
     buffer_sizes: Optional[np.ndarray] = None
+    # (F, S) measured eval accuracy, when every task defines accuracy()
+    # (the arch family); synthetic tasks keep 1 - f_s
+    acc_eval: Optional[np.ndarray] = None
     acc: np.ndarray = field(init=False)
     min_acc: np.ndarray = field(init=False)
     var_acc: np.ndarray = field(init=False)
@@ -225,7 +231,7 @@ class AsyncHistory:
     wall_clock_sim: np.ndarray = field(init=False)
 
     def __post_init__(self):
-        self.acc = 1.0 - self.metric
+        self.acc = self.acc_eval if self.acc_eval is not None else 1.0 - self.metric
         self.min_acc = self.acc.min(axis=1)
         self.var_acc = self.acc.var(axis=1)
         self.wall_clock_sim = self.time
@@ -296,6 +302,7 @@ class AsyncMMFLEngine:
         self.backend = get_backend(cfg.backend, self.device)
         self.aggregator = aggregator_from_config(cfg.aggregator, cfg.aggregator_options,
                                                  backend=self.backend)
+        self._has_acc = all(hasattr(t, "accuracy") for t in self.tasks)
 
     @classmethod
     def from_fed_tasks(cls, tasks: Sequence[FedTask], cfg: AsyncConfig,
@@ -395,6 +402,9 @@ class AsyncMMFLEngine:
                 eligibility=self.coord.eligibility))
             if upd is not None:
                 self.coord.eligibility = np.asarray(upd.eligibility, bool)
+        if self._has_acc:
+            self._acc[s] = float(task.accuracy(self._params[s]))
+            self._hist_acc.append(self._acc.copy())
         stale_mean = float(np.mean(stale))
         # the controller sees this flush's feedback and emits the sizes in
         # force from the next arrival on
@@ -431,6 +441,9 @@ class AsyncMMFLEngine:
         self._hist_time, self._hist_task = [], []
         self._hist_metric, self._hist_stale = [], []
         self._hist_bufsz: List[np.ndarray] = []
+        self._hist_acc: List[np.ndarray] = []
+        self._acc = (np.array([float(t.accuracy(p)) for t, p in zip(self.tasks, self._params)])
+                     if self._has_acc else None)
         self._arrivals = np.zeros(self.S, np.int64)
         self._per_client = np.zeros(self.K, np.int64)
         self._cost_dropouts = 0
@@ -488,4 +501,5 @@ class AsyncMMFLEngine:
             versions=np.array(self._version, np.int64),
             assignments=self._assignments, dropped=self._dropped,
             cost_dropouts=self._cost_dropouts,
-            buffer_sizes=np.array(self._hist_bufsz, np.int64).reshape(-1, self.S))
+            buffer_sizes=np.array(self._hist_bufsz, np.int64).reshape(-1, self.S),
+            acc_eval=(np.array(self._hist_acc).reshape(-1, self.S) if self._has_acc else None))

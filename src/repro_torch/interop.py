@@ -5,7 +5,9 @@ list of ``{"w", "b"}`` dicts; for the LM a nested dict with the layers
 stacked on axis 0). Tests pass them across as numpy arrays, so both sides
 start from identical models, and bring the port's results back the same
 way to compare them. ``lm_params_from_numpy`` checks an LM tree against
-the port's own before it carries it across.
+the port's own before it carries it across; ``adamw_state_from_numpy``
+carries an AdamW state (``mu``, ``nu``, ``count``), so both optimizers can
+start from one state.
 """
 
 from __future__ import annotations
@@ -65,3 +67,14 @@ def lm_params_from_numpy(tree: Any, cfg, device=None) -> Any:
         return t.to(dev)
 
     return carry(tree, want, "")
+
+
+def adamw_state_from_numpy(state: Any, device=None) -> Any:
+    """A JAX ``optim.adamw`` state (``{"mu", "nu", "count"}`` of numpy
+    arrays) -> the port's on ``device`` (``None`` means CUDA): f32 moments
+    of the same trees, ``count`` an int32 scalar."""
+    dev = resolve_device(device)
+    moments = {k: tree_map(lambda a: _tensor(a).to(torch.float32).to(dev), state[k])
+               for k in ("mu", "nu")}
+    count = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32, device=dev)
+    return {**moments, "count": count}

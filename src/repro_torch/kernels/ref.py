@@ -71,10 +71,27 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def ref_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Plain version of ``rmsnorm``: ``x * rsqrt(mean(x^2) + eps) * w`` per
-    row of the last axis, in f32, cast back to x's dtype."""
-    x32 = x.to(torch.float32)
+    row of the last axis, in f32 (f64 for f64 x), cast back to x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
     var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps) * w.to(acc)).to(x.dtype)
+
+
+def ref_rmsnorm_backward(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                         eps: float = 1e-6):
+    """The analytic gradient of ``ref_rmsnorm`` at (x, w) for the output
+    gradient ``g``, in f32 with ``rstd`` recomputed from x:
+    ``dx = rstd*(g*w) - x*rstd^3*mean(g*w*x)`` per row and
+    ``dw = sum over rows of g*x*rstd`` (f64 for f64 x, as the forward).
+    Returns (dx in x's dtype, dw in w's dtype)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32, g32, w32 = x.to(acc), g.to(acc), w.to(acc)
+    rstd = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    gw = g32 * w32
+    dx = rstd * gw - x32 * rstd.pow(3) * (gw * x32).mean(dim=-1, keepdim=True)
+    dw = (g32 * x32 * rstd).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def ref_gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,

@@ -5,8 +5,15 @@
 ``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in f32, cast back to
 x's dtype. On a CUDA tensor it launches the hand-written kernel of
 ``csrc/rmsnorm.cu`` (or raises); on a CPU tensor it takes the plain
-version, ``ref.ref_rmsnorm``. The kernel has no backward yet, so on CUDA
-a call that autograd would record raises instead.
+version, ``ref.ref_rmsnorm``. The kernel has no backward, so on CUDA a
+call of ``rmsnorm`` that autograd would record raises instead.
+
+``rmsnorm_trainable`` is the form that training differentiates: a
+``torch.autograd.Function`` whose forward is ``rmsnorm`` (the kernel on a
+CUDA tensor, the plain version on a CPU one) and whose backward is the
+analytic gradient in plain PyTorch (``ref.ref_rmsnorm_backward``). The
+JAX package differentiates its plain ``rms_norm`` and has no backward
+kernel either.
 """
 
 from __future__ import annotations
@@ -17,14 +24,14 @@ import functools
 import torch
 
 from repro_torch.kernels.build import LAUNCHES, load
-from repro_torch.kernels.ref import ref_rmsnorm
+from repro_torch.kernels.ref import ref_rmsnorm, ref_rmsnorm_backward
 
 # dtype codes of csrc/rmsnorm.cu::rmsnorm_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-NO_BACKWARD = ("has no backward kernel yet: training through it is the arch-training "
-               "slice (ROADMAP queue 1 item 12); run it under torch.no_grad() or on "
-               "inputs that do not require grad")
+NO_BACKWARD = ("has no backward kernel (arch training, ROADMAP queue 1 item 12, runs on "
+               "the plain versions, and RMSNorm through kernels.rmsnorm.rmsnorm_trainable); "
+               "run it under torch.no_grad() or on inputs that do not require grad")
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,3 +82,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
             f"rmsnorm: kernel launch failed: {lib.rmsnorm_error_string(rc).decode()}")
     LAUNCHES["rmsnorm"] += 1
     return out.view(x.shape)
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """Forward through ``rmsnorm`` (autograd is off inside ``forward``),
+    backward by the analytic gradient, recomputing ``rstd`` from x."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = ref_rmsnorm_backward(g, x, w, ctx.eps)
+        return dx, dw, None
+
+
+def rmsnorm_trainable(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm`` that autograd can differentiate: the same forward (and
+    the same launches), a plain backward."""
+    return _RMSNormFn.apply(x, w, eps)

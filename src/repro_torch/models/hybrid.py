@@ -20,6 +20,7 @@ pre-norm attn+MLP.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
@@ -27,7 +28,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embedding,
                                        init_swiglu, normal, rms_norm, stacked_init, swiglu)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, unstack
 
 
 def n_shared_slots(cfg):
@@ -110,14 +111,20 @@ def _backbone(params, cfg, x, positions, mode, caches=None, pos=None):
     """Runs the groups, the tail and the final norm. Returns (x, caches):
     the prefill caches ``{"mamba": stacked by layer, "shared": stacked by
     slot}``, or ``caches`` written in place by decode, or None in train
-    mode."""
-    layers = params["layers"]
+    mode. With ``cfg.remat`` each Mamba2 layer of a training forward runs
+    under ``torch.utils.checkpoint``, as the JAX package checkpoints its
+    layer scan's body."""
+    layers = unstack(params["layers"])
     mamba_caches, shared_caches = [], []
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
 
     def mamba(i, x):
-        p_l = tree_map(lambda t: t[i], layers)
+        p_l = layers[i]
         c_l = tree_map(lambda t: t[i], caches["mamba"]) if mode == "decode" else None
-        x, c = _mamba_layer(p_l, cfg, x, mode, c_l)
+        if remat:
+            x, c = checkpoint(_mamba_layer, p_l, cfg, x, mode, use_reentrant=False)
+        else:
+            x, c = _mamba_layer(p_l, cfg, x, mode, c_l)
         mamba_caches.append(c)
         return x
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_trainable
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -34,7 +34,11 @@ def normal(key, shape, std, dtype):
 
 def rms_norm(x, scale, eps=1e-6):
     """Row-wise RMSNorm over the last axis: the ``rmsnorm`` kernel on a CUDA
-    tensor, its plain version on a CPU one."""
+    tensor, its plain version on a CPU one. Where autograd records the
+    call (training), through ``rmsnorm_trainable``: the same forward and a
+    plain analytic backward."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return rmsnorm_trainable(x, scale, eps)
     return rmsnorm(x, scale, eps)
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.kernels.gated_rmsnorm import gated_rmsnorm
@@ -42,12 +43,16 @@ def segsum(a):
     return s.masked_fill(~mask, -torch.inf)
 
 
-def ssd_chunked(x, a, b, c, chunk, h0=None):
+def ssd_chunked(x, a, b, c, chunk, h0=None, checkpoint_chunks=True):
     """x:(B,L,G,Hg,P) values; a:(B,L,G,Hg) log-decay (<=0); b,c:(B,L,G,N).
 
     Returns y:(B,L,G,Hg,P) and final state (B,G,Hg,N,P) f32. Decays in f32
     (exp of cumsums), products in f32 with the decay matrices rounded to
-    x's dtype first, as the JAX package computes them.
+    x's dtype first, as the JAX package computes them. Where autograd
+    records the call and ``checkpoint_chunks`` is set, each chunk runs
+    under ``torch.utils.checkpoint`` (the JAX package's
+    ``jax.checkpoint(step)``): the backward recomputes a chunk's
+    intermediates instead of keeping them. It changes memory, not values.
     """
     B, L, G, Hg, P = x.shape
     N = b.shape[-1]
@@ -58,10 +63,9 @@ def ssd_chunked(x, a, b, c, chunk, h0=None):
         x, a, b, c = (F.pad(t, [0, 0] * (t.ndim - 2) + [0, Lp - L]) for t in (x, a, b, c))
     dt = x.dtype
     h = torch.zeros(B, G, Hg, N, P, dtype=F32, device=x.device) if h0 is None else h0.to(F32)
-    ys = []
-    for z0 in range(0, Lp, chunk):
-        xz, bz, cz = (t[:, z0:z0 + chunk].to(F32) for t in (x, b, c))
-        az = a[:, z0:z0 + chunk].to(F32)                       # (B,c,G,Hg)
+
+    def step(h, xz, az, bz, cz):
+        xz, bz, cz, az = (t.to(F32) for t in (xz, bz, cz, az))   # az: (B,c,G,Hg)
         acs = torch.cumsum(az, dim=1)
         Lm = torch.exp(segsum(az.permute(0, 2, 3, 1))).to(dt).to(F32)   # (B,G,Hg,c,c)
         scores = torch.einsum("bign,bjgn->bgij", cz, bz)[:, :, None] * Lm
@@ -71,9 +75,24 @@ def ssd_chunked(x, a, b, c, chunk, h0=None):
         y_off = torch.einsum("bign,bigh,bghnp->bighp", cz, torch.exp(acs).to(dt).to(F32),
                              h.to(dt).to(F32))
         h = h * torch.exp(acs[:, -1])[..., None, None] + new_contrib
-        ys.append((y_diag + y_off).to(dt))
+        return h, (y_diag + y_off).to(dt)
+
+    if checkpoint_chunks and _records_grad(x, a, b, c, h):
+        def run(*args):
+            return checkpoint(step, *args, use_reentrant=False)
+    else:
+        run = step
+    ys = []
+    for z0 in range(0, Lp, chunk):
+        h, y = run(h, *(t[:, z0:z0 + chunk] for t in (x, a, b, c)))
+        ys.append(y)
     y = torch.cat(ys, dim=1)[:, :L]
     return y, h
+
+
+def _records_grad(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def ssd_step(h, x1, a1, b1, c1):
@@ -98,8 +117,8 @@ def a_log_init(nheads: int) -> np.ndarray:
     it. XLA folds ``jnp.linspace``'s f32 formula into ``(1 - i*c) + i*(16c)``
     with ``c = f32(1 / (n - 1))`` and fuses the last multiply-add; both are
     reproduced exactly here (the f64 product of two f32 values is exact).
-    The log is correctly rounded, which XLA's f32 log is not always: the two
-    differ by at most one ulp (3 of zamba2-7b's 112 heads)."""
+    The log is XLA:CPU's f32 log (``prng._log_f32``), which is not always
+    correctly rounded, so the result is bit-equal to the JAX package's."""
     f32 = np.float32
     if nheads <= 1:
         lin = np.ones(nheads, f32)
@@ -111,7 +130,7 @@ def a_log_init(nheads: int) -> np.ndarray:
         head = (i.astype(np.float64) * np.float64(c16)
                 + one_minus.astype(np.float64)).astype(f32)
         lin = np.append(head, f32(16))
-    return np.log(lin.astype(np.float64)).astype(f32)
+    return prng._log_f32(torch.from_numpy(lin)).numpy()
 
 
 def init_mamba2(key, cfg):
@@ -195,7 +214,7 @@ def mamba2_forward(p, cfg, u, h0=None, return_state=False):
         y, h_fin = y.transpose(1, 2), h_fin[:, None]
     else:
         y, h_fin = ssd_chunked(xdt, a[:, :, None], Bk[:, :, None], Cq[:, :, None],
-                               cfg.ssm_chunk, h0)
+                               cfg.ssm_chunk, h0, checkpoint_chunks=cfg.ssm_checkpoint_chunks)
     y = y.reshape(B, L, d_inner) + xBC[..., :d_inner] * torch.repeat_interleave(p["D"], P)
     if cfg.use_pallas:
         y = gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)

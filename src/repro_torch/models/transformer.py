@@ -12,13 +12,14 @@ refused by name.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embedding,
                                        init_swiglu, normal, rms_norm, stacked_init, swiglu)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, unstack
 
 PORTED_ARCHS = ("dense", "hybrid")
 # arch types of the JAX package that the port does not run yet, with the
@@ -92,15 +93,20 @@ def _block_apply(p, cfg, x, positions, mode, cache=None, pos=None):
 def lm_backbone(params, cfg, x, positions, mode, caches=None, pos=None):
     """Runs the layer stack and the final norm. Returns (x, caches): the
     prefill caches stacked on axis 0, or ``caches`` written in place by
-    decode, or {} in train mode."""
+    decode, or {} in train mode. With ``cfg.remat`` each layer of a
+    training forward runs under ``torch.utils.checkpoint``, as the JAX
+    package ``jax.checkpoint``s its scan body: less memory, same values."""
     check_ported(cfg)
     layers = params["dense_layers"]
     stacked = caches["dense"] if mode == "decode" else None
     new = []
-    for i in range(layers["ln1"].shape[0]):
-        p_l = tree_map(lambda t: t[i], layers)
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    for i, p_l in enumerate(unstack(layers)):
         c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
-        x, c = _block_apply(p_l, cfg, x, positions, mode, cache=c_l, pos=pos)
+        if remat:
+            x, c = checkpoint(_block_apply, p_l, cfg, x, positions, mode, use_reentrant=False)
+        else:
+            x, c = _block_apply(p_l, cfg, x, positions, mode, cache=c_l, pos=pos)
         new.append(c)
     if mode == "prefill":
         caches = {"dense": {name: torch.stack([c[name] for c in new]) for name in new[0]}}

@@ -2,7 +2,8 @@
 
 The JAX package carries model params as pytrees (a list of ``{"w", "b"}``
 dicts per MLP) and maps over them with ``jax.tree``; these helpers do the
-same for the port's tensors. Dict leaves are visited in insertion order.
+same for the port's tensors. Dict leaves are visited in insertion order
+(``tree_leaves_sorted``: in JAX's sorted-key order).
 """
 
 from __future__ import annotations
@@ -29,7 +30,28 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def tree_leaves_sorted(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in ``jax.tree.leaves`` order: dict keys
+    sorted at every level. A sum over leaves in this order rounds as the
+    JAX package's does."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves_sorted(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves_sorted(v)]
+    return [tree]
+
+
 def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
     """Rebuild ``template``'s structure from ``leaves`` (traversal order)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), template)
+
+
+def unstack(tree: Any) -> List[Any]:
+    """The per-layer trees of a tree whose leaves are stacked on axis 0, as
+    views (``unbind``). Under autograd the backward stacks the per-layer
+    gradients once per leaf, where indexing each layer (``t[i]``) would
+    make and add a zero gradient of the whole stack per layer; the values
+    are the same."""
+    cols = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [c[i] for c in cols]) for i in range(len(cols[0]))]

@@ -2,7 +2,7 @@
 JAX package's, on the smoke config.
 
 The same seed gives the same model on both sides (``init_hybrid`` draws
-from ``repro_torch.prng``; ``A_log`` within one ulp of XLA's f32 log); a
+from ``repro_torch.prng``; ``A_log`` bit-equal through XLA's f32 log); a
 JAX param tree carried across with ``interop.lm_params_from_numpy`` gives
 the same loss (atol 1e-5), prefill and decode logits (atol 1e-4) and
 greedy tokens. With ``use_pallas`` the loss goes through the flash
@@ -93,10 +93,9 @@ def test_init_hybrid_matches_jax():
     for name, w in want.items():
         assert got[name].dtype == torch.float32 and tuple(got[name].shape) == w.shape, name
         np.testing.assert_allclose(got[name].numpy(), w, atol=1e-6, rtol=0, err_msg=name)
-    # A_log = log(linspace(1, 16, H)): correctly rounded here, XLA's f32 log
-    # is not always; within one ulp
+    # A_log = log(linspace(1, 16, H)) through XLA:CPU's f32 log: bit-equal
     np.testing.assert_array_max_ulp(got["/layers/mamba/A_log"].numpy(),
-                                    want["/layers/mamba/A_log"], maxulp=1)
+                                    want["/layers/mamba/A_log"], maxulp=0)
 
 
 @pytest.mark.parametrize("nheads", [1, 2, 16, 64, 112])
@@ -104,7 +103,7 @@ def test_a_log_within_one_ulp_of_jax(nheads):
     want = np.asarray(jnp.log(jnp.linspace(1.0, 16.0, nheads)))
     got = ssm.a_log_init(nheads)
     assert got.dtype == np.float32 and got.shape == (nheads,)
-    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    np.testing.assert_array_max_ulp(got, want, maxulp=0)
 
 
 def test_lm_params_from_numpy_refuses_a_hybrid_mismatch():

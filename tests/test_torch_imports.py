@@ -54,6 +54,15 @@ def test_incentive_slice_modules_are_checked(rel):
     assert ROOT / "src" / "repro_torch" / rel in FILES
 
 
+TRAIN_SLICE = ["optim/__init__.py", "optim/optim.py", "launch/train.py", "api/engine.py",
+               "fed/async_engine.py", "interop.py", "tree.py"]
+
+
+@pytest.mark.parametrize("rel", TRAIN_SLICE)
+def test_train_slice_modules_are_checked(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
 def test_importing_every_port_module_loads_no_jax():
     """Import every module of the port in a fresh interpreter, then look at
     what was loaded: neither jax nor the JAX package."""
