@@ -134,7 +134,29 @@ printed only when every phase passed:
    plain version at every flush shape. The fold kernels are timed at the
    LM shapes of phases 18-19. Card against CPU: the tiny three-task spec
    with 9 arrivals, buffer 3, fedavg, round_robin: identical event traces.
-20. A JSON line describing every kernel, the card line, and the final
+20. Client populations: ``examples/specs/big_population.json`` as written
+   (100,000 clients, lazy shards, serial backend, 2 rounds), the same spec
+   on the vmap backend (fedavg once per fold, at the cohort's K, each fold
+   held against ``ref_fedavg``), and an async run at 100,000 lazy clients
+   (bimodal speeds, poisson arrivals, fedadam, buffer 4, 200 arrivals;
+   fused_aggregate once per flush). Wall time, rounds/s or flushes/s,
+   min-accuracy, launches, peak device memory and peak host RSS; each run
+   on the CPU too, with identical allocation or event traces and accuracy
+   within 0.01.
+21. Checkpoint and resume: (a) the sync quickstart (fedfair, vmap,
+   checkpoint every 5 rounds), (b) the async fedadam slice of phase 6
+   (checkpoint every 10 flushes), (c) phase 18's LM training (a step after
+   round 1, ``checkpoint_keep`` 1, in a temporary directory the phase
+   deletes). Each runs uninterrupted with checkpoints, then stopped at a
+   mid-run step (by ``rounds`` or ``total_arrivals``) and resumed: the
+   same allocation or event trace, params within 1e-6 (LM losses within
+   1e-5), the same history records; the first flush after the async
+   resume launches fused_aggregate; the restored trees on the card.
+   Seconds per save, bytes per step, restore time. (d) Across devices:
+   steps written on the card resume on the CPU and steps written on the
+   CPU resume on the card (quickstart and async fedadam, round_robin),
+   with identical traces.
+22. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Needs CUDA, nvcc (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``)
@@ -246,6 +268,16 @@ ARCH_ASYNC = dict(tau=2, arrivals=16, buffer=4, beta=0.5, aggregator="fedadam",
 # zamba2-7b at full width: 7 of its 81 layers (f32 params, grads and two
 # AdamW moments of all 81 need 108.6 GB), B=1 S=512
 ARCH_ZAMBA = (7, 1, 512)
+# client populations (phase 20): the repo's 100,000-client spec, and an
+# async run of the same population
+BIG_POP = ROOT / "examples" / "specs" / "big_population.json"
+POP_ASYNC = dict(arrivals=200, buffer=4, speed_profile="bimodal", arrival_process="poisson",
+                 aggregator="fedadam", options={"lr": 0.1})
+# checkpoint and resume (phase 21): the cadence of each run and the step
+# it is stopped after
+RESUME_SYNC = dict(every=5, stop_round=10)
+RESUME_ASYNC = dict(every=10, stop_arrivals=100)
+RESUME_PARAMS_TOL, RESUME_LOSS_TOL = 1e-6, 1e-5
 # card against CPU: the tiny presets of three archs
 ARCH_TINY = dict(archs=("smollm-135m", "qwen1.5-0.5b", "zamba2-7b"),
                  options=dict(preset="tiny", seq=32, batch=4, tau=2), clients=6, rounds=2,
@@ -1963,6 +1995,362 @@ def phase_arch_async(line: str):
     return {**rec, "card_vs_cpu_loss_gap": gap}, checked, timed
 
 
+class HostPeak:
+    """Peak resident set of this process over a block, sampled from
+    /proc/<pid>/status every 5 ms by a child process (the kernel's own
+    high-water mark cannot be reset here, and a thread would contend
+    with the run for the interpreter). ``bytes`` is None where /proc is
+    missing."""
+
+    SAMPLER = ("import signal, sys, time\n"
+               "peak = 0\n"
+               "def stop(*_):\n"
+               "    print(peak, flush=True)\n"
+               "    sys.exit(0)\n"
+               "signal.signal(signal.SIGTERM, stop)\n"
+               "print('ready', flush=True)\n"
+               "while True:\n"
+               "    try:\n"
+               "        for ln in open(f'/proc/{sys.argv[1]}/status'):\n"
+               "            if ln.startswith('VmRSS:'):\n"
+               "                peak = max(peak, int(ln.split()[1]) * 1024)\n"
+               "    except OSError:\n"
+               "        stop()\n"
+               "    time.sleep(0.005)\n")
+
+    def __enter__(self):
+        import os
+
+        self.bytes = None
+        self._proc = subprocess.Popen([sys.executable, "-c", self.SAMPLER, str(os.getpid())],
+                                      stdout=subprocess.PIPE, text=True)
+        self._proc.stdout.readline()          # sampling has started
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        out = self._proc.communicate(timeout=30)[0].split()
+        self.bytes = int(out[-1]) if out and int(out[-1]) > 0 else None
+
+
+def big_population_spec(backend: str = "serial", mode: str = "sync"):
+    """``examples/specs/big_population.json`` as written; ``mode="async"``
+    runs the same population through the async engine (POP_ASYNC)."""
+    from repro_torch.api import ScenarioSpec
+
+    spec = ScenarioSpec.load(str(BIG_POP))
+    spec.runtime.backend = backend
+    if mode == "async":
+        spec.name = "big-population-async"
+        spec.runtime.mode = "async"
+        spec.runtime.total_arrivals = POP_ASYNC["arrivals"]
+        spec.runtime.buffer_size = POP_ASYNC["buffer"]
+        spec.runtime.aggregator = POP_ASYNC["aggregator"]
+        spec.runtime.aggregator_options = dict(POP_ASYNC["options"])
+        spec.clients.speed_profile = POP_ASYNC["speed_profile"]
+        spec.clients.arrival_process = POP_ASYNC["arrival_process"]
+    return spec
+
+
+def phase_population(line: str):
+    """Phase 20: 100,000-client populations through run_scenario."""
+    import numpy as np
+    import torch
+
+    print("== phase 20: client populations on the card (100,000 clients, lazy shards)")
+    print(f"card: {line}")
+    runs, out = {}, {}
+    with FoldShapes() as shapes:
+        for label, spec, kernel in (
+                ("sync serial", big_population_spec("serial"), None),
+                ("sync vmap", big_population_spec("vmap"), "fedavg"),
+                ("async vmap fedadam", big_population_spec("vmap", "async"), "fused_aggregate")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with HostPeak() as host:
+                res, launches = run_counted(spec, "cuda")
+            peak, rss = torch.cuda.max_memory_allocated(), host.bytes
+            n = len(res.time) if res.mode == "async" else spec.runtime.rounds
+            folds = n if res.mode == "async" else int((res.alloc_counts > 0).sum())
+            want = {} if kernel is None else {kernel: folds}
+            if launches != want:
+                fail(f"phase 20 {label}: launches {launches}, expected {want}")
+            if (res.acc.shape != (n, len(spec.tasks)) or not np.isfinite(res.acc).all()
+                    or spec.clients.n_clients != 100_000):
+                fail(f"phase 20 {label}: accuracy {res.acc.shape} not finite")
+            if _devices(res.params) != {"cuda"}:
+                fail(f"phase 20 {label}: params on {_devices(res.params)}")
+            rate = n / res.wall_time
+            unit = "flushes/s" if res.mode == "async" else "rounds/s"
+            rec = {"wall_s": res.wall_time, unit.replace("/", "_per_"): rate,
+                   "min_acc": res.fairness["min_acc"], "launches": launches,
+                   "cohort_per_round": (res.alloc_counts.sum(axis=1).tolist()
+                                        if res.mode == "sync" else None),
+                   "peak_device_bytes": peak, "peak_host_rss_bytes": rss}
+            print(f"{label}: {rate:.3f} {unit} ({n} of them, {res.wall_time:.3f} s), min-acc "
+                  f"{rec['min_acc']:.4f}, launches {launches or 'none (serial fold)'}, peak "
+                  f"device {peak / 2**20:.1f} MiB, peak host RSS "
+                  + (f"{rss / 2**30:.3f} GiB" if rss else "not measured"))
+            runs[label], out[label] = res, rec
+    checked = check_run_shapes("phase 20", shapes)
+    for label, spec in (("sync serial", big_population_spec("serial")),
+                        ("sync vmap", big_population_spec("vmap")),
+                        ("async vmap fedadam", big_population_spec("vmap", "async"))):
+        gpu = runs[label]
+        cpu, _ = run_counted(spec, "cpu")
+        same = (_same_events(gpu, cpu) if gpu.mode == "async"
+                else np.array_equal(gpu.alloc, cpu.alloc))
+        diff = float(np.abs(gpu.acc - cpu.acc).max())
+        print(f"{label} card vs CPU: {'event' if gpu.mode == 'async' else 'allocation'} traces "
+              f"identical={same}, max |acc card - acc cpu| {diff:.6f}, CPU "
+              f"{cpu.wall_time:.3f} s")
+        if not same or not diff <= 0.01:
+            fail(f"phase 20 {label}: card vs CPU disagree")
+        out[label]["card_vs_cpu_acc_gap"] = diff
+    return out, checked
+
+
+class CheckpointTimes:
+    """Times every ``CheckpointManager.save`` (seconds and the bytes of the
+    step it wrote) and every resume (``begin``, which reads the step to
+    host tensors, plus the moves of the restored trees onto the engine's
+    device). A pass-through that only measures."""
+
+    def __enter__(self):
+        import repro_torch.api.engine as engine
+        import repro_torch.checkpoint as ck
+        import repro_torch.fed.async_engine as async_engine
+
+        self.saves, self.restores = [], []
+        self._saved = (ck.CheckpointManager.save, ck.CheckpointManager.begin,
+                       ck.to_device, engine.to_device, async_engine.to_device)
+        save, begin, to_device = self._saved[:3]
+        times = self
+
+        def timed_save(mgr, step, tasks, *args, **kw):
+            import torch
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(mgr, step, tasks, *args, **kw)
+            sd = Path(mgr._step_dir(step))
+            times.saves.append((time.perf_counter() - t0,
+                                sum(f.stat().st_size for f in sd.rglob("*") if f.is_file())))
+
+        def timed_begin(mgr, *args, **kw):
+            t0 = time.perf_counter()
+            hit = begin(mgr, *args, **kw)
+            if hit is not None:
+                times.restores.append(time.perf_counter() - t0)
+            return hit
+
+        def timed_to_device(tree, device):
+            import torch
+
+            t0 = time.perf_counter()
+            out = to_device(tree, device)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            if times.restores:
+                times.restores[-1] += time.perf_counter() - t0
+            return out
+
+        ck.CheckpointManager.save, ck.CheckpointManager.begin = timed_save, timed_begin
+        ck.to_device = engine.to_device = async_engine.to_device = timed_to_device
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.api.engine as engine
+        import repro_torch.checkpoint as ck
+        import repro_torch.fed.async_engine as async_engine
+
+        (ck.CheckpointManager.save, ck.CheckpointManager.begin, ck.to_device,
+         engine.to_device, async_engine.to_device) = self._saved
+
+    def summary(self) -> dict:
+        return {"saves": len(self.saves),
+                "s_per_save": statistics.median(s for s, _ in self.saves) if self.saves else None,
+                "bytes_per_step": max(b for _, b in self.saves) if self.saves else None,
+                "restore_s": list(self.restores)}
+
+
+def _history(d: str) -> list:
+    with open(Path(d) / "history.jsonl") as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _same_records(a: list, b: list, tol: float) -> bool:
+    """Two sidecars' records: same kinds, keys and integers, floats within
+    ``tol``."""
+    def close(x, y):
+        if isinstance(x, dict):
+            return isinstance(y, dict) and x.keys() == y.keys() and all(
+                close(x[k], y[k]) for k in x)
+        if isinstance(x, list):
+            return isinstance(y, list) and len(x) == len(y) and all(map(close, x, y))
+        if isinstance(x, float) or isinstance(y, float):
+            return abs(x - y) <= tol
+        return x == y
+
+    return len(a) == len(b) and all(map(close, a, b))
+
+
+def _params_gap(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for pa, pb in zip(a, b) for x, y in zip(tree_leaves(pa), tree_leaves(pb)))
+
+
+def _with_ckpt(spec, d, every, resume=False, keep=3, **runtime):
+    spec = spec.from_json(spec.to_json())
+    spec.runtime.checkpoint_dir, spec.runtime.checkpoint_every = d, every
+    spec.runtime.checkpoint_keep, spec.runtime.resume = keep, resume
+    for k, v in runtime.items():
+        setattr(spec.runtime, k, v)
+    return spec
+
+
+def _resume_case(label: str, spec, tmp: str, every: int, stop: dict, device: str = "cuda",
+                 resume_device: str = "cuda", keep: int = 3, records_tol: float = 1e-6):
+    """Uninterrupted with checkpoints, then stopped after a mid-run step
+    (``stop``: runtime fields) and resumed on ``resume_device``. Returns
+    (uninterrupted, resumed, step, launches of the resumed run, times,
+    traces identical, sidecar records identical)."""
+    import numpy as np
+
+    full_dir, part_dir = str(Path(tmp) / f"{label}-full"), str(Path(tmp) / f"{label}-part")
+    full, _ = run_counted(_with_ckpt(spec, full_dir, every, keep=keep), device)
+    with CheckpointTimes() as times:
+        run_counted(_with_ckpt(spec, part_dir, every, keep=keep, **stop), device)
+        step = int((Path(part_dir) / "LATEST").read_text())
+        resumed, launches = run_counted(_with_ckpt(spec, part_dir, every, resume=True, keep=keep),
+                                        resume_device)
+    ok = _same_events(full, resumed) if full.mode == "async" else (
+        np.array_equal(full.alloc, resumed.alloc) and np.array_equal(full.alloc_counts,
+                                                                    resumed.alloc_counts))
+    same_records = _same_records(_history(full_dir), _history(part_dir), records_tol)
+    return full, resumed, step, launches, times.summary(), ok, same_records
+
+
+def phase_resume(line: str):
+    """Phase 21: mid-run checkpoints and resume on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import TASK_FAMILIES
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    print("== phase 21: checkpoint and resume on the card")
+    print(f"card: {line}")
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # (a) the sync quickstart
+        full, res, step, launches, times, ok, recs = _resume_case(
+            "sync", quickstart_spec("fedfair"), tmp, RESUME_SYNC["every"],
+            {"rounds": RESUME_SYNC["stop_round"]})
+        gap = _params_gap(full.params, res.params)
+        folds = int((res.alloc_counts[step:] > 0).sum())
+        print(f"(a) sync quickstart: stopped after round {step}, resumed to {ROUNDS}: allocation "
+              f"trace identical={ok}, max |params| gap {gap:.3g}, history records identical="
+              f"{recs}; fedavg launches after the resume {launches.get('fedavg', 0)} = folds "
+              f"{folds}; {times['s_per_save']:.4f} s per save, {times['bytes_per_step']} bytes "
+              f"per step, restore {times['restore_s'][0]:.4f} s")
+        if (not ok or not recs or not gap <= RESUME_PARAMS_TOL or step != RESUME_SYNC["stop_round"]
+                or launches != {"fedavg": folds} or _devices(res.params) != {"cuda"}):
+            fail("phase 21 (a): the resumed sync run differs from the uninterrupted one")
+        out["sync"] = {"step": step, "params_gap": gap, "launches_after_resume": launches,
+                       **times}
+
+        # (b) the async fedadam slice; the first flush after the resume
+        # runs fused_aggregate on restored moments
+        full, res, step, launches, times, ok, recs = _resume_case(
+            "async", async_spec("fedadam"), tmp, RESUME_ASYNC["every"],
+            {"total_arrivals": RESUME_ASYNC["stop_arrivals"]})
+        gap = _params_gap(full.params, res.params)
+        after = len(res.time) - step
+        print(f"(b) async fedadam: stopped after flush {step}, resumed to {ARRIVALS} arrivals: "
+              f"event trace identical={ok}, max |params| gap {gap:.3g}, history records "
+              f"identical={recs}; fused_aggregate launches after the resume "
+              f"{launches.get('fused_aggregate', 0)} = flushes {after}; "
+              f"{times['s_per_save']:.4f} s per save, {times['bytes_per_step']} bytes per step, "
+              f"restore {times['restore_s'][0]:.4f} s")
+        if (not ok or not recs or not gap <= RESUME_PARAMS_TOL or after <= 0
+                or launches != {"fused_aggregate": after}):
+            fail("phase 21 (b): the resumed async run differs from the uninterrupted one")
+        runner = TASK_FAMILIES.get("synthetic")().async_engine(_with_ckpt(async_spec("fedadam"),
+                                                   str(Path(tmp) / "async-part"),
+                                                   RESUME_ASYNC["every"], resume=True),
+                                        device="cuda")
+        runner.engine.cfg.total_arrivals = 0      # restore only
+        runner.engine.run()
+        on = _devices(runner.engine._server_state) | _devices(runner.engine._params)
+        if on != {"cuda"}:
+            fail(f"phase 21 (b): restored params and moments on {on}")
+        out["async"] = {"step": step, "params_gap": gap, "launches_after_resume": launches,
+                        **times}
+
+        # (c) LM training at full width: a step after round 1, resumed to
+        # round 3; keep 1 (one step of qwen3's params and moments is GBs)
+        torch.cuda.empty_cache()
+        arch = arch_spec("arch-resume", ARCH_SYNC["tasks"], ARCH_SYNC["clients"])
+        lm_dir = str(Path(tmp) / "lm")
+        full, _ = run_counted(arch, "cuda")
+        with CheckpointTimes() as times:
+            run_counted(_with_ckpt(arch, lm_dir, 1, keep=1, rounds=1), "cuda")
+            engine = TASK_FAMILIES.get("arch")().sync_engine(
+                _with_ckpt(arch, lm_dir, 1000, resume=True, keep=1), device="cuda")
+            reset_launches()
+            res = engine.run()
+            launches = dict(LAUNCHES)
+        times = times.summary()
+        loss_gap = float(np.nanmax(np.abs(np.asarray(full.loss) - np.asarray(res.loss))))
+        recs = _history(lm_dir)
+        on = set().union(*(_devices(engine.tasks[a]["params"]) | _devices(engine.tasks[a]["opt"])
+                           for a in engine.names),
+                         *(_devices(s) for s in engine._server_state.values() if s is not None))
+        ok = np.array_equal(full.alloc, res.alloc)
+        print(f"(c) LM training {res.task_names} at full width: step after round 1, resumed to "
+              f"round {ARCH_SYNC['rounds']}: allocation trace identical={ok}, max |loss| gap "
+              f"{loss_gap:.3g}, history records {len(recs)} rounds; launches after the resume "
+              f"{launches}; restored trees on {on}; save {times['s_per_save']:.3f} s for "
+              f"{times['bytes_per_step'] / 2**30:.3f} GiB, restore {times['restore_s'][0]:.3f} s")
+        if (not ok or not loss_gap <= RESUME_LOSS_TOL or len(recs) != ARCH_SYNC["rounds"]
+                or on != {"cuda"} or not launches.get("rmsnorm")
+                or launches.get("fedavg", 0) != int((res.alloc_counts[1:, 0] > 0).sum())):
+            fail("phase 21 (c): the resumed LM run differs from the uninterrupted one")
+        out["lm"] = {"loss_gap": loss_gap, "launches_after_resume": launches, **times}
+        del engine, res, full
+        shutil.rmtree(lm_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # (d) across devices: card -> CPU and CPU -> card, round_robin
+        cross = {}
+        for label, spec, every, stop in (
+                ("sync", quickstart_spec("round_robin"), RESUME_SYNC["every"],
+                 {"rounds": RESUME_SYNC["stop_round"]}),
+                ("async", async_spec("fedadam", "round_robin"), RESUME_ASYNC["every"],
+                 {"total_arrivals": RESUME_ASYNC["stop_arrivals"]})):
+            for first, second in (("cuda", "cpu"), ("cpu", "cuda")):
+                full, res, step, _, _, ok, _ = _resume_case(
+                    f"x-{label}-{first}", spec, tmp, every, stop, device=first,
+                    resume_device=second)
+                cross[f"{label} {first}->{second}"] = ok
+                print(f"(d) {label} round_robin: a step written on {first} (after "
+                      f"{'round' if label == 'sync' else 'flush'} {step}) resumed on {second}: "
+                      f"trace identical to the uninterrupted {first} run={ok}")
+                if not ok:
+                    fail(f"phase 21 (d): {label} {first} -> {second} traces differ")
+        out["cross_device"] = cross
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1993,6 +2381,8 @@ def main() -> int:
     async_launches, async_checked = phase_robust_costs(line)
     arch_sync, arch_sync_checked, arch_sync_timed = phase_arch_sync(line)
     arch_async, arch_async_checked, arch_async_timed = phase_arch_async(line)
+    population, pop_checked = phase_population(line)
+    resume = phase_resume(line)
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -2005,13 +2395,19 @@ def main() -> int:
         "launches_robust_costs": {k: v.get("fedavg", 0) for k, v in async_launches.items()},
         # phase 18: one per non-empty fold of the tau 2 LM task
         "launches_arch_sync": arch_sync["launches"]["fedavg"],
+        # phases 20-21: the 100,000-client vmap run's folds (at the cohort's
+        # K), the folds after the sync quickstart's and the LM run's resume
+        "launches_population": population["sync vmap"]["launches"]["fedavg"],
+        "launches_resume_sync": resume["sync"]["launches_after_resume"]["fedavg"],
+        "launches_resume_lm": resume["lm"]["launches_after_resume"].get("fedavg", 0),
         "max_abs_err": max(errs["float32"], sync_checked["fedavg"], async_checked["fedavg"],
-                           arch_sync_checked["fedavg"]),
+                           arch_sync_checked["fedavg"], pop_checked["fedavg"]),
         "max_abs_err_bf16": errs["bfloat16"],
         # phases 16-18: the (K, N) folds those runs made, each held against
         # ref_fedavg after the runs
         "run_shapes_checked": (sync_checked["fedavg_shapes"] + async_checked["fedavg_shapes"]
-                               + arch_sync_checked["fedavg_shapes"]),
+                               + arch_sync_checked["fedavg_shapes"]
+                               + pop_checked["fedavg_shapes"]),
         "shape": list(TIMED_MAIN),
         "dtype": "float32",
         **timed[TIMED_MAIN],
@@ -2028,9 +2424,15 @@ def main() -> int:
         "launches_lognormal_fedadam": async_launches["fedadam-lognormal"]["fused_aggregate"],
         # phase 19: one per flush of the two LM tasks
         "launches_arch_async": arch_async["launches"]["fused_aggregate"],
+        # phases 20-21: the 100,000-client async run's flushes, and the
+        # flushes after the async resume (from restored moments)
+        "launches_population_async": population["async vmap fedadam"]["launches"][
+            "fused_aggregate"],
+        "launches_resume_async": resume["async"]["launches_after_resume"]["fused_aggregate"],
         "max_abs_err": max(f_err, async_checked["fused_aggregate"],
-                           arch_async_checked["fused_aggregate"]),
-        "run_shapes_checked": async_checked["fused_shapes"] + arch_async_checked["fused_shapes"],
+                           arch_async_checked["fused_aggregate"], pop_checked["fused_aggregate"]),
+        "run_shapes_checked": (async_checked["fused_shapes"] + arch_async_checked["fused_shapes"]
+                               + pop_checked["fused_shapes"]),
         "yogi_ties": f_ties,
         "mode": "fedadam",
         "shape": list(FUSED_TIMED),
@@ -2076,6 +2478,8 @@ def main() -> int:
         "launches_arch_sync": arch_sync["launches"]["rmsnorm"],
         "launches_arch_async": arch_async["launches"]["rmsnorm"],
         "launches_per_training_step": arch_sync["rmsnorm_per_training_step"],
+        # phase 21 (c): the LM run after its resume
+        "launches_resume_lm": resume["lm"]["launches_after_resume"]["rmsnorm"],
         **norm,
     }
     gated_rec = {
@@ -2101,6 +2505,7 @@ def main() -> int:
     print(json.dumps({"serve": served, "loss": loss, "zamba2_serve": hserved,
                       "zamba2_loss": hloss}))
     print(json.dumps({"arch_sync": arch_sync, "arch_async": arch_async}))
+    print(json.dumps({"population": population, "resume": resume}))
     print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

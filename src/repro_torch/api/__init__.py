@@ -11,10 +11,12 @@
 on the synthetic task family and on the ``arch`` family (LM training:
 the four dense configs and zamba2-7b), with the recruitment auctions and their
 incentive mechanisms, the stateful policies, every aggregator and every
-cost model; ``sweep_scenarios`` runs a grid of spec overrides. Spec
-features of later slices raise ``NotImplementedError``. The numpy-only
-axes (arrival processes, buffer controllers, cost models, policies,
-incentives and auctions) are imported here and register themselves; the
+cost model, client populations (``vectorized``, with lazily made shards)
+and mid-run checkpoints with resume; ``sweep_scenarios`` runs a grid of
+spec overrides. The ``sharded`` backend raises ``NotImplementedError``.
+The numpy-only axes (arrival processes, buffer controllers, cost models,
+policies, incentives, auctions and populations) are imported here and
+register themselves; the
 engines, aggregators, backends and the sweep are imported lazily, on
 first use of one of their names, so those modules can import this
 package without a cycle.
@@ -34,6 +36,7 @@ from repro_torch.api.registry import (  # noqa: F401
     COST_MODELS,
     INCENTIVES,
     POLICIES,
+    POPULATIONS,
     Registry,
     register_aggregator,
     register_allocator,
@@ -44,6 +47,7 @@ from repro_torch.api.registry import (  # noqa: F401
     register_cost_model,
     register_incentive,
     register_policy,
+    register_population,
     register_task_family,
 )
 from repro_torch.api.spec import (  # noqa: F401
@@ -92,6 +96,12 @@ from repro_torch.api.policy import (  # noqa: F401  (registers the policies, inc
     build_eligibility,
     incentive_from_spec,
     policy_from_spec,
+)
+from repro_torch.pop import (  # noqa: F401  (registers the "vectorized" population)
+    ClientPopulation,
+    LazyFedTask,
+    VectorizedPopulation,
+    get_population,
 )
 
 _LAZY = {

@@ -14,6 +14,8 @@ start to model availability. Built-ins (``ARRIVAL_PROCESSES``):
 
 Processes draw from their own Generator (the engine seeds it with
 ``seed + 2``), so enabling one never perturbs the allocator's stream.
+``next_starts`` is the batched draw a client population makes, and
+``state_dict``/``load_state`` carry the stream through checkpoints.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ class ArrivalProcess:
     """Protocol: ``reset`` once per run, then ``next_start`` per dispatch.
 
     ``next_start(client, t)`` returns the earliest virtual time >= t at
-    which ``client`` may begin its next local job. (The reference's
-    batched ``next_starts`` comes with client populations, and
-    ``state_dict``/``load_state`` with checkpointing.)
+    which ``client`` may begin its next local job. ``state_dict`` /
+    ``load_state`` (JSON-native) capture the RNG stream, so a resumed run
+    samples mid-sequence; subclasses with more state extend both.
     """
 
     def reset(self, n_clients: int, rng: np.random.Generator) -> None:
@@ -39,6 +41,21 @@ class ArrivalProcess:
     def next_start(self, client: int, t: float) -> float:
         raise NotImplementedError
 
+    def next_starts(self, clients: np.ndarray, t: float) -> np.ndarray:
+        """Batched ``next_start`` over ``clients`` (client-id order). The
+        default calls the scalar method per client; an override must draw
+        from the stream exactly as that loop does (a numpy Generator fills
+        an array element by element, so ``rng.exponential(size=n)`` equals
+        n scalar draws)."""
+        return np.array([self.next_start(int(c), t) for c in clients], np.float64)
+
+    def state_dict(self) -> dict:
+        return {"rng_state": self.rng.bit_generator.state}
+
+    def load_state(self, state: dict) -> None:
+        if "rng_state" in state:
+            self.rng.bit_generator.state = state["rng_state"]
+
 
 @register_arrival_process("always_on")
 class AlwaysOn(ArrivalProcess):
@@ -46,6 +63,9 @@ class AlwaysOn(ArrivalProcess):
 
     def next_start(self, client: int, t: float) -> float:
         return t
+
+    def next_starts(self, clients: np.ndarray, t: float) -> np.ndarray:
+        return np.full(len(clients), float(t), np.float64)
 
 
 @register_arrival_process("bursty")
@@ -72,6 +92,20 @@ class Bursty(ArrivalProcess):
             return t
         return t + (self.period - pos)
 
+    def next_starts(self, clients: np.ndarray, t: float) -> np.ndarray:
+        pos = (t - self._phase[np.asarray(clients, np.int64)]) % self.period
+        return np.where(pos < self.duty * self.period, t, t + (self.period - pos))
+
+    def state_dict(self) -> dict:
+        state = super().state_dict()
+        state["phase"] = self._phase.tolist()
+        return state
+
+    def load_state(self, state: dict) -> None:
+        super().load_state(state)
+        if "phase" in state:
+            self._phase = np.asarray(state["phase"], np.float64)
+
 
 @register_arrival_process("poisson")
 class PoissonParticipation(ArrivalProcess):
@@ -86,6 +120,12 @@ class PoissonParticipation(ArrivalProcess):
         if self.mean_idle == 0.0:
             return t
         return t + float(self.rng.exponential(self.mean_idle))
+
+    def next_starts(self, clients: np.ndarray, t: float) -> np.ndarray:
+        if self.mean_idle == 0.0:
+            return np.full(len(clients), float(t), np.float64)
+        # one array fill == len(clients) scalar draws on the same stream
+        return t + self.rng.exponential(self.mean_idle, size=len(clients))
 
 
 def get_arrival_process(name: str, options: dict | None = None) -> ArrivalProcess:

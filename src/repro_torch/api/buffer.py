@@ -17,6 +17,7 @@ task's flush threshold may change flush by flush. Built-ins
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Dict
 
 import numpy as np
 
@@ -40,8 +41,9 @@ class BufferController:
     """Stateful per-task buffer-size protocol (the ``static`` built-in):
     ``reset(n_tasks, initial_size)`` once per run, ``observe`` per flush,
     ``sizes() -> (S,) int array`` whenever the engine needs the
-    thresholds. (The reference's ``state_dict``/``load_state`` come with
-    checkpointing.)"""
+    thresholds. ``state_dict`` is JSON-native and rides the async
+    checkpoint payload; ``load_state(state_dict())`` restores the exact
+    size trajectory."""
 
     name = "static"
 
@@ -55,6 +57,13 @@ class BufferController:
 
     def sizes(self) -> np.ndarray:
         return self._sizes
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"sizes": self._sizes.tolist()}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        if "sizes" in state:
+            self._sizes = np.asarray(state["sizes"], np.int64)
 
 
 # the protocol base IS the static controller: sizes never move

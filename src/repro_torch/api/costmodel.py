@@ -12,7 +12,9 @@ only and bit-exact with it:
   * ``trace_replay``        — per-client latency sequences from a JSON
     trace (or an inline dict), replayed cyclically.
 
-The models' ``state_dict`` / ``load_state`` come with checkpointing.
+The models' state (RNG stream, tier assignments, stragglers, trace
+cursors) is JSON-native (``state_dict``/``load_state``) and rides the
+engines' checkpoint payloads, so a resumed run samples mid-sequence.
 Arrival processes schedule a job's dispatch; the cost model determines
 its completion. A sync round's simulated duration is the max over its
 cohort's latencies (the lockstep barrier), accumulated into
@@ -66,6 +68,13 @@ class ClientCostModel:
                        ) -> LatencySample:
         del client, task, time, version
         return LatencySample(compute=float(base_duration))
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"rng_state": self.rng.bit_generator.state}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        if "rng_state" in state:
+            self.rng.bit_generator.state = state["rng_state"]
 
     def _relative_task_cost(self) -> np.ndarray:
         """Per-task model-size cost factors, normalised to mean 1.0;
@@ -156,6 +165,18 @@ class DeviceTiers(ClientCostModel):
             compute=float(base_duration) * cost / float(self._speed[client]),
             comm=self.comm_scale * cost / float(self._rate[client]))
 
+    def state_dict(self) -> Dict[str, Any]:
+        state = super().state_dict()
+        state["speed"] = self._speed.tolist()
+        state["rate"] = self._rate.tolist()
+        return state
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        super().load_state(state)
+        if "speed" in state:
+            self._speed = np.asarray(state["speed"], np.float64)
+            self._rate = np.asarray(state["rate"], np.float64)
+
 
 @register_cost_model("lognormal_straggler")
 class LognormalStraggler(ClientCostModel):
@@ -206,6 +227,16 @@ class LognormalStraggler(ClientCostModel):
                    and float(self.rng.random()) < self.dropout_prob)
         return LatencySample(compute=float(base_duration) * mult,
                              dropout=dropped)
+
+    def state_dict(self) -> Dict[str, Any]:
+        state = super().state_dict()
+        state["straggler"] = np.asarray(self._straggler, bool).tolist()
+        return state
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        super().load_state(state)
+        if "straggler" in state:
+            self._straggler = np.asarray(state["straggler"], bool)
 
 
 def _load_trace(path: Optional[str], trace: Optional[Dict[str, Any]]):
@@ -273,7 +304,8 @@ class TraceReplay(ClientCostModel):
     (byteprofile-style event replay): each client cycles deterministically
     through its recorded latency sequence (falling back to the ``"*"``
     sequence), scaled by ``scale`` and by the per-task model-size factor.
-    The cursors start at 0 at every ``reset``."""
+    The per-client cursors are checkpoint state, so a resumed run replays
+    the trace mid-sequence."""
 
     name = "trace_replay"
 
@@ -306,6 +338,16 @@ class TraceReplay(ClientCostModel):
         self._cursor[client] += 1
         return LatencySample(
             compute=self.scale * lat * float(self._task_cost[task]))
+
+    def state_dict(self) -> Dict[str, Any]:
+        state = super().state_dict()
+        state["cursor"] = self._cursor.tolist()
+        return state
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        super().load_state(state)
+        if "cursor" in state:
+            self._cursor = np.asarray(state["cursor"], np.int64)
 
 
 def get_cost_model(name: str,

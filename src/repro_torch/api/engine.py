@@ -7,9 +7,10 @@ four dense configs and zamba2-7b), an optional recruitment auction and its
 incentive mechanism
 (which produce the eligibility matrix), and either the sync lockstep
 round loop or the async FedAST engine, and returns the same
-``RunResult`` as the reference. Spec features that the port has not
-ported raise ``NotImplementedError`` naming the ROADMAP item that brings
-them; none is ignored.
+``RunResult`` as the reference. Client populations and mid-run
+checkpoints with resume run in every engine, in the reference's
+checkpoint layout. The ``sharded`` backend raises ``NotImplementedError``
+naming the ROADMAP item that brings it; no spec feature is ignored.
 
     result = run_scenario(ScenarioSpec(tasks=[TaskSpec("synth-mnist")]))
     result.fairness["min_acc"], result.to_json()
@@ -38,6 +39,7 @@ from repro_torch.api.registry import (
     BUFFER_CONTROLLERS,
     COST_MODELS,
     POLICIES,
+    POPULATIONS,
     TASK_FAMILIES,
     register_task_family,
 )
@@ -45,8 +47,8 @@ from repro_torch.api.spec import ScenarioSpec
 from repro_torch.core.fairness import fairness_report, time_to_accuracy_report
 from repro_torch.core.mmfl import MMFLCoordinator
 from repro_torch.device import resolve_device
-from repro_torch.fed.async_engine import (AsyncConfig, AsyncMMFLEngine, FedAsyncTask,
-                                          _unported)
+from repro_torch.checkpoint import CheckpointManager, to_device
+from repro_torch.fed.async_engine import AsyncConfig, AsyncMMFLEngine, FedAsyncTask
 from repro_torch.fed.data import _RECIPES, make_synthetic_task, task_seed
 from repro_torch.fed.trainer import MMFLTrainer, TrainConfig
 from repro_torch.launch.train import (ArchAsyncTask, assemble_batch, build_task, make_arch_eval,
@@ -205,6 +207,12 @@ def _train_config(spec: ScenarioSpec) -> TrainConfig:
         aggregator_options=dict(rt.aggregator_options),
         cost_model=rt.cost_model,
         cost_model_options=dict(rt.cost_model_options),
+        population=pop.population,
+        population_options=dict(pop.population_options),
+        checkpoint_dir=rt.checkpoint_dir,
+        checkpoint_every=rt.checkpoint_every,
+        checkpoint_keep=rt.checkpoint_keep,
+        resume=rt.resume,
     )
 
 
@@ -232,6 +240,8 @@ def _async_config(spec: ScenarioSpec) -> AsyncConfig:
         population=pop.population,
         population_options=dict(pop.population_options),
         checkpoint_dir=rt.checkpoint_dir,
+        checkpoint_every=rt.checkpoint_every,
+        checkpoint_keep=rt.checkpoint_keep,
         resume=rt.resume,
         backend=rt.backend,
         tau=rt.tau,
@@ -308,9 +318,17 @@ class AsyncEngineRunner:
 class SyntheticFamily:
     """Class-conditional Gaussian FedTasks (``fed.data``). TaskSpec
     options: any ``make_synthetic_task`` kwarg (``n_range``, ``non_iid``,
-    recipe overrides). Seeding matches the reference exactly."""
+    recipe overrides). Seeding matches the reference exactly. With a
+    population and ``lazy_data``, client shards are made on first dispatch
+    (``pop.data.LazyFedTask``) instead of an eager (K, n_max, dim) array."""
 
     def build_tasks(self, spec: ScenarioSpec):
+        ctor = make_synthetic_task
+        if (spec.clients.population is not None
+                and spec.clients.population_options.get("lazy_data")):
+            from repro_torch.pop import LazyFedTask
+
+            ctor = LazyFedTask
         tasks = []
         for i, ts in enumerate(spec.tasks):
             base = ts.name.split("#")[0]
@@ -321,8 +339,8 @@ class SyntheticFamily:
             kw.update(ts.options)
             if "n_range" in kw:
                 kw["n_range"] = tuple(kw["n_range"])
-            tasks.append(make_synthetic_task(task_seed(spec.data_seed, i), ts.name,
-                                             spec.clients.n_clients, **kw))
+            tasks.append(ctor(task_seed(spec.data_seed, i), ts.name, spec.clients.n_clients,
+                              **kw))
         return tasks
 
     def sync_engine(self, spec: ScenarioSpec, eligibility=None, incentive=None,
@@ -392,8 +410,11 @@ class ArchSyncEngine:
     (``fedavg``: ``backend.aggregate``, the fedavg kernel under ``vmap``
     on a card). tau<=1 tasks are the fused weighted-gradient AdamW server
     step, dispatched as a single-unit cohort so every engine shares one
-    execution seam. Checkpointing and populations are refused up front
-    (``_require_ported``; items 8 and 7).
+    execution seam. With a population, it owns the cost model and the
+    eligibility. Checkpoints (engine kind ``sync``) hold each task's
+    ``params`` and ``opt`` (and ``server_state`` for a stateful
+    aggregator) and the coordinator payload; the round curves stream into
+    the sidecar, so a resumed run continues round for round.
     """
 
     def __init__(self, spec: ScenarioSpec, tasks, data, eligibility=None, incentive=None,
@@ -401,6 +422,7 @@ class ArchSyncEngine:
         self.spec = spec
         self.tasks = tasks
         self.data = data
+        self.device = resolve_device(device)
         self.names = [t.name for t in spec.tasks]
         self.backend = get_backend(spec.runtime.backend, device)
         # server aggregation rule of the tau>1 tasks; tau<=1 tasks step
@@ -413,9 +435,21 @@ class ArchSyncEngine:
             for a in self.names}
         self._eval_acc = {a: make_arch_eval(tasks[a], data[a])[1] for a in self.names}
         # each round's simulated duration is the max over the cohort's
-        # sampled latencies (the lockstep barrier)
-        self.cost_model = get_cost_model(spec.runtime.cost_model or "constant",
-                                          spec.runtime.cost_model_options)
+        # sampled latencies (the lockstep barrier); a population owns the
+        # cost model and the eligibility, and the engine aliases them
+        self.population = None
+        if spec.clients.population is not None:
+            from repro_torch.pop import get_population
+
+            self.population = get_population(
+                spec.clients.population, spec.clients.population_options,
+                n_clients=spec.clients.n_clients, n_tasks=len(self.names), seed=spec.seed,
+                cost_model=spec.runtime.cost_model,
+                cost_model_options=spec.runtime.cost_model_options)
+            self.cost_model = self.population.cost_model
+        else:
+            self.cost_model = get_cost_model(spec.runtime.cost_model or "constant",
+                                              spec.runtime.cost_model_options)
         self.coord = MMFLCoordinator(
             task_names=self.names,
             n_clients=spec.clients.n_clients,
@@ -425,7 +459,17 @@ class ArchSyncEngine:
             seed=spec.seed,
             eligibility=eligibility,
             policy=policy_from_spec(spec.policy, spec.allocation.strategy))
+        if self.population is not None:
+            self.coord.eligibility = self.population.set_eligibility(self.coord.eligibility)
         self.incentive = incentive
+
+    def _set_eligibility(self, elig) -> np.ndarray:
+        """Adopt a (K, S) eligibility matrix, mirroring it into the
+        population's struct-of-arrays when there is one."""
+        elig = np.asarray(elig, bool)
+        if self.population is not None:
+            return self.population.set_eligibility(elig)
+        return elig
 
     def _run_task_round(self, name: str, ids, rng, want_norm: bool = False):
         """One task's round: cohort execution + aggregation through the
@@ -465,26 +509,117 @@ class ArchSyncEngine:
             normalizer=torch.clamp(w_rows.sum(), min=1e-9))
         return float(res.losses.mean()), norm
 
+    def _resume(self, ckpt, hist: dict, rng) -> int:
+        """Restore the newest complete step (if resuming): params, opt and
+        server state onto the engine's device, the coordinator payload,
+        and the curves before the step into ``hist``. Returns the round to
+        start from."""
+        hit = ckpt.begin("sync", self.spec.runtime.resume)
+        if hit is None:
+            return 0
+        saved, coord = hit.tasks, hit.coordinator
+        if "aggregator" in coord:
+            # raises for another rule or options
+            self.aggregator.load_state(coord["aggregator"])
+        for a in self.names:
+            if a in saved:
+                self.tasks[a]["params"] = to_device(saved[a]["params"], self.device)
+                self.tasks[a]["opt"] = to_device(saved[a]["opt"], self.device)
+                srv = saved[a].get("server_state")
+                if srv is not None:
+                    self._server_state[a] = to_device(srv, self.device)
+        if "coordinator" not in coord:        # a payload of the coordinator alone
+            self.coord.load_state(coord)
+            return hit.step
+        self.coord.load_state(coord["coordinator"])
+        rng.bit_generator.state = coord["data_rng"]
+        if "population" in coord and self.population is not None:
+            self.population.validate_config(coord["population"])
+        # the incentive's ledger and re-auctioned eligibility
+        if self.incentive is not None and "incentive" in coord:
+            self.incentive.load_state(coord["incentive"])
+            if self.incentive.eligibility is not None:
+                self.coord.eligibility = self._set_eligibility(self.incentive.eligibility)
+        if hit.history is not None:
+            for rec in hit.history:
+                if rec.get("kind") != "round":
+                    continue
+                hist["loss"].append(list(rec["loss"]))
+                hist["counts"].append(list(rec["counts"]))
+                hist["alloc"].append(np.asarray(rec["alloc"], np.int64))
+                if "acc" in rec:
+                    hist["acc"].append(list(rec["acc"]))
+                if "wall_clock" in rec:
+                    hist["wall_clock"].append(float(rec["wall_clock"]))
+        else:
+            # a step with its history embedded in the payload (before the
+            # sidecar): read it, then backfill the sidecar below
+            old = coord.get("history", {})
+            hist["loss"][:] = [list(x) for x in old.get("loss", [])]
+            hist["counts"][:] = [list(x) for x in old.get("counts", [])]
+            hist["alloc"][:] = [np.asarray(x, np.int64) for x in old.get("alloc", [])]
+            hist["acc"][:] = [list(x) for x in old.get("acc", [])]
+            hist["wall_clock"][:] = [float(x) for x in old.get("wall_clock", [])]
+        # steps without an accuracy curve or a clock: report each only
+        # when it covers the restored rounds
+        for key in ("acc", "wall_clock"):
+            if len(hist[key]) != len(hist["loss"]):
+                hist[key].clear()
+        if hit.history is None:
+            for i in range(len(hist["loss"])):
+                rec = {"kind": "round", "loss": list(hist["loss"][i]),
+                       "counts": list(hist["counts"][i]),
+                       "alloc": np.asarray(hist["alloc"][i]).tolist()}
+                if hist["acc"]:
+                    rec["acc"] = list(hist["acc"][i])
+                if hist["wall_clock"]:
+                    rec["wall_clock"] = float(hist["wall_clock"][i])
+                ckpt.append_history(rec)
+        if "cost_model" in coord:
+            self.cost_model.load_state(coord["cost_model"])
+        return hit.step
+
+    def _save(self, ckpt, step: int, rng) -> None:
+        trees = {}
+        for a in self.names:
+            trees[a] = {"params": self.tasks[a]["params"], "opt": self.tasks[a]["opt"]}
+            if self._server_state[a] is not None:
+                trees[a]["server_state"] = self._server_state[a]
+        coord = {"coordinator": self.coord.state_dict(), "data_rng": rng.bit_generator.state,
+                 "aggregator": self.aggregator.state_dict(),
+                 "cost_model": self.cost_model.state_dict()}
+        if self.population is not None:
+            coord["population"] = self.population.config_record()
+        if self.incentive is not None:
+            coord["incentive"] = self.incentive.state_dict()
+        ckpt.save(step, trees, coordinator_state=coord, engine_kind="sync")
+
     def run(self, verbose: bool = False) -> RunResult:
         spec, rt = self.spec, self.spec.runtime
         rng = np.random.default_rng(spec.seed)
-        loss_hist, count_hist, alloc_hist, acc_hist, clock_hist = [], [], [], [], []
+        hist = {"loss": [], "counts": [], "alloc": [], "acc": [], "wall_clock": []}
         # the cost model samples from its OWN stream (seed + 3), sized by
         # the per-task parameter counts
         self.cost_model.reset(
             spec.clients.n_clients, len(self.names), np.random.default_rng(spec.seed + 3),
             task_sizes=[float(sum(leaf.numel() for leaf in tree_leaves(self.tasks[a]["params"])))
                         for a in self.names])
+        ckpt, start_round = None, 0
+        if rt.checkpoint_dir:
+            ckpt = CheckpointManager(rt.checkpoint_dir, keep=rt.checkpoint_keep)
+            start_round = self._resume(ckpt, hist, rng)
+            if verbose and start_round:
+                print(f"resumed from round {start_round}")
         want_norms = self.coord.wants_update_norms
-        clock = 0.0
-        for r in range(rt.rounds):
+        clock = hist["wall_clock"][-1] if hist["wall_clock"] else 0.0
+        for r in range(start_round, rt.rounds):
             if self.incentive is not None:
                 upd = self.incentive.recruit(RoundContext(
                     round=r, task_names=self.names, losses=self.coord.losses,
                     alpha=spec.allocation.alpha, n_clients=spec.clients.n_clients,
                     eligibility=self.coord.eligibility))
                 if upd is not None:
-                    self.coord.eligibility = np.asarray(upd.eligibility, bool)
+                    self.coord.eligibility = self._set_eligibility(upd.eligibility)
             alloc = self.coord.next_round()
             t0 = time.time()
             line = []
@@ -497,47 +632,68 @@ class ArchSyncEngine:
                     line.append(f"{a}: -")
                     continue
                 row[ids] = s
-                for i in ids:
-                    round_time = max(round_time, self.cost_model.sample_latency(
-                        int(i), s, 1.0, time=clock).total)
+                if self.population is not None:
+                    # cohort-batched latency sampling (same stream order)
+                    totals, _ = self.population.sample_latencies(ids, s, 1.0, times=clock)
+                    round_time = max(round_time, float(totals.max()))
+                else:
+                    for i in ids:
+                        round_time = max(round_time, self.cost_model.sample_latency(
+                            int(i), s, 1.0, time=clock).total)
                 loss, norm = self._run_task_round(a, ids, rng, want_norms)
                 if want_norms and norm is not None:
                     norms[s] = norm
                 self.coord.report(a, loss)
                 line.append(f"{a}: {loss:.3f} ({len(ids)}c)")
             self.coord.observe([len(alloc[a]) for a in self.names], norms)
-            loss_hist.append([self.coord.tasks[a].loss for a in self.names])
-            count_hist.append([len(alloc[a]) for a in self.names])
-            alloc_hist.append(row)
-            acc_hist.append([self._eval_acc[a](self.tasks[a]["params"]) for a in self.names])
+            hist["loss"].append([self.coord.tasks[a].loss for a in self.names])
+            hist["counts"].append([len(alloc[a]) for a in self.names])
+            hist["alloc"].append(row)
+            hist["acc"].append([self._eval_acc[a](self.tasks[a]["params"]) for a in self.names])
             clock += round_time
-            clock_hist.append(clock)
+            hist["wall_clock"].append(clock)
+            if ckpt is not None:
+                # the round curves stream into the sidecar (buffered; the
+                # next save fsyncs it and commits the offset)
+                ckpt.append_history({"kind": "round", "loss": list(hist["loss"][-1]),
+                                     "counts": list(hist["counts"][-1]), "alloc": row.tolist(),
+                                     "acc": list(hist["acc"][-1]), "wall_clock": float(clock)})
             if verbose:
                 print(f"round {r + 1:3d} [{time.time() - t0:5.1f}s] " + " | ".join(line))
-        counts = np.array(count_hist, np.int64).reshape(-1, len(self.names))
+            if ckpt is not None and (r + 1) % rt.checkpoint_every == 0:
+                self._save(ckpt, r + 1, rng)
+        if ckpt is not None:
+            ckpt.close()
+        n = len(hist["loss"])
+        counts = np.array(hist["counts"], np.int64).reshape(-1, len(self.names))
         return RunResult(
             scenario=spec.name,
             mode="sync",
             task_names=self.names,
-            loss=np.array(loss_hist),
-            acc=np.array(acc_hist).reshape(-1, len(self.names)),
+            loss=np.array(hist["loss"]),
+            # a resume from a step without them leaves partial accuracy
+            # and clock curves: each is reported only when it covers every
+            # round
+            acc=(np.array(hist["acc"]).reshape(-1, len(self.names))
+                 if len(hist["acc"]) == n else None),
             arrivals=counts.sum(axis=0),
             alloc_counts=counts,
-            alloc=np.array(alloc_hist),
-            wall_clock_sim=np.asarray(clock_hist, np.float64),
+            alloc=np.array(hist["alloc"]),
+            wall_clock_sim=(np.asarray(hist["wall_clock"], np.float64)
+                            if len(hist["wall_clock"]) == n else None),
             spec=spec,
             params=[self.tasks[a]["params"] for a in self.names],
         )
 
 
+def _unported(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to repro_torch yet (ROADMAP.md queue 1, {item})")
+
+
 def _require_ported(spec: ScenarioSpec) -> None:
     """Refuse every spec feature the port has not ported."""
-    rt = spec.runtime
-    if spec.clients.population is not None:
-        raise _unported("a client population", "item 7: population")
-    if rt.checkpoint_dir is not None:
-        raise _unported("checkpoint_dir", "item 8: checkpointing")
-    if rt.backend == "sharded":
+    if spec.runtime.backend == "sharded":
         raise _unported("the 'sharded' backend", "item 14: multi-GPU")
 
 
@@ -594,6 +750,8 @@ def run_scenario(spec: ScenarioSpec, verbose: bool = False, device=None) -> RunR
         AGGREGATORS.get(spec.runtime.aggregator)
     if spec.runtime.cost_model is not None:
         COST_MODELS.get(spec.runtime.cost_model)
+    if spec.clients.population is not None:
+        POPULATIONS.get(spec.clients.population)
     _require_named_options(spec)
     auction_summary = None
     eligibility = None

@@ -3,8 +3,8 @@
 The same ``Registry`` class as the JAX package's ``api/registry.py``.
 It defines the registries of the ported slices: allocators, arrival
 processes, auctions, task families, backends, policies, incentives,
-buffer controllers, aggregators and cost models (the reference's
-populations are not ported). This module imports nothing, so built-in
+buffer controllers, aggregators, cost models and client populations.
+This module imports nothing, so built-in
 implementations can self-register at import time without cycles.
 """
 
@@ -64,6 +64,7 @@ INCENTIVES = Registry("incentive")
 BUFFER_CONTROLLERS = Registry("buffer_controller")
 AGGREGATORS = Registry("aggregator")
 COST_MODELS = Registry("cost_model")
+POPULATIONS = Registry("population")
 
 register_allocator = ALLOCATORS.register
 register_arrival_process = ARRIVAL_PROCESSES.register
@@ -75,3 +76,4 @@ register_incentive = INCENTIVES.register
 register_buffer_controller = BUFFER_CONTROLLERS.register
 register_aggregator = AGGREGATORS.register
 register_cost_model = COST_MODELS.register
+register_population = POPULATIONS.register

@@ -24,10 +24,20 @@ card). With equal client speeds and ``B`` equal to the cohort size the
 engine reproduces the sync round.
 
 An incentive mechanism may re-recruit the eligible clients after every
-flush (``ctx.round`` is the 1-based flush count). Left for later slices
-(a config that asks for one raises ``NotImplementedError`` naming its
-ROADMAP item): checkpointing (``checkpoint_dir``/``resume``) and client
-populations.
+flush (``ctx.round`` is the 1-based flush count). A client population
+(``repro_torch.pop``) may own the speeds, the arrival process, the cost
+model and the eligibility; the first everyone-starts wave then draws each
+stream in one batched call.
+
+Mid-run checkpoints: ``state_dict``/``load_state`` carry the BOUNDED
+engine state (event queue, buffers, retained versions, RNG streams,
+policy/incentive/controller state) through ``repro_torch.checkpoint``,
+while the whole-run history (flush records and dispatch log) streams into
+the ``history.jsonl`` sidecar, committed by offset with each step. The
+layout is the reference's, so either package resumes the other's steps,
+and a resumed run continues event for event as an uninterrupted one.
+Params, retained versions and server moments are saved from the device
+with one host copy per leaf and restored onto the engine's device.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from repro_torch.api.backend import ClientBatch, CohortTask, get_backend
 from repro_torch.api.buffer import FlushObservation, get_buffer_controller
 from repro_torch.api.costmodel import get_cost_model
 from repro_torch.api.policy import AllocationPolicy, RoundContext, stacked_delta_norms
+from repro_torch.checkpoint import to_device
 from repro_torch.core.allocation import AllocationStrategy
 from repro_torch.core.mmfl import MMFLCoordinator
 from repro_torch.device import resolve_device
@@ -54,11 +65,6 @@ from repro_torch.fed.data import FedTask
 from repro_torch.fed.trainer import (fed_client_batch, fed_local_fn,
                                      init_task_model, task_round_key)
 from repro_torch.tree import tree_leaves, tree_map
-
-
-def _unported(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP.md queue 1, {item})")
 
 
 @dataclass
@@ -91,10 +97,17 @@ class AsyncConfig:
     # client cost model (api.costmodel key); None selects "constant"
     cost_model: Optional[str] = None
     cost_model_options: dict = field(default_factory=dict)
-    # not ported yet: refused at engine construction
+    # client population (pop POPULATIONS key); None keeps the per-client
+    # state here, "vectorized" is bit-exact with it
     population: Optional[str] = None
     population_options: dict = field(default_factory=dict)
+    # mid-run checkpoints: every `checkpoint_every` FLUSHES the engine
+    # state is saved to checkpoint_dir, keeping the newest
+    # `checkpoint_keep` steps; resume=True restores the newest complete
+    # step and continues event for event
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 10
+    checkpoint_keep: int = 3
     resume: bool = False
     # cohort execution backend (api.backend BACKENDS key or instance)
     backend: str = "serial"
@@ -256,11 +269,6 @@ class AsyncMMFLEngine:
     def __init__(self, tasks: Sequence[AsyncTask], cfg: AsyncConfig,
                  eligibility: Optional[np.ndarray] = None, incentive=None,
                  device=None):
-        if cfg.checkpoint_dir or cfg.resume:
-            raise _unported("async checkpointing (checkpoint_dir/resume)",
-                            "item 8: checkpointing")
-        if cfg.population is not None or cfg.population_options:
-            raise _unported("a client population", "item 7: population")
         self.tasks = list(tasks)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -287,22 +295,47 @@ class AsyncMMFLEngine:
             raise ValueError(
                 f"buffer_controller {cfg.buffer_controller!r} rejected "
                 f"options {cfg.buffer_controller_options!r}: {e}") from None
-        self.speeds = client_speeds(
-            cfg.speed_profile, self.K, np.random.default_rng(cfg.seed + 1),
-            spread=cfg.speed_spread, slow_fraction=cfg.slow_fraction)
-        # availability draws from its OWN stream (seed + 2), cost sampling
-        # from seed + 3 (reset in _init_state, once the params exist)
-        self.arrival = get_arrival_process(cfg.arrival_process, cfg.arrival_options)
-        self.arrival.reset(self.K, np.random.default_rng(cfg.seed + 2))
-        if cfg.cost_model is None and cfg.cost_model_options:
+        # per-client state: speeds (seed + 1), the arrival process (seed +
+        # 2) and the cost model (seed + 3, reset in _init_state once the
+        # params exist); with a population it OWNS all three, seeded and
+        # drawn alike, and the engine aliases them
+        if cfg.population is None and cfg.population_options:
             raise ValueError(
-                "cost_model_options were given without a cost_model; "
-                "name one (e.g. 'device_tiers') or drop the options")
-        self.cost_model = get_cost_model(cfg.cost_model or "constant", cfg.cost_model_options)
+                "population_options were given without a population; "
+                "name one (e.g. 'vectorized') or drop the options")
+        self.population = None
+        if cfg.population is not None:
+            from repro_torch.pop import get_population
+
+            self.population = get_population(
+                cfg.population, cfg.population_options, n_clients=self.K, n_tasks=self.S,
+                seed=cfg.seed, speed_profile=cfg.speed_profile, speed_spread=cfg.speed_spread,
+                slow_fraction=cfg.slow_fraction, arrival_process=cfg.arrival_process,
+                arrival_options=cfg.arrival_options, cost_model=cfg.cost_model,
+                cost_model_options=cfg.cost_model_options)
+            self.speeds = self.population.speeds
+            self.arrival = self.population.arrival
+            self.cost_model = self.population.cost_model
+            self.coord.eligibility = self.population.set_eligibility(self.coord.eligibility)
+        else:
+            self.speeds = client_speeds(
+                cfg.speed_profile, self.K, np.random.default_rng(cfg.seed + 1),
+                spread=cfg.speed_spread, slow_fraction=cfg.slow_fraction)
+            self.arrival = get_arrival_process(cfg.arrival_process, cfg.arrival_options)
+            self.arrival.reset(self.K, np.random.default_rng(cfg.seed + 2))
+            if cfg.cost_model is None and cfg.cost_model_options:
+                raise ValueError(
+                    "cost_model_options were given without a cost_model; "
+                    "name one (e.g. 'device_tiers') or drop the options")
+            self.cost_model = get_cost_model(cfg.cost_model or "constant",
+                                             cfg.cost_model_options)
         self.backend = get_backend(cfg.backend, self.device)
         self.aggregator = aggregator_from_config(cfg.aggregator, cfg.aggregator_options,
                                                  backend=self.backend)
         self._has_acc = all(hasattr(t, "accuracy") for t in self.tasks)
+        # the active CheckpointManager (None when checkpointing is off):
+        # _dispatch and _flush stream their history records through it
+        self._ckpt = None
 
     @classmethod
     def from_fed_tasks(cls, tasks: Sequence[FedTask], cfg: AsyncConfig,
@@ -323,6 +356,12 @@ class AsyncMMFLEngine:
         if slot[1] == 0:
             del self._retained[s][version]
 
+    def _record(self, rec: dict) -> None:
+        """Append one history record to the checkpoint sidecar (buffered;
+        committed by the next save)."""
+        if self._ckpt is not None:
+            self._ckpt.append_history(rec)
+
     def _dispatch(self, client: int, t: float):
         s = self.coord.assign_next(client)
         if s is None:
@@ -330,6 +369,7 @@ class AsyncMMFLEngine:
         v = self._version[s]
         self._retain(s, v, self._params[s])
         self._assignments.append((client, s))
+        self._record({"kind": "assign", "client": int(client), "task": int(s)})
         # the arrival process may defer the job's start; the model version
         # is pinned at dispatch; the cost model turns work/speed into the
         # job's completion latency
@@ -340,6 +380,44 @@ class AsyncMMFLEngine:
         heapq.heappush(self._events,
                        (start + lat.total, self._seq,
                         _Job(client, s, v, start, bool(lat.dropout))))
+
+    def _dispatch_all(self, clients, t: float):
+        """Population-batched dispatch of many clients at one virtual time
+        (the first everyone-starts wave). Assignment stays a per-client
+        coordinator walk (its RNG order is the contract); the arrival and
+        cost draws batch into one call per stream, each stream seeing the
+        same client-id-ordered draws as the scalar loop."""
+        assigned = []
+        for i in clients:
+            s = self.coord.assign_next(int(i))
+            if s is None:
+                continue                 # not eligible for anything: idle
+            v = self._version[s]
+            self._retain(s, v, self._params[s])
+            self._assignments.append((int(i), s))
+            self._record({"kind": "assign", "client": int(i), "task": int(s)})
+            assigned.append((int(i), s, v))
+        if not assigned:
+            return
+        ids, tasks, vers = (np.array(col, np.int64) for col in zip(*assigned))
+        starts = self.population.next_arrivals(ids, t)
+        works = np.array([self.tasks[s].work for s in tasks], np.float64)
+        totals, drops = self.population.sample_latencies(
+            ids, tasks, works / self.speeds[ids], times=starts, versions=vers)
+        for k in range(len(assigned)):
+            self._seq += 1
+            heapq.heappush(self._events,
+                           (starts[k] + totals[k], self._seq,
+                            _Job(int(ids[k]), int(tasks[k]), int(vers[k]), float(starts[k]),
+                                 bool(drops[k]))))
+
+    def _set_eligibility(self, elig) -> np.ndarray:
+        """Adopt a (K, S) eligibility matrix, mirroring it into the
+        population's struct-of-arrays when there is one."""
+        elig = np.asarray(elig, bool)
+        if self.population is not None:
+            return self.population.set_eligibility(elig)
+        return elig
 
     def _flush(self, s: int, t: float):
         cfg = self.cfg
@@ -401,7 +479,7 @@ class AsyncMMFLEngine:
                 losses=self.coord.losses, alpha=cfg.alpha, n_clients=self.K,
                 eligibility=self.coord.eligibility))
             if upd is not None:
-                self.coord.eligibility = np.asarray(upd.eligibility, bool)
+                self.coord.eligibility = self._set_eligibility(upd.eligibility)
         if self._has_acc:
             self._acc[s] = float(task.accuracy(self._params[s]))
             self._hist_acc.append(self._acc.copy())
@@ -418,6 +496,14 @@ class AsyncMMFLEngine:
         self._hist_metric.append(self._metric.copy())
         self._hist_stale.append(stale_mean)
         self._hist_bufsz.append(self._buffer_sizes.copy())
+        rec = {"kind": "flush", "time": float(t), "task": int(s),
+               "metric": [float(x) for x in self._metric], "stale": float(stale_mean),
+               "buffer_sizes": [int(x) for x in self._buffer_sizes]}
+        if self._has_acc:
+            rec["acc"] = [float(x) for x in self._acc]
+        self._record(rec)
+
+    # -- checkpoint state --------------------------------------------------
 
     def _init_state(self):
         """Fresh run state."""
@@ -449,18 +535,227 @@ class AsyncMMFLEngine:
         self._cost_dropouts = 0
         self.cost_model.reset(self.K, self.S, np.random.default_rng(cfg.seed + 3),
                               task_sizes=self._task_sizes())
-        for i in range(self.K):          # everyone starts training
-            self._dispatch(i, 0.0)
+        if self.population is not None:      # everyone starts training:
+            self._dispatch_all(range(self.K), 0.0)   # batched, bit-exact
+        else:
+            for i in range(self.K):
+                self._dispatch(i, 0.0)
 
     def _task_sizes(self) -> List[float]:
         """Per-task parameter counts (cost-model size scaling input)."""
         return [float(sum(leaf.numel() for leaf in tree_leaves(p))) for p in self._params]
 
+    @staticmethod
+    def _job_payload(j: _Job) -> list:
+        return [int(j.client), int(j.task), int(j.version), float(j.dispatch_time),
+                bool(j.dropout)]
+
+    @staticmethod
+    def _job_from_payload(p: Sequence) -> _Job:
+        # steps from before the cost models carry 4-element payloads (no
+        # dropout flag); those jobs never drop out
+        c, s, v, dt = p[:4]
+        return _Job(int(c), int(s), int(v), float(dt), bool(p[4]) if len(p) > 4 else False)
+
+    def state_dict(self) -> Dict:
+        """The BOUNDED control state of a mid-run engine, JSON-native: the
+        event queue (in-flight jobs), per-task buffers, retained-version
+        refcounts, staleness and arrival bookkeeping, the RNG streams, and
+        the policy, incentive, controller and cost-model state. What grows
+        with run length (the flush history and the dispatch log) streams
+        into the sidecar instead (``_record``), so the step payload is
+        O(1) in run length. The model pytrees (params, retained versions,
+        server state) travel through ``save_pytree``
+        (``_save_checkpoint``). ``load_state(state_dict(), trees,
+        history=history_records())`` continues event for event."""
+        state = {
+            "processed": int(self._processed),
+            "n_flushes": int(self._n_flushes),
+            "seq": int(self._seq),
+            "dropped": int(self._dropped),
+            "cost_dropouts": int(self._cost_dropouts),
+            "version": [int(v) for v in self._version],
+            "metric": [float(m) for m in self._metric],
+            "acc": None if self._acc is None else [float(a) for a in self._acc],
+            "events": [[float(t), int(seq), self._job_payload(j)] for t, seq, j in self._events],
+            "buffers": [[self._job_payload(j) for j in buf] for buf in self._buffers],
+            "retained": [{str(v): int(slot[1]) for v, slot in r.items()}
+                         for r in self._retained],
+            "arrivals": self._arrivals.tolist(),
+            "per_client": self._per_client.tolist(),
+            "buffer_sizes": [int(v) for v in self._buffer_sizes],
+            "controller": self.controller.state_dict(),
+            # the aggregator's config record; the server state pytrees
+            # travel with the params
+            "aggregator": self.aggregator.state_dict(),
+            "coordinator": self.coord.state_dict(),
+            # an incentive may re-recruit mid-run, and the coordinator
+            # state does not hold the matrix
+            "eligibility": np.asarray(self.coord.eligibility, bool).tolist(),
+            "arrival": self.arrival.state_dict(),
+            "cost_model": self.cost_model.state_dict(),
+        }
+        if self.population is not None:
+            # config stamp only: the population's streams and eligibility
+            # are captured above through the aliased objects
+            state["population"] = self.population.config_record()
+        if self.incentive is not None:
+            state["incentive"] = self.incentive.state_dict()
+        return state
+
+    def history_records(self) -> List[dict]:
+        """The in-memory history as sidecar records (what ``_record``
+        appends, but for the interleaving of assign and flush records:
+        replay partitions by kind). Serialises an engine without a
+        manager, and backfills the sidecar after resuming a step with
+        embedded history."""
+        recs: List[dict] = [{"kind": "assign", "client": int(c), "task": int(s)}
+                            for c, s in self._assignments]
+        for i in range(len(self._hist_time)):
+            rec = {"kind": "flush", "time": float(self._hist_time[i]),
+                   "task": int(self._hist_task[i]),
+                   "metric": [float(x) for x in self._hist_metric[i]],
+                   "stale": float(self._hist_stale[i]),
+                   "buffer_sizes": [int(x) for x in self._hist_bufsz[i]]}
+            if i < len(self._hist_acc):
+                rec["acc"] = [float(x) for x in self._hist_acc[i]]
+            recs.append(rec)
+        return recs
+
+    def _replay_history(self, records: Sequence[dict]) -> None:
+        """Rebuild the whole-run history lists and the dispatch log from
+        replayed sidecar records."""
+        self._assignments = [(int(r["client"]), int(r["task"]))
+                             for r in records if r["kind"] == "assign"]
+        self._hist_time, self._hist_task = [], []
+        self._hist_metric, self._hist_stale = [], []
+        self._hist_bufsz, self._hist_acc = [], []
+        for r in records:
+            if r["kind"] != "flush":
+                continue
+            self._hist_time.append(float(r["time"]))
+            self._hist_task.append(int(r["task"]))
+            self._hist_metric.append(np.asarray(r["metric"], np.float64))
+            self._hist_stale.append(float(r["stale"]))
+            self._hist_bufsz.append(np.asarray(r["buffer_sizes"], np.int64))
+            if "acc" in r:
+                self._hist_acc.append(np.asarray(r["acc"], np.float64))
+
+    def load_state(self, state: Dict, task_params: Dict,
+                   history: Optional[Sequence[dict]] = None) -> None:
+        """Inverse of ``state_dict``. ``task_params`` maps task name to
+        ``{"params", "retained": {str(version): tree}, "server_state"?}``
+        (tensors on any device; they land on the engine's). ``history`` is
+        the replayed record stream; omitted for a step whose state embeds
+        the history."""
+        dev = self.device
+        self.controller.reset(self.S, self.buffer_size)
+        self._processed = int(state["processed"])
+        self._n_flushes = int(state["n_flushes"])
+        self._seq = int(state["seq"])
+        self._dropped = int(state["dropped"])
+        self._cost_dropouts = int(state.get("cost_dropouts", 0))
+        self._version = [int(v) for v in state["version"]]
+        self._metric = np.asarray(state["metric"], np.float64)
+        self._acc = None if state["acc"] is None else np.asarray(state["acc"], np.float64)
+        self._events = [(t, int(seq), self._job_from_payload(payload))
+                        for t, seq, payload in state["events"]]
+        self._buffers = [[self._job_from_payload(payload) for payload in buf]
+                         for buf in state["buffers"]]
+        if "aggregator" in state:
+            # raises for another rule or options (the moments would be
+            # reinterpreted)
+            self.aggregator.load_state(state["aggregator"])
+        self._params, self._retained, self._server_state = [], [], []
+        for s, task in enumerate(self.tasks):
+            tree = task_params[task.name]
+            self._params.append(to_device(tree["params"], dev))
+            srv = tree.get("server_state")
+            # steps from before the aggregators carry no server state:
+            # re-init (exact for the stateless fedavg)
+            self._server_state.append(to_device(srv, dev) if srv is not None
+                                      else self.aggregator.init(self._params[s]))
+            self._retained.append({int(v): [to_device(tree["retained"][v], dev), int(cnt)]
+                                   for v, cnt in state["retained"][s].items()})
+        self._arrivals = np.asarray(state["arrivals"], np.int64)
+        self._per_client = np.asarray(state["per_client"], np.int64)
+        if history is not None:
+            self._replay_history(history)
+        elif "history" in state:
+            # embedded-history payload (before the sidecar), read only
+            hist = state["history"]
+            self._assignments = [(int(c), int(s)) for c, s in state["assignments"]]
+            self._hist_time = list(hist["time"])
+            self._hist_task = [int(x) for x in hist["task"]]
+            self._hist_metric = [np.asarray(m, np.float64) for m in hist["metric"]]
+            self._hist_stale = list(hist["stale"])
+            self._hist_acc = [np.asarray(a, np.float64) for a in hist["acc"]]
+            self._hist_bufsz = [np.asarray(b, np.int64) for b in hist["buffer_sizes"]]
+        else:
+            self._replay_history([])
+        self._buffer_sizes = np.asarray(state["buffer_sizes"], np.int64)
+        self.controller.load_state(state["controller"])
+        self.coord.load_state(state["coordinator"])
+        if self.population is not None and "population" in state:
+            self.population.validate_config(state["population"])
+        self.coord.eligibility = self._set_eligibility(state["eligibility"])
+        self.arrival.load_state(state["arrival"])
+        # reset first (assignments and cursors sized to this run), then
+        # the saved sampling state over it; steps from before the cost
+        # models carry none (exact for the stateless "constant")
+        self.cost_model.reset(self.K, self.S, np.random.default_rng(self.cfg.seed + 3),
+                              task_sizes=self._task_sizes())
+        if "cost_model" in state:
+            self.cost_model.load_state(state["cost_model"])
+        if self.incentive is not None and "incentive" in state:
+            self.incentive.load_state(state["incentive"])
+        # an engine loaded directly (no manager) continues on run()
+        self._state_loaded = True
+
+    def _save_checkpoint(self, ckpt) -> None:
+        """One checkpoint step, keyed by flush count: the params, every
+        RETAINED dispatch version (in-flight jobs aggregate against the
+        base they trained from) and the server state of a stateful rule as
+        pytrees; everything else in the step's JSON payload."""
+        trees = {}
+        for s, task in enumerate(self.tasks):
+            trees[task.name] = {
+                "params": self._params[s],
+                "retained": {str(v): slot[0] for v, slot in self._retained[s].items()},
+            }
+            if self._server_state[s] is not None:
+                trees[task.name]["server_state"] = self._server_state[s]
+        ckpt.save(self._n_flushes, trees, coordinator_state={"async": self.state_dict()},
+                  engine_kind="async")
+
     # -- run loop ----------------------------------------------------------
 
     def run(self, verbose: bool = False) -> AsyncHistory:
         cfg = self.cfg
-        self._init_state()
+        ckpt = None
+        if cfg.checkpoint_dir:
+            from repro_torch.checkpoint import CheckpointManager
+
+            ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.checkpoint_keep)
+        # the resume preamble (CheckpointManager.begin); an engine loaded
+        # directly (load_state without a manager) skips both paths
+        resumed = getattr(self, "_state_loaded", False)
+        self._ckpt = ckpt
+        if ckpt is not None:
+            hit = ckpt.begin("async", cfg.resume, clear_stale=not resumed)
+            if hit is not None:
+                self.load_state(hit.coordinator["async"], hit.tasks, history=hit.history)
+                resumed = True
+                if hit.history is None:
+                    # embedded-history step: backfill the sidecar so the
+                    # next save commits the full history in the new layout
+                    for rec in self.history_records():
+                        ckpt.append_history(rec)
+                if verbose:
+                    print(f"resumed from flush {hit.step} (arrival {self._processed})")
+        if not resumed:
+            self._init_state()
+        self._state_loaded = False
         while self._processed < cfg.total_arrivals and self._events:
             t, _, job = heapq.heappop(self._events)
             self._processed += 1
@@ -474,6 +769,7 @@ class AsyncMMFLEngine:
             self._arrivals[job.task] += 1
             self._per_client[job.client] += 1
             self._buffers[job.task].append(job)
+            flushes_before = self._n_flushes
             if len(self._buffers[job.task]) >= self._buffer_sizes[job.task]:
                 self._flush(job.task, t)
                 # a controller may have SHRUNK other tasks' sizes below
@@ -490,6 +786,15 @@ class AsyncMMFLEngine:
             if verbose and self._processed % 50 == 0:
                 f = " ".join(f"{m:.3f}" for m in self._metric)
                 print(f"  arrival {self._processed:5d} t={t:8.2f} f_s=[{f}]")
+            # save when the flush count CROSSES a multiple of the cadence
+            # (one arrival can flush several tasks through the sweep)
+            if (ckpt is not None and cfg.checkpoint_every > 0
+                    and self._n_flushes // cfg.checkpoint_every
+                    > flushes_before // cfg.checkpoint_every):
+                self._save_checkpoint(ckpt)
+        if ckpt is not None:
+            ckpt.close()
+        self._ckpt = None
         return AsyncHistory(
             time=np.array(self._hist_time),
             task=np.array(self._hist_task, np.int64),

@@ -16,8 +16,12 @@ sampling uses the same numpy streams and the device-side randomness the
 same threefry keys (``repro_torch.prng``), so a port run follows the
 reference's allocation trace. An incentive mechanism
 (``api.policy.IncentiveMechanism``) may re-recruit the eligible clients
-before each round's allocation. Checkpointing and client populations come
-with later slices.
+before each round's allocation. A client population (``repro_torch.pop``)
+may own the per-client state, and lazily made shards are gathered per
+cohort. With ``checkpoint_dir`` the bounded state is saved every
+``checkpoint_every`` rounds (engine kind ``sync_fed``, the reference's
+layout) while the round curves stream into the sidecar; ``resume``
+continues round for round as an uninterrupted run.
 """
 
 from __future__ import annotations
@@ -81,18 +85,20 @@ def fed_local_fn(tau: int, lr: float, batch_size: int):
 
 
 def fed_client_batch(task: FedTask, key, client_ids, device=None) -> ClientBatch:
-    """Stacked per-client inputs for a FedTask cohort. Per-client keys are
-    ``fold_in(round_key, client_id)`` (on the host: they only seed the
-    index draws), so a client's update is independent of its cohort."""
+    """Stacked per-client inputs for a FedTask cohort, on ``device``.
+    Per-client keys are ``fold_in(round_key, client_id)`` (on the host:
+    they only seed the index draws), so a client's update is independent
+    of its cohort. A lazily made task (``pop.data.LazyFedTask``) gathers
+    the cohort's rows on the host; only they go to the device."""
     ids = np.asarray(client_ids, np.int64)
     keys = prng.fold_in(key, torch.from_numpy(ids))
     dev = resolve_device(device)
-    return ClientBatch(
-        client_ids=ids,
-        keys=keys,
-        data=(torch.from_numpy(task.train_x[ids]).to(dev),
-              torch.from_numpy(task.train_y[ids]).to(dev),
-              torch.from_numpy(task.train_w[ids]).to(dev)))
+    if hasattr(task, "gather"):
+        x, y, w = task.gather(ids)
+    else:
+        x, y, w = task.train_x[ids], task.train_y[ids], task.train_w[ids]
+    return ClientBatch(client_ids=ids, keys=keys,
+                       data=tuple(torch.from_numpy(a).to(dev) for a in (x, y, w)))
 
 
 @dataclass
@@ -126,6 +132,18 @@ class TrainConfig:
     # cohort's sampled latencies (History.wall_clock_sim).
     cost_model: Optional[str] = None
     cost_model_options: dict = field(default_factory=dict)
+    # client population (pop POPULATIONS key); None keeps the per-client
+    # state here, "vectorized" is bit-exact with it
+    population: Optional[str] = None
+    population_options: dict = field(default_factory=dict)
+    # mid-run checkpoints (engine kind "sync_fed"): every
+    # `checkpoint_every` rounds the bounded state is saved and the round
+    # curves stream into the sidecar; resume=True restores the newest
+    # complete step, replays the sidecar and continues round for round
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 10
+    checkpoint_keep: int = 3
+    resume: bool = False
 
 
 @dataclass
@@ -172,12 +190,29 @@ class MMFLTrainer:
         self.incentive = incentive
         self.aggregator = aggregator_from_config(
             cfg.aggregator, cfg.aggregator_options, backend=self.backend)
-        if cfg.cost_model is None and cfg.cost_model_options:
+        # with a population, it OWNS the cost model and the eligibility;
+        # the trainer aliases them, so the call sites below are shared
+        if cfg.population is None and cfg.population_options:
             raise ValueError(
-                "cost_model_options were given without a cost_model; "
-                "name one (e.g. 'device_tiers') or drop the options")
-        self.cost_model = get_cost_model(cfg.cost_model or "constant",
-                                         cfg.cost_model_options)
+                "population_options were given without a population; "
+                "name one (e.g. 'vectorized') or drop the options")
+        self.population = None
+        if cfg.population is not None:
+            from repro_torch.pop import get_population
+
+            self.population = get_population(
+                cfg.population, cfg.population_options, n_clients=self.K, n_tasks=self.S,
+                seed=cfg.seed, cost_model=cfg.cost_model,
+                cost_model_options=cfg.cost_model_options)
+            self.cost_model = self.population.cost_model
+            self.elig = self.population.set_eligibility(self.elig)
+        else:
+            if cfg.cost_model is None and cfg.cost_model_options:
+                raise ValueError(
+                    "cost_model_options were given without a cost_model; "
+                    "name one (e.g. 'device_tiers') or drop the options")
+            self.cost_model = get_cost_model(cfg.cost_model or "constant",
+                                             cfg.cost_model_options)
         # run() restores these so repeated run() calls are identical
         self._elig0 = self.elig.copy()
         self._policy_state0 = self.policy.state_dict()
@@ -189,6 +224,14 @@ class MMFLTrainer:
         return init_task_models(self.tasks, key, self.cfg.hidden,
                                 self.cfg.depth, self.cfg.deep_for,
                                 self.cfg.deep_depth, self.device)
+
+    def _set_elig(self, elig) -> np.ndarray:
+        """Adopt a (K, S) eligibility matrix, mirroring it into the
+        population's struct-of-arrays when there is one."""
+        elig = np.asarray(elig, bool)
+        if self.population is not None:
+            return self.population.set_eligibility(elig)
+        return elig
 
     def _accuracy(self, params, s) -> float:
         x, y = self._test[s]
@@ -227,7 +270,7 @@ class MMFLTrainer:
 
     def run(self, verbose: bool = False) -> History:
         cfg = self.cfg
-        self.elig = self._elig0.copy()
+        self.elig = self._set_elig(self._elig0.copy())
         self.policy.load_state(self._policy_state0)
         if self.incentive is not None:
             self.incentive.load_state(self._incentive_state0)
@@ -242,14 +285,56 @@ class MMFLTrainer:
         accs = np.array([self._accuracy(params[s], s) for s in range(self.S)])
         acc_hist, alloc_hist, assign_hist, clock_hist = [], [], [], []
         need_norms = getattr(self.policy, "wants_update_norms", False)
-        for r in range(cfg.rounds):
+        ckpt, start_round = None, 0
+        if cfg.checkpoint_dir:
+            from repro_torch.checkpoint import CheckpointManager, to_device
+
+            if len(set(self._names)) != len(self._names):
+                raise ValueError(
+                    "checkpointing keys task pytrees by name; rename "
+                    f"the duplicated tasks in {self._names!r} (e.g. "
+                    "'synth-mnist#1') or drop checkpoint_dir")
+            ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.checkpoint_keep)
+            hit = ckpt.begin("sync_fed", cfg.resume)
+            if hit is not None:
+                coord = hit.coordinator
+                for s, t in enumerate(self.tasks):
+                    tree = hit.tasks[t.name]
+                    params[s] = to_device(tree["params"], self.device)
+                    srv = tree.get("server_state")
+                    server_state[s] = (to_device(srv, self.device) if srv is not None
+                                       else self.aggregator.init(params[s]))
+                self.aggregator.load_state(coord["aggregator"])
+                self.policy.load_state(coord["policy"])
+                self.elig = self._set_elig(np.asarray(coord["eligibility"], bool))
+                if self.incentive is not None and "incentive" in coord:
+                    self.incentive.load_state(coord["incentive"])
+                if self.population is not None and "population" in coord:
+                    self.population.validate_config(coord["population"])
+                rng.bit_generator.state = coord["rng"]
+                self.cost_model.load_state(coord["cost_model"])
+                accs = np.asarray(coord["accs"], np.float64)
+                clock = float(coord["clock"])
+                # the replayed sidecar rebuilds the curves before the step,
+                # so the History covers the WHOLE run
+                for rec in hit.history or []:
+                    if rec.get("kind") != "round":
+                        continue
+                    acc_hist.append(np.asarray(rec["acc"], np.float64))
+                    alloc_hist.append(np.asarray(rec["counts"], np.int64))
+                    assign_hist.append(np.asarray(rec["alloc"], np.int64))
+                    clock_hist.append(float(rec["wall_clock"]))
+                start_round = hit.step
+                if verbose:
+                    print(f"resumed from round {hit.step}")
+        for r in range(start_round, cfg.rounds):
             losses = np.maximum(1.0 - accs, 1e-6)   # paper: use test acc
             if self.incentive is not None:
                 upd = self.incentive.recruit(RoundContext(
                     round=r, task_names=self._names, losses=losses,
                     alpha=cfg.alpha, n_clients=self.K, eligibility=self.elig))
                 if upd is not None:
-                    self.elig = np.asarray(upd.eligibility, bool)
+                    self.elig = self._set_elig(upd.eligibility)
             alloc = self._allocate(rng, losses, r)
             if cfg.dropout_prob > 0:
                 failed = rng.random(self.K) < cfg.dropout_prob
@@ -263,9 +348,14 @@ class MMFLTrainer:
                 sel_ids = np.where(alloc == s)[0]
                 if len(sel_ids) == 0:
                     continue
-                for i in sel_ids:
-                    round_time = max(round_time, self.cost_model.sample_latency(
-                        int(i), s, 1.0, time=clock).total)
+                if self.population is not None:
+                    # cohort-batched latency sampling (same stream order)
+                    totals, _ = self.population.sample_latencies(sel_ids, s, 1.0, times=clock)
+                    round_time = max(round_time, float(totals.max()))
+                else:
+                    for i in sel_ids:
+                        round_time = max(round_time, self.cost_model.sample_latency(
+                            int(i), s, 1.0, time=clock).total)
                 res = self.backend.run_cohort(
                     CohortTask(t.name, params[s], self._local_fn),
                     fed_client_batch(t, task_round_key(cfg.seed, s, r), sel_ids,
@@ -285,11 +375,49 @@ class MMFLTrainer:
             assign_hist.append(alloc.copy())
             clock += round_time
             clock_hist.append(clock)
+            if ckpt is not None:
+                # the round curves stream into the sidecar (buffered; the
+                # next save fsyncs it and commits the offset)
+                ckpt.append_history({
+                    "kind": "round",
+                    "acc": [float(a) for a in accs],
+                    "counts": [int(c) for c in counts],
+                    "alloc": [int(x) for x in alloc],
+                    "wall_clock": float(clock),
+                })
+                if cfg.checkpoint_every > 0 and (r + 1) % cfg.checkpoint_every == 0:
+                    self._save(ckpt, r + 1, params, server_state, rng, accs, clock)
             if verbose and (r + 1) % 10 == 0:
                 print(f"  round {r+1:4d} accs="
                       + " ".join(f"{a:.3f}" for a in accs)
                       + f" min={accs.min():.3f}")
+        if ckpt is not None:
+            ckpt.close()
         self.params = params    # final per-task models (RunResult parity)
         return History(np.array(acc_hist), np.array(alloc_hist),
                        alloc=np.array(assign_hist),
                        wall_clock_sim=np.asarray(clock_hist, np.float64))
+
+    def _save(self, ckpt, step, params, server_state, rng, accs, clock) -> None:
+        """One checkpoint step: per-task ``params`` (and ``server_state``
+        for a stateful aggregator) as pytrees, the rest as the JSON
+        coordinator payload, in the reference's layout."""
+        trees = {}
+        for s, t in enumerate(self.tasks):
+            trees[t.name] = {"params": params[s]}
+            if server_state[s] is not None:
+                trees[t.name]["server_state"] = server_state[s]
+        coord = {
+            "policy": self.policy.state_dict(),
+            "eligibility": np.asarray(self.elig, bool).tolist(),
+            "rng": rng.bit_generator.state,
+            "accs": [float(a) for a in accs],
+            "clock": float(clock),
+            "aggregator": self.aggregator.state_dict(),
+            "cost_model": self.cost_model.state_dict(),
+        }
+        if self.population is not None:
+            coord["population"] = self.population.config_record()
+        if self.incentive is not None:
+            coord["incentive"] = self.incentive.state_dict()
+        ckpt.save(step, trees, coordinator_state=coord, engine_kind="sync_fed")

@@ -7,7 +7,10 @@ start from identical models, and bring the port's results back the same
 way to compare them. ``lm_params_from_numpy`` checks an LM tree against
 the port's own before it carries it across; ``adamw_state_from_numpy``
 carries an AdamW state (``mu``, ``nu``, ``count``), so both optimizers can
-start from one state.
+start from one state. ``load_numpy_pytree`` reads the checkpoint layout
+both packages share (``arrays.npz`` and ``MANIFEST.json``) as a numpy
+tree; ``repro_torch.checkpoint.save_pytree`` writes numpy trees as it
+writes tensors.
 """
 
 from __future__ import annotations
@@ -78,3 +81,16 @@ def adamw_state_from_numpy(state: Any, device=None) -> Any:
                for k in ("mu", "nu")}
     count = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32, device=dev)
     return {**moments, "count": count}
+
+
+def load_numpy_pytree(path: str):
+    """A pytree saved by either package's ``save_pytree`` as numpy arrays
+    of the recorded dtypes, bf16 leaves widened exactly to float32 (numpy
+    has no bf16). Returns (tree, metadata)."""
+    from repro_torch.checkpoint.checkpoint import _rebuild, read_arrays
+
+    manifest, raw = read_arrays(path)
+    dtypes = manifest["dtypes"]
+    arrays = {k: (v.astype(np.uint32) << 16).view(np.float32) if dtypes.get(k) == "bfloat16"
+              else v for k, v in raw.items()}
+    return _rebuild(manifest["structure"], arrays), manifest["metadata"]

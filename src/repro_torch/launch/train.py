@@ -331,12 +331,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="serial",
                     help="cohort execution backend (serial | vmap | registered BACKENDS key)")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="full-state checkpoints (not ported yet: ROADMAP item 8)")
+                    help="full-state checkpoints for both engines, in the JAX package's "
+                         "layout: every N rounds (sync) or N flushes (async)")
     ap.add_argument("--checkpoint-every", "--ckpt-every", type=int, default=10,
-                    dest="checkpoint_every")
-    ap.add_argument("--ckpt-keep", type=int, default=3, dest="checkpoint_keep")
+                    dest="checkpoint_every",
+                    help="rounds (sync) / flushes (async) between checkpoints")
+    ap.add_argument("--ckpt-keep", type=int, default=3, dest="checkpoint_keep",
+                    help="keep the newest N complete steps in --checkpoint-dir")
     ap.add_argument("--resume", action="store_true",
-                    help="resume from --checkpoint-dir (not ported yet: ROADMAP item 8)")
+                    help="resume from the newest complete step in --checkpoint-dir "
+                         "(a resumed run continues as an uninterrupted one)")
     ap.add_argument("--async", action="store_true", dest="async_mode",
                     help="event-driven async engine (FedAST-style buffered staleness-aware "
                          "aggregation) instead of lockstep rounds")
@@ -366,9 +370,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arrival-process", default="always_on",
                     help="async availability plugin (always_on | bursty | poisson)")
     ap.add_argument("--population", default=None,
-                    help="client population plugin (not ported yet: ROADMAP item 7)")
+                    help="client population plugin (vectorized | registered POPULATIONS "
+                         "key): struct-of-arrays per-client state for very large N")
     ap.add_argument("--population-options", default=None, dest="population_options",
-                    help="JSON dict of population options")
+                    help="JSON dict of population options, e.g. '{\"lazy_data\": true}' to "
+                         "make synthetic client shards on first dispatch")
     return ap
 
 

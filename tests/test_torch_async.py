@@ -316,8 +316,9 @@ def _with(spec, **changes):
 
 
 @pytest.mark.parametrize("changes,err,match", [
-    (dict(runtime__checkpoint_dir="ckpt"), NotImplementedError, "item 8"),
-    (dict(clients__population="vectorized"), NotImplementedError, "item 7"),
+    (dict(clients__population="nope"), KeyError, "population"),
+    (dict(clients__population="vectorized", clients__population_options={"warp_factor": 9}),
+     ValueError, "bad options for population"),
     (dict(runtime__cost_model="lognormal_straggler",
           runtime__cost_model_options={"sigma": -1.0}), ValueError, "sigma must be >= 0"),
     (dict(runtime__aggregator="trimmed_mean",
@@ -342,10 +343,19 @@ def test_async_spec_refusals(changes, err, match):
 
 
 def test_engine_refuses_unported_config():
+    """Populations and checkpoints are ported: the engine builds with them,
+    and refuses only their misconfigurations, as the reference does."""
     tasks = standard_tasks(["synth-mnist"], n_clients=4, seed=0, n_range=(40, 60))
-    for kw, item in [(dict(checkpoint_dir="ckpt"), "item 8"), (dict(resume=True), "item 8"),
-                     (dict(population="vectorized"), "item 7")]:
-        with pytest.raises(NotImplementedError, match=item):
+    eng = t_async.AsyncMMFLEngine.from_fed_tasks(
+        tasks, t_async.AsyncConfig(population="vectorized", checkpoint_dir=None, resume=True),
+        device="cpu")
+    assert eng.population is not None and eng.arrival is eng.population.arrival
+    for kw, err, match in [(dict(population_options={"lazy_data": True}), ValueError,
+                            "population_options"),
+                           (dict(population="nope"), KeyError, "nope"),
+                           (dict(population="vectorized", population_options={"bad": 1}),
+                            ValueError, "bad options for population")]:
+        with pytest.raises(err, match=match):
             t_async.AsyncMMFLEngine.from_fed_tasks(tasks, t_async.AsyncConfig(**kw),
                                                    device="cpu")
 

@@ -76,3 +76,13 @@ def test_importing_every_port_module_loads_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+POPULATION_CHECKPOINT_SLICE = ["checkpoint/__init__.py", "checkpoint/checkpoint.py",
+                               "pop/__init__.py", "pop/data.py", "pop/population.py",
+                               "api/arrivals.py", "api/buffer.py", "fed/trainer.py"]
+
+
+@pytest.mark.parametrize("rel", POPULATION_CHECKPOINT_SLICE)
+def test_population_checkpoint_slice_modules_are_checked(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
