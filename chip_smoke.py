@@ -35,13 +35,15 @@ printed only when every phase passed:
 7. Card against CPU for async: the fedadam run with round_robin must give
    identical event traces on both devices; fedfair is compared too.
 8. The rmsnorm kernel against its plain version on the card at the dense
-   LM's norm shapes (rows x d, f32 and bf16; atol 1e-5 / 5e-2), with
-   times at (8192, 576) f32 beside the bytes bound, the plain version and
-   ``torch.nn.functional.rms_norm``.
+   LM's norm shapes and at the MoE and xLSTM families' widths 2048 and
+   4096 (rows x d, f32 and bf16; atol 1e-5 / 5e-2), with times at (8192,
+   576), (2048, 2048) and (2048, 4096) f32 beside the bytes bound, the
+   plain version and ``torch.nn.functional.rms_norm``.
 9. The flash_attention kernel against its plain version on the card at
-   smollm-135m's, a qwen3-like and zamba2-7b's attention shape, a small one
-   and a ragged Sq != Sk one, causal and not, f32 and bf16 (atol 2e-5 /
-   3e-2), with times at smollm's and zamba2's shapes in both dtypes beside
+   smollm-135m's, a qwen3-like, zamba2-7b's and qwen2-moe-a2.7b's attention
+   shape, a small one and a ragged Sq != Sk one, causal and not, f32 and
+   bf16 (atol 2e-5 / 3e-2), with times at smollm's, zamba2's and
+   qwen2-moe's shapes in both dtypes beside
    the operations and bytes bound (f32 at the three-pass TF32 rate, with
    the CUDA cores' 67 TFLOP/s figure beside it), the plain version and
    ``scaled_dot_product_attention`` in the same run, eager and as device
@@ -156,8 +158,45 @@ printed only when every phase passed:
    steps written on the card resume on the CPU and steps written on the
    CPU resume on the card (quickstart and async fedadam, round_robin),
    with identical traces.
-22. A JSON line describing every kernel, the card line, and the final
+22. qwen2-moe-a2.7b at full width and depth (24 layers, 14.3e9 f32 params
+   drawn on the card from PRNGKey(0); init time and peak memory): serving
+   batch 8, prompt 128, 32 greedy tokens (chunked attention, as the JAX
+   package serves) with exactly 49 rmsnorm launches per prefill and per
+   decode step; the loss at B=1, S=2048 with ``use_pallas`` (24
+   flash_attention and 49 rmsnorm launches) and without, within 2e-4, ms
+   per forward and peak memory. Card against CPU at full width and 1
+   layer: batch 2, 4 tokens, identical greedy tokens, prefill logits
+   within 1e-3, identical routing (each token's experts and every
+   nonzero-gate pick).
+23. xlstm-1.3b at full width and depth (42 mLSTM and 6 sLSTM layers, 2.9e9
+   params): serving as phase 22's (chunk 64) with exactly 97 rmsnorm
+   launches per prefill and per decode step; the loss at B=1, S=2048
+   (chunk 256), ms per forward and peak memory. Card against CPU at full
+   width and its first 8 layers (7 mLSTM, 1 sLSTM): identical greedy
+   tokens, logits within 1e-3, the loss at B=1, S=256 within 1e-4.
+24. LM training on ``examples/train_concurrent_lms.py``'s mix
+   (``run_scenario``, arch family, sync, vmap backend): smollm-135m at
+   full width with tau 2 (the fedavg fold), xlstm-1.3b at full width and 8
+   of 48 layers and qwen2-moe-a2.7b at full width and 2 of 24 layers, both
+   tau 1 (fused AdamW); seq 256, batch 8, 8 clients, participation 0.5,
+   fedfair alpha 3, 3 rounds. Per task s/round, trained tokens/s, final
+   loss and accuracy and the rmsnorm launches of one training step; the
+   run's peak memory; fedavg exactly once per non-empty smollm fold, each
+   held against ``ref_fedavg`` on its own inputs. Then two fused AdamW
+   steps each of xlstm-1.3b at 24 of 48 layers and qwen2-moe-a2.7b at 2 of
+   24 layers, B=1, S=512 (time, peak memory). Card against CPU on the tiny
+   presets of the three: sync round_robin tau 2 (identical allocation
+   traces, losses within 1e-3, fedavg once per non-empty fold) and async
+   fedadam (identical event traces, fused_aggregate once per flush); the
+   card's folds and flushes of both are held against ``ref_fedavg`` and
+   ``ref_fused_aggregate`` at the shapes they were made at.
+25. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
+
+In phases 16-20 and 24 every fedavg call of the card's runs is also held
+against ``ref_fedavg`` on its own inputs as it runs (``FoldShapes``); the
+seconds and the device memory of that check are kept out of the times and
+peaks the phases report.
 
 Needs CUDA, nvcc (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``)
 and nothing of the JAX package.
@@ -205,16 +244,23 @@ LM_ARCH = "smollm-135m"
 # (rows, d): a token of smollm (d 576) at 1, B*S = 8192 and a ragged 8193
 # rows; qwen3's qk-norms (d = hd) over 4096 tokens x 9 and 2048 x 16 heads;
 # qwen3's d_model 1024 at a ragged 4097 rows
+# qwen2-moe's and xlstm's d_model 2048 and mLSTM's gate width 4096 at a
+# decode step (8 rows), the serve prefill (8 x 128) and the loss (1 x 2048)
 NORM_SHAPES = ((1, 576), (8192, 576), (8193, 576), (4096 * 9, 64), (2048 * 16, 128),
-               (4097, 1024))
+               (4097, 1024), (8, 2048), (1024, 2048), (2048, 2048), (8, 4096), (1024, 4096),
+               (2048, 4096))
 NORM_TIMED = (8192, 576)
+NORM_FAMILIES = ((2048, 2048), (2048, 4096))        # the families' loss shapes, timed too
 NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2}     # tests/test_kernels.py
 # (B, H, KV, Sq, Sk, hd): smollm-135m's forward at B=4 S=2048, a qwen3-like
 # head layout, the JAX sweep's small shape, a ragged Sq != Sk, zamba2-7b's
-# shared attention at B=1 S=2048 (hd 3584 / 32 = 112)
+# shared attention at B=1 S=2048 (hd 3584 / 32 = 112), qwen2-moe-a2.7b's
+# loss at B=1 S=2048 (hd 2048 / 16 = 128)
 FLASH_SHAPES = ((4, 9, 3, 2048, 2048, 64), (1, 16, 8, 2048, 2048, 128), (2, 4, 2, 256, 256, 32),
-                (1, 4, 2, 200, 456, 64), (1, 32, 32, 2048, 2048, 112))
+                (1, 4, 2, 200, 456, 64), (1, 32, 32, 2048, 2048, 112),
+                (1, 16, 16, 2048, 2048, 128))
 FLASH_ZAMBA = FLASH_SHAPES[4]
+FLASH_MOE = FLASH_SHAPES[5]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}    # tests/test_kernels.py
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32
 LOSS_B, LOSS_S = 4, 2048
@@ -282,6 +328,32 @@ RESUME_PARAMS_TOL, RESUME_LOSS_TOL = 1e-6, 1e-5
 ARCH_TINY = dict(archs=("smollm-135m", "qwen1.5-0.5b", "zamba2-7b"),
                  options=dict(preset="tiny", seq=32, batch=4, tau=2), clients=6, rounds=2,
                  arrivals=9, buffer=3)
+
+# the MoE and xLSTM families (phases 22-24): serving and the loss at full
+# width and depth, weights from PRNGKey(0); card against CPU at full width
+# and the first layers (1 of qwen2-moe's 24; xlstm's first group, 7 mLSTM
+# and 1 sLSTM), batch 2, 4 tokens
+MOE_ARCH, XLSTM_ARCH = "qwen2-moe-a2.7b", "xlstm-1.3b"
+MOE_LOSS_B, MOE_LOSS_S = 1, 2048
+XLSTM_LOSS_B, XLSTM_LOSS_S = 1, 2048
+MOE_CPU_LAYERS, XLSTM_CPU_LAYERS = 1, 8
+CPU_BATCH, CPU_GEN = 2, 4
+XLSTM_CPU_LOSS_S = 256
+# examples/train_concurrent_lms.py's mix: smollm-135m at full width as true
+# FedAvg (tau 2: the fedavg fold), xlstm-1.3b and qwen2-moe-a2.7b at full
+# width as the fused AdamW step (tau 1), cut in depth; then two AdamW steps
+# each at (layers, B, S). The step's peak is about 32 B a param (params,
+# grads, clipped grads and two f32 moments, and the new params and moments
+# before the old ones go): 93 GB for all of xlstm's 48 layers (2.9e9
+# params), 75 GB for 3 of qwen2-moe's 24 (2.3e9), of the card's 80
+FAMILIES_SYNC = dict(tasks={"smollm-135m": dict(preset="full", seq=256, batch=8, tau=2),
+                            "xlstm-1.3b": dict(preset="full", seq=256, batch=8, tau=1),
+                            "qwen2-moe-a2.7b": dict(preset="full", seq=256, batch=8, tau=1)},
+                     layers={"xlstm-1.3b": 8, "qwen2-moe-a2.7b": 2}, clients=8)
+FAMILIES_STEP = {"xlstm-1.3b": (24, 1, 512), "qwen2-moe-a2.7b": (2, 1, 512)}
+FAMILIES_TINY = dict(archs=("smollm-135m", "xlstm-1.3b", "qwen2-moe-a2.7b"),
+                     options=dict(preset="tiny", seq=32, batch=4, tau=2), clients=6, rounds=2,
+                     arrivals=9, buffer=3)
 
 
 def fail(msg: str) -> None:
@@ -470,7 +542,10 @@ def run_counted(spec, device: str):
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     reset_launches()
+    held = FoldShapes.held_s
     res = run_scenario(spec, device=device)
+    # the seconds FoldShapes spent holding fedavg calls are not the run's
+    res.wall_time -= FoldShapes.held_s - held
     return res, dict(LAUNCHES)
 
 
@@ -781,7 +856,6 @@ def _rotating(make, count: int):
 
 def phase_rmsnorm():
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import rmsnorm
     from repro_torch.kernels.ref import ref_rmsnorm
@@ -806,25 +880,40 @@ def phase_rmsnorm():
     print(f"shapes {NORM_SHAPES}: max |err| f32 {errs['float32']:.3g} (tol "
           f"{NORM_TOL['float32']}), bf16 {errs['bfloat16']:.3g} (tol {NORM_TOL['bfloat16']})")
 
-    rows, d = NORM_TIMED
+    rec = {"shape": list(NORM_TIMED), "dtype": "float32", "max_abs_err": errs["float32"],
+           "max_abs_err_bf16": errs["bfloat16"], **_time_norm(gen, *NORM_TIMED)}
+    rec["families"] = {f"{rows}x{d}": _time_norm(gen, rows, d) for rows, d in NORM_FAMILIES}
+    for shape, r in [(NORM_TIMED, rec)] + [(sh, rec["families"][f"{sh[0]}x{sh[1]}"])
+                                           for sh in NORM_FAMILIES]:
+        print(f"rmsnorm {shape} f32, device time (CUDA graph, inputs cycled past L2): kernel "
+              f"{r['ms']:.5f} ms ({r['bound_ms'] / r['ms']:.1%} of the bytes bound "
+              f"{r['bound_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, library (F.rms_norm) "
+              f"{r['library_ms']:.5f} ms; eager per call: kernel {r['eager_ms']:.5f} ms, plain "
+              f"{r['eager_plain_ms']:.5f} ms, library {r['eager_library_ms']:.5f} ms")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _time_norm(gen, rows: int, d: int) -> dict:
+    """rmsnorm at (rows, d) f32 beside its bytes bound, its plain version
+    and ``F.rms_norm``: device time in a CUDA graph and eager time per
+    call, inputs cycled past the L2 cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.ref import ref_rmsnorm
+
+    dev = torch.device("cuda")
     w = torch.randn(d, generator=gen, device=dev).mul_(0.1).add_(1.0)
     xs = _rotating(lambda: torch.randn(rows, d, generator=gen, device=dev), 4)
     fns = {"": lambda: rmsnorm(next(xs), w), "plain_": lambda: ref_rmsnorm(next(xs), w),
            "library_": lambda: F.rms_norm(next(xs), (d,), w, 1e-6)}
     nbytes = 2 * rows * d * 4 + 4 * d
-    rec = {"shape": [rows, d], "dtype": "float32", "max_abs_err": errs["float32"],
-           "max_abs_err_bf16": errs["bfloat16"],
-           "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    rec = {"bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     for key, fn in fns.items():
         rec[f"{key}ms"] = graph_ms(fn, inner=40)
         rec[f"eager_{key}ms"] = time_ms(fn, inner=40)
-    print(f"rmsnorm ({rows}, {d}) f32, device time (CUDA graph, inputs cycled past L2): kernel "
-          f"{rec['ms']:.5f} ms ({rec['bound_ms'] / rec['ms']:.1%} of the bytes bound "
-          f"{rec['bound_ms']:.5f} ms), plain {rec['plain_ms']:.5f} ms, library (F.rms_norm) "
-          f"{rec['library_ms']:.5f} ms; eager per call: kernel {rec['eager_ms']:.5f} ms, plain "
-          f"{rec['eager_plain_ms']:.5f} ms, library {rec['eager_library_ms']:.5f} ms")
-    del xs, fns
-    torch.cuda.empty_cache()
     return rec
 
 
@@ -870,7 +959,7 @@ def phase_flash():
                 if not err <= FLASH_TOL[name]:
                     fail(f"flash_attention {where}: max |err| {err} > {FLASH_TOL[name]}")
                 del got, want
-            if (B, H, KV, Sq, Sk, hd) not in (FLASH_SHAPES[0], FLASH_ZAMBA):
+            if (B, H, KV, Sq, Sk, hd) not in (FLASH_SHAPES[0], FLASH_ZAMBA, FLASH_MOE):
                 continue
             bound, by = flash_bound_ms(B, H, KV, Sq, Sk, hd, True, size, peak)
             rec = timed[(B, H, KV, Sq, Sk, hd), name] = {
@@ -1475,23 +1564,46 @@ class FoldShapes:
     ``fedavg`` call of the vmap backend (every sync fold, every qfedavg and
     fedavg flush) and (K, N, mode) of each ``fused_aggregate`` flush. A
     pass-through around the port's two call sites that only records; each
-    wrapper still counts its launches."""
+    wrapper still counts its launches. Each fedavg call is also held
+    against ``ref_fedavg`` on its own inputs (``held``: the max |err| and
+    the dtype of each call; ``check_run_shapes`` checks them). That check
+    stays out of what the phases report: its seconds add up in ``held_s``,
+    which ``run_counted`` and ``TaskClock`` take off their times, and the
+    device's peak is read before it allocates and reset after it
+    (``reset_peak``, ``peak_bytes``)."""
+
+    held_s = 0.0        # seconds of the held checks, over every window
 
     def __init__(self):
         import collections
 
         # shape -> number of calls
         self.fedavg, self.fused = collections.Counter(), collections.Counter()
+        self.held = []
+        self.held_peak, self.seconds = 0, 0.0
 
     def __enter__(self):
+        import torch
+
         import repro_torch.api.aggregator as aggregator
         import repro_torch.api.backend as backend
+        from repro_torch.kernels.ref import ref_fedavg
 
         self._saved = fedavg, fused = backend.fedavg, aggregator.fused_aggregate
 
         def fedavg_rec(stacked, weights):
             self.fedavg[(*stacked.shape, str(stacked.dtype).removeprefix("torch."))] += 1
-            return fedavg(stacked, weights)
+            out = fedavg(stacked, weights)
+            torch.cuda.synchronize()
+            self.held_peak = max(self.held_peak, torch.cuda.max_memory_allocated())
+            t0 = time.perf_counter()
+            err = (out.float() - ref_fedavg(stacked, weights).float()).abs().max().item()
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            FoldShapes.held_s += dt
+            torch.cuda.reset_peak_memory_stats()
+            self.held.append((err, str(stacked.dtype).removeprefix("torch.")))
+            return out
 
         def fused_rec(x, *args, mode, **kw):
             self.fused[(*x.shape, mode)] += 1
@@ -1506,6 +1618,18 @@ class FoldShapes:
 
         backend.fedavg, aggregator.fused_aggregate = self._saved
 
+    def reset_peak(self):
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+        self.held_peak = 0
+
+    def peak_bytes(self) -> int:
+        """The device's peak since ``reset_peak``, without the checks'."""
+        import torch
+
+        return max(self.held_peak, torch.cuda.max_memory_allocated())
+
 
 def check_run_shapes(label: str, shapes: FoldShapes) -> dict:
     """Hold each fold kernel against its plain version at every shape the
@@ -1519,10 +1643,14 @@ def check_run_shapes(label: str, shapes: FoldShapes) -> dict:
     from repro_torch.kernels import fedavg
     from repro_torch.kernels.ref import ref_fedavg
 
+    bad = [(e, name) for e, name in shapes.held if not e <= TOL[name]]
+    if bad:
+        fail(f"{label}: fedavg calls of the runs against ref_fedavg on their own inputs: "
+             f"max |err| {bad} (tol {TOL})")
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=dev).manual_seed(1)
-    err = {"fedavg": 0.0, "fused_aggregate": 0.0}
+    err = {"fedavg": max((e for e, _ in shapes.held), default=0.0), "fused_aggregate": 0.0}
     for K, N, name in sorted(shapes.fedavg):
         if K * N > 2**24:                 # an LM fold: draw it on the card
             x32 = torch.randn(K, N, generator=gen, device=dev)
@@ -1544,15 +1672,18 @@ def check_run_shapes(label: str, shapes: FoldShapes) -> dict:
         err["fused_aggregate"] = max(err["fused_aggregate"], e)
     ks = sorted({k for k, _, _ in shapes.fedavg})
     print(f"{label}: "
-          + (f"fedavg held against ref_fedavg at all {len(shapes.fedavg)} (K, N, dtype) "
+          + (f"each of the {len(shapes.held)} fedavg calls held against ref_fedavg on its own "
+             f"inputs and at all {len(shapes.fedavg)} (K, N, dtype) "
              f"folds the runs made (K {ks[0]}-{ks[-1]}, N in "
              f"{sorted({n for _, n, _ in shapes.fedavg})}, "
              f"{sorted({d for _, _, d in shapes.fedavg})}): max |err| {err['fedavg']:.3g} "
-             f"(tol {TOL})" if ks else "no fedavg fold")
+             f"(tol {TOL}; the checks took {shapes.seconds:.3f} s, kept out of the runs' "
+             f"times)" if ks else "no fedavg fold")
           + (f"; fused_aggregate at all {len(shapes.fused)} (K, N, mode) flushes "
              f"({sorted(shapes.fused)}): max |err| {err['fused_aggregate']:.3g} "
              f"(rtol/atol {FUSED_TOL})" if shapes.fused else ""))
-    return {"fedavg_shapes": len(shapes.fedavg), "fused_shapes": len(shapes.fused), **err}
+    return {"fedavg_shapes": len(shapes.fedavg), "fedavg_calls_held": len(shapes.held),
+            "fused_shapes": len(shapes.fused), **err}
 
 
 def phase_incentives(line: str):
@@ -1764,17 +1895,17 @@ def norms_per_step(task, params) -> int:
     every norm's forward is the kernel, its backward plain."""
     import torch
 
-    from repro_torch.configs import get_config, smoke_config
+    import repro_torch.launch.train as train
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch.train import loss_and_grads
     from repro_torch.models import get_api
 
     o = task.options
-    cfg = (smoke_config if o["preset"] == "tiny" else get_config)(task.name)
+    # the config build_task makes (through DepthCut where one is active)
+    cfg = (train.smoke_config if o["preset"] == "tiny" else train.get_config)(task.name)
     toks = torch.randint(0, cfg.vocab_size, (1, o["seq"]), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(0))
     reset_launches()
-    loss_and_grads(get_api(cfg), cfg, params, {"tokens": toks, "labels": toks})
+    train.loss_and_grads(get_api(cfg), cfg, params, {"tokens": toks, "labels": toks})
     torch.cuda.synchronize()
     return LAUNCHES["rmsnorm"]
 
@@ -1836,24 +1967,19 @@ def _loss_gap(gpu, cpu) -> float:
 
 def phase_arch_sync(line: str):
     """Phase 18: LM training through run_scenario in sync mode."""
-    import zlib
-
     import numpy as np
     import torch
 
-    from repro_torch import prng
-    from repro_torch.configs import get_config
-    from repro_torch.launch.train import arch_fused_step, server_opt
-    from repro_torch.models import get_api, param_count
+    from repro_torch.models import param_count
 
     print("== phase 18: sync arch training on the card (run_scenario, vmap backend)")
     print(f"card: {line}")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     spec = arch_spec("arch-sync", ARCH_SYNC["tasks"], ARCH_SYNC["clients"])
     with FoldShapes() as shapes:
+        shapes.reset_peak()
         res, launches = run_counted(spec, "cuda")
-    peak = torch.cuda.max_memory_allocated()
+    peak = shapes.peak_bytes()
     rounds = spec.runtime.rounds
     names = res.task_names
     folded = [s for s, t in enumerate(spec.tasks) if t.options["tau"] > 1]
@@ -1892,38 +2018,8 @@ def phase_arch_sync(line: str):
     del res
     timed = time_lm_shapes(shapes)
 
-    # zamba2-7b at full width, ARCH_ZAMBA layers: one fused AdamW step
-    L, B, S = ARCH_ZAMBA
-    cfg = get_config("zamba2-7b").replace(n_layers=L)
-    cfg = cfg.replace(ssm_chunk=min(cfg.ssm_chunk, max(8, S // 4)))
-    api = get_api(cfg)
-    dev = torch.device("cuda")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = api.init_params(prng.PRNGKey(zlib.crc32(b"zamba2-7b") % 2**31, device=dev), cfg,
-                             device=dev)
-    opt = server_opt().init(params)
-    toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(0))
-    batch = {"tokens": toks, "labels": toks, "client_weights": torch.ones(B, device=dev)}
-    step, _ = arch_fused_step(api, cfg)
-    times, losses = [], []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, params, opt = step(params, opt, batch)
-        losses.append(float(loss))
-        times.append(time.perf_counter() - t0)
-    zpeak = torch.cuda.max_memory_allocated()
-    if not np.isfinite(losses).all():
-        fail(f"phase 18: zamba2-7b step losses {losses}")
-    zrec = {"layers": L, "batch": B, "seq": S, "ssm_chunk": cfg.ssm_chunk,
-            "params": param_count(params), "step_s": times, "losses": losses, "peak_bytes": zpeak}
-    print(f"zamba2-7b full width, {L} of 81 layers, one arch_fused_step at B={B} S={S} (chunk "
-          f"{cfg.ssm_chunk}, checkpointed chunks): {times[1]:.3f} s (first {times[0]:.3f} s), "
-          f"losses {losses}, peak {zpeak / 2**30:.3f} GiB, {zrec['params']} params")
-    del params, opt, batch
-    torch.cuda.empty_cache()
+    # zamba2-7b at full width, ARCH_ZAMBA layers: fused AdamW steps
+    zrec = _adamw_step("phase 18", "zamba2-7b", *ARCH_ZAMBA)
 
     tiny = arch_spec("arch-tiny", {a: ARCH_TINY["options"] for a in ARCH_TINY["archs"]},
                      ARCH_TINY["clients"], strategy="round_robin", rounds=ARCH_TINY["rounds"])
@@ -1949,13 +2045,13 @@ def phase_arch_async(line: str):
     print("== phase 19: async arch training on the card (run_scenario mode='async', vmap backend)")
     print(f"card: {line}")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     tasks = {a: dict(o, tau=ARCH_ASYNC["tau"]) for a, o in ARCH_SYNC["tasks"].items()}
     spec = arch_spec("arch-async", tasks, ARCH_SYNC["clients"], mode="async",
                      aggregator=ARCH_ASYNC["aggregator"], options=ARCH_ASYNC["options"])
     with FoldShapes() as shapes:
+        shapes.reset_peak()
         res, launches = run_counted(spec, "cuda")
-    peak = torch.cuda.max_memory_allocated()
+    peak = shapes.peak_bytes()
     flushes = len(res.time)
     n = [param_count(p) for p in res.params]
     if (flushes == 0 or launches.get("fused_aggregate", 0) != flushes
@@ -2066,10 +2162,10 @@ def phase_population(line: str):
                 ("sync vmap", big_population_spec("vmap"), "fedavg"),
                 ("async vmap fedadam", big_population_spec("vmap", "async"), "fused_aggregate")):
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            shapes.reset_peak()
             with HostPeak() as host:
                 res, launches = run_counted(spec, "cuda")
-            peak, rss = torch.cuda.max_memory_allocated(), host.bytes
+            peak, rss = shapes.peak_bytes(), host.bytes
             n = len(res.time) if res.mode == "async" else spec.runtime.rounds
             folds = n if res.mode == "async" else int((res.alloc_counts > 0).sum())
             want = {} if kernel is None else {kernel: folds}
@@ -2351,6 +2447,543 @@ def phase_resume(line: str):
     return out
 
 
+class MoeInputs:
+    """Records the input of every ``moe_ffn`` call of the MoE LM (a
+    pass-through around the port's call site), so the routing of a run can
+    be recomputed with ``models.moe.moe_route`` and compared across
+    devices."""
+
+    def __enter__(self):
+        import repro_torch.models.transformer as transformer
+
+        self._saved = moe_ffn = transformer.moe_ffn
+        self.inputs = []
+
+        def rec(p, cfg, x, groups=1):
+            self.inputs.append(x.detach().clone())
+            return moe_ffn(p, cfg, x, groups)
+
+        transformer.moe_ffn = rec
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.transformer as transformer
+
+        transformer.moe_ffn = self._saved
+
+
+def _routing(layers, cfg, inputs):
+    """Per MoE layer of ``inputs``: the experts each token chose and each
+    expert's picks with a nonzero gate (token index, -1 where the gate is
+    0), on the host."""
+    import torch
+
+    from repro_torch.models.moe import moe_route
+    from repro_torch.tree import unstack
+
+    out = []
+    with torch.no_grad():
+        for p_l, x in zip(unstack(layers), inputs):
+            _, topi, w_sel, idx = moe_route(p_l["ffn"], cfg, x.reshape(1, -1, x.shape[-1]))
+            out.append((topi.cpu(), torch.where(w_sel > 0, idx, -1).cpu()))
+    return out
+
+
+def _card_vs_cpu_generate(params, params_cpu, cfg, prompts, gen):
+    """Greedy tokens and prefill logits of the same weights on the card and
+    the host CPU. Returns (tokens identical, max |logits diff|, CPU s)."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_api
+
+    api = get_api(cfg)
+    cpu = torch.device("cpu")
+    gpu = generate(params, cfg, prompts, gen)
+    t0 = time.perf_counter()
+    host = generate(params_cpu, cfg, prompts.to(cpu), gen)
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
+        lg_gpu, _ = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+        lg_cpu, _ = api.prefill_fn(params_cpu, cfg, {"tokens": prompts.to(cpu),
+                                                     "labels": prompts.to(cpu)})
+    diff = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+    return torch.equal(gpu.tokens.cpu(), host.tokens), diff, cpu_s
+
+
+def _serve_family(label: str, arch: str, cfg, norms: int):
+    """Init ``arch`` at full width and depth on the card from PRNGKey(0)
+    (time and peak memory), then serve batch 8, prompt 128, 32 greedy
+    tokens: ``norms`` rmsnorm launches per prefill and per decode step,
+    none of another kernel. Returns (params, prompts, record)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_api, param_count
+
+    api = get_api(cfg)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = api.init_params(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params = param_count(params)
+    held = torch.cuda.memory_allocated() - base
+    print(f"init_params(PRNGKey(0)) on the card: {n_params} params ({cfg.n_layers} layers), "
+          f"{init_s:.2f} s, {held / 2**30:.3f} GiB held, peak {init_peak / 2**30:.3f} GiB "
+          f"during the init")
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    prompts = prng.randint(prng.PRNGKey(0, device=dev), (B, P), 0, cfg.vocab_size)
+    generate(params, cfg, prompts, 2)                          # warm-up: cuBLAS, allocator
+    reset_launches()
+    res = generate(params, cfg, prompts, G)
+    launches = dict(LAUNCHES)
+    if launches != {"rmsnorm": norms * G}:
+        fail(f"{label}: serve launches {launches}, expected rmsnorm {norms} x {G} forwards")
+    per_prefill, per_decode = _hybrid_counts(api, params, cfg, prompts, res.tokens[:, :1])
+    if per_prefill != {"rmsnorm": norms} or per_decode != {"rmsnorm": norms}:
+        fail(f"{label}: one prefill launched {per_prefill}, one decode step {per_decode}, "
+             f"expected rmsnorm {norms} each")
+    if res.tokens.shape != (B, G) or not bool(((res.tokens >= 0)
+                                                & (res.tokens < cfg.vocab_size)).all()):
+        fail(f"{label}: tokens {tuple(res.tokens.shape)} out of range")
+    rec = {"arch": arch, "params": n_params, "layers": cfg.n_layers, "init_s": init_s,
+           "init_peak_bytes": init_peak, "params_bytes": held, "batch": B, "prompt": P, "gen": G,
+           "ssm_chunk": cfg.ssm_chunk, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+           "prefill_tok_s": B * P / res.prefill_s, "decode_tok_s": B * (G - 1) / res.decode_s,
+           "launches": launches, "per_prefill": per_prefill, "per_decode_step": per_decode}
+    print(f"serve {arch} batch {B} prompt {P} gen {G}: prefill {res.prefill_s * 1e3:.2f} ms "
+          f"({rec['prefill_tok_s']:.0f} tok/s), decode {res.decode_s * 1e3:.2f} ms for {G - 1} "
+          f"steps ({rec['decode_tok_s']:.1f} tok/s); launches {launches}; per prefill "
+          f"{per_prefill}, per decode step {per_decode}")
+    return params, prompts, rec
+
+
+def _family_loss(label: str, params, cfg, B: int, S: int, want: dict, reps: int,
+                 pallas: bool):
+    """The forward loss at (B, S) on the card: launches of one forward (must
+    equal ``want``), ms per forward and peak memory; with ``pallas`` also
+    the ``use_pallas=False`` loss, which must agree within 2e-4."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import get_api
+
+    api = get_api(cfg)
+    run_cfg = cfg.replace(use_pallas=True) if pallas else cfg
+    dev = torch.device("cuda")
+    tokens = prng.randint(prng.PRNGKey(1, device=dev), (B, S), 0, cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": tokens}
+    rec = {"B": B, "S": S, "ssm_chunk": cfg.ssm_chunk}
+    with torch.no_grad():
+        api.loss_fn(params, run_cfg, batch)                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        loss, metrics = api.loss_fn(params, run_cfg, batch)
+        launches = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        rec.update(loss=loss.item(), peak_bytes=torch.cuda.max_memory_allocated(),
+                   activation_peak_bytes=torch.cuda.max_memory_allocated() - base,
+                   launches=launches, ms=time_ms(lambda: api.loss_fn(params, run_cfg, batch),
+                                                 reps=reps))
+        if "aux" in metrics:
+            rec["aux"] = float(metrics["aux"])
+        if pallas:
+            loss_plain, _ = api.loss_fn(params, cfg, batch)
+            rec.update(loss_plain_path=loss_plain.item(),
+                       ms_plain_path=time_ms(lambda: api.loss_fn(params, cfg, batch), reps=reps))
+    if launches != want:
+        fail(f"{label}: loss launches {launches}, expected {want}")
+    if not torch.isfinite(loss):
+        fail(f"{label}: loss {loss.item()}")
+    line = (f"loss B={B} S={S}{' use_pallas' if pallas else ''}: {rec['loss']:.6f}, "
+            f"{rec['ms']:.2f} ms per forward, peak memory {rec['peak_bytes'] / 2**30:.3f} GiB "
+            f"({rec['activation_peak_bytes'] / 2**30:.3f} GiB above the weights); launches "
+            f"{launches}")
+    if pallas:
+        rec["diff"] = abs(rec["loss"] - rec["loss_plain_path"])
+        line += (f"; plain path {rec['loss_plain_path']:.6f} ({rec['ms_plain_path']:.2f} ms), "
+                 f"|diff| {rec['diff']:.3g} (tol 2e-4)")
+        if not rec["diff"] <= 2e-4:
+            fail(f"{label}: use_pallas loss {rec['loss']} vs plain {rec['loss_plain_path']}")
+    print(line)
+    return rec
+
+
+def phase_moe(line: str):
+    """Phase 22: qwen2-moe-a2.7b at full width and depth."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models import get_api, param_count
+    from repro_torch.tree import tree_map
+
+    print(f"== phase 22: {MOE_ARCH} at full width and depth on the card")
+    print(f"card: {line}")
+    cfg = serve_config(get_config(MOE_ARCH), SERVE_PROMPT)
+    norms = 2 * cfg.n_layers + 1
+    params, prompts, served = _serve_family("phase 22", MOE_ARCH, cfg, norms)
+    loss = _family_loss("phase 22", params, cfg, MOE_LOSS_B, MOE_LOSS_S,
+                        {"flash_attention": cfg.n_layers, "rmsnorm": norms}, reps=3, pallas=True)
+
+    # card against CPU: the first MOE_CPU_LAYERS layers of the same weights
+    L = MOE_CPU_LAYERS
+    small_cfg = cfg.replace(n_layers=L)
+    small = dict(params, moe_layers=tree_map(lambda t: t[:L], params["moe_layers"]))
+    small_cpu = tree_map(lambda t: t.cpu(), small)
+    few = prompts[:CPU_BATCH]
+    same, diff, cpu_s = _card_vs_cpu_generate(small, small_cpu, small_cfg, few, CPU_GEN)
+    api = get_api(small_cfg)
+    with torch.no_grad():
+        with MoeInputs() as on_gpu:
+            api.prefill_fn(small, small_cfg, {"tokens": few, "labels": few})
+        with MoeInputs() as on_cpu:
+            api.prefill_fn(small_cpu, small_cfg, {"tokens": few.cpu(), "labels": few.cpu()})
+    r_gpu = _routing(small["moe_layers"], small_cfg, on_gpu.inputs)
+    r_cpu = _routing(small_cpu["moe_layers"], small_cfg, on_cpu.inputs)
+    routing_same = len(r_gpu) == len(r_cpu) == L and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(r_gpu, r_cpu))
+    picks = sum(int((r[1] >= 0).sum()) for r in r_gpu)
+    print(f"{L} of {cfg.n_layers} layers ({param_count(small_cpu)} params), batch {CPU_BATCH}, "
+          f"{CPU_GEN} tokens on the host CPU ({cpu_s:.2f} s): greedy tokens "
+          f"identical={same}, max |prefill logits card - cpu| {diff:.3g} (tol 1e-3), routing "
+          f"(top-{cfg.top_k} experts and {picks} nonzero-gate picks) identical={routing_same}")
+    if not same or not diff <= 1e-3 or not routing_same:
+        fail("phase 22: card and CPU disagree")
+    served.update(cpu_layers=L, cpu_tokens_identical=same,
+                  cpu_prefill_logits_max_abs_diff=diff, cpu_routing_identical=routing_same,
+                  cpu_nonzero_picks=picks)
+    del small_cpu, small, params
+    torch.cuda.empty_cache()
+    return served, loss
+
+
+def phase_xlstm(line: str):
+    """Phase 23: xlstm-1.3b at full width and depth."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models import get_api, param_count
+    from repro_torch.models.xlstm_lm import _layout
+    from repro_torch.tree import tree_map
+
+    print(f"== phase 23: {XLSTM_ARCH} at full width and depth on the card")
+    print(f"card: {line}")
+    full = get_config(XLSTM_ARCH)
+    cfg = serve_config(full, SERVE_PROMPT)
+    _, n_groups, _, n_tail = _layout(cfg)
+    norms = 2 * cfg.n_layers + 1           # ln and gate_norm / out_norm per block, final norm
+    params, prompts, served = _serve_family("phase 23", XLSTM_ARCH, cfg, norms)
+    loss = _family_loss("phase 23", params, full, XLSTM_LOSS_B, XLSTM_LOSS_S,
+                        {"rmsnorm": norms}, reps=1, pallas=False)
+    loss["parts"] = _xlstm_parts(params, full)
+
+    # card against CPU: the first group (XLSTM_CPU_LAYERS layers: 7 mLSTM,
+    # 1 sLSTM) of the same weights
+    L = XLSTM_CPU_LAYERS
+    small_cfg = cfg.replace(n_layers=L)
+    _, g, mpg, tail = _layout(small_cfg)
+    small = dict(params, mlstm_layers=tree_map(lambda t: t[:g * mpg + tail],
+                                               params["mlstm_layers"]),
+                 slstm_layers=tree_map(lambda t: t[:g], params["slstm_layers"]))
+    small_cpu = tree_map(lambda t: t.cpu(), small)
+    few = prompts[:CPU_BATCH]
+    same, diff, cpu_s = _card_vs_cpu_generate(small, small_cpu, small_cfg, few, CPU_GEN)
+    api = get_api(small_cfg)
+    toks = prng.randint(prng.PRNGKey(2), (1, XLSTM_CPU_LOSS_S), 0, cfg.vocab_size)
+    with torch.no_grad():
+        l_gpu, _ = api.loss_fn(small, small_cfg, {"tokens": toks.cuda(), "labels": toks.cuda()})
+        l_cpu, _ = api.loss_fn(small_cpu, small_cfg, {"tokens": toks, "labels": toks})
+    loss_diff = abs(l_gpu.item() - l_cpu.item())
+    print(f"{L} of {cfg.n_layers} layers ({g * mpg + tail} mLSTM, {g} sLSTM; "
+          f"{param_count(small_cpu)} params), batch {CPU_BATCH}, {CPU_GEN} tokens on the host "
+          f"CPU ({cpu_s:.2f} s): greedy tokens identical={same}, max |prefill logits card - cpu| "
+          f"{diff:.3g} (tol 1e-3); loss B=1 S={XLSTM_CPU_LOSS_S}: card {l_gpu.item():.6f}, CPU "
+          f"{l_cpu.item():.6f}, |diff| {loss_diff:.3g} (tol 1e-4)")
+    if not same or not diff <= 1e-3 or not loss_diff <= 1e-4:
+        fail("phase 23: card and CPU disagree")
+    served.update(groups=n_groups, tail=n_tail, cpu_layers=L, cpu_tokens_identical=same,
+                  cpu_prefill_logits_max_abs_diff=diff, cpu_loss_diff=loss_diff)
+    del small_cpu, small, params
+    torch.cuda.empty_cache()
+    return served, loss
+
+
+def _xlstm_parts(params, cfg) -> dict:
+    """Time, at the xlstm loss's shape (B=1, S=2048, chunk 256), its two
+    sequence mixers alone, one layer each: mLSTM's plain ``ssd_chunked``
+    (G = H = 4 groups of one head, N = dk = 1024, P = dk + 1 = 1025; the
+    shape the ``ssd_scan`` kernel cannot take) on seeded inputs, and one
+    sLSTM layer's forward (its Python loop over the sequence) on the model's
+    first sLSTM weights."""
+    import torch
+
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.xlstm_lm import _layout
+    from repro_torch.tree import tree_map
+
+    B, L = XLSTM_LOSS_B, XLSTM_LOSS_S
+    _, H, dk = xlstm._mdims(cfg)
+    _, n_groups, mpg, tail = _layout(cfg)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(B, L, H, 1, dk + 1, generator=gen, device=dev)
+    a = torch.rand(B, L, H, 1, generator=gen, device=dev).mul_(-0.1)
+    k = torch.randn(B, L, H, dk, generator=gen, device=dev).mul_(dk ** -0.5)
+    q = torch.randn(B, L, H, dk, generator=gen, device=dev)
+    u = torch.randn(B, L, cfg.d_model, generator=gen, device=dev)
+    p_s = tree_map(lambda t: t[0], params["slstm_layers"]["cell"])
+    with torch.no_grad():
+        rec = {"mlstm_scan_ms": time_ms(lambda: ssm.ssd_chunked(x, a, k, q, cfg.ssm_chunk),
+                                        reps=3),
+               "mlstm_layers": n_groups * mpg + tail,
+               "slstm_layer_ms": time_ms(lambda: xlstm.slstm_forward(p_s, cfg, u), reps=1),
+               "slstm_layers": n_groups}
+    print(f"the loss's mixers alone, one layer each: mLSTM ssd_chunked at (B={B}, L={L}, "
+          f"G={H}, N={dk}, P={dk + 1}, chunk {cfg.ssm_chunk}) {rec['mlstm_scan_ms']:.2f} ms "
+          f"(x {rec['mlstm_layers']} layers), one sLSTM layer's forward "
+          f"{rec['slstm_layer_ms']:.2f} ms (x {rec['slstm_layers']} layers)")
+    del x, a, k, q, u
+    return rec
+
+
+class DepthCut:
+    """Builds the named archs of the ``arch`` family at fewer layers (their
+    widths unchanged): a pass-through around ``launch.train.get_config``.
+    Layer i of a cut model is layer i of the full one (a key split is
+    positional), so the cut is the first layers of the same model."""
+
+    def __init__(self, layers: dict):
+        self.layers = layers
+
+    def __enter__(self):
+        import repro_torch.launch.train as train
+
+        self._saved = get_config = train.get_config
+
+        def cut(name):
+            cfg = get_config(name)
+            return cfg.replace(n_layers=self.layers[name]) if name in self.layers else cfg
+
+        train.get_config = cut
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.launch.train as train
+
+        train.get_config = self._saved
+
+
+class TaskClock:
+    """Seconds and rounds of each task's share of a sync arch run: a
+    pass-through around ``ArchSyncEngine._run_task_round`` that
+    synchronises the card before and after each call (less the seconds of
+    ``FoldShapes``' checks)."""
+
+    def __enter__(self):
+        import collections
+
+        import torch
+
+        from repro_torch.api import engine
+
+        self.seconds, self.rounds = collections.Counter(), collections.Counter()
+        self._saved = run = engine.ArchSyncEngine._run_task_round
+
+        def timed(eng, name, *args, **kw):
+            torch.cuda.synchronize()
+            t0, held = time.perf_counter(), FoldShapes.held_s
+            out = run(eng, name, *args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0 - (FoldShapes.held_s - held)
+            self.rounds[name] += 1
+            return out
+
+        engine.ArchSyncEngine._run_task_round = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.api import engine
+
+        engine.ArchSyncEngine._run_task_round = self._saved
+
+
+def _adamw_step(label: str, arch: str, layers: int, B: int, S: int) -> dict:
+    """Two fused AdamW steps of ``arch`` at full width and ``layers``
+    layers, from ``build_task``'s seed, on (B, S) tokens (the SSM chunk cut
+    to a quarter of S, at least 8, as ``build_task`` cuts it): time of
+    each, peak memory, losses."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import arch_fused_step, server_opt
+    from repro_torch.models import get_api, param_count
+
+    cfg = get_config(arch).replace(n_layers=layers)
+    cfg = cfg.replace(ssm_chunk=min(cfg.ssm_chunk, max(8, S // 4)))
+    api = get_api(cfg)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(prng.PRNGKey(zlib.crc32(arch.encode()) % 2**31, device=dev), cfg,
+                             device=dev)
+    opt = server_opt().init(params)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    batch = {"tokens": toks, "labels": toks, "client_weights": torch.ones(B, device=dev)}
+    step, _ = arch_fused_step(api, cfg)
+    times, losses = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        fail(f"{label}: {arch} step losses {losses}")
+    rec = {"layers": layers, "batch": B, "seq": S, "ssm_chunk": cfg.ssm_chunk,
+           "params": param_count(params), "step_s": times, "losses": losses, "peak_bytes": peak}
+    print(f"{arch} full width, {layers} of {get_config(arch).n_layers} layers, one "
+          f"arch_fused_step at B={B} S={S}: {times[1]:.3f} s (first {times[0]:.3f} s), losses "
+          f"{losses}, peak {peak / 2**30:.3f} GiB, {rec['params']} params")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_families_train(line: str):
+    """Phase 24: LM training on the example's three-task mix."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import param_count
+
+    print("== phase 24: sync arch training of the example's mix on the card (run_scenario, "
+          "vmap backend)")
+    print(f"card: {line}")
+    torch.cuda.empty_cache()
+    tasks = FAMILIES_SYNC["tasks"]
+    spec = arch_spec("arch-families", tasks, FAMILIES_SYNC["clients"])
+    with DepthCut(FAMILIES_SYNC["layers"]), FoldShapes() as shapes, TaskClock() as clock:
+        shapes.reset_peak()
+        res, launches = run_counted(spec, "cuda")
+    peak = shapes.peak_bytes()
+    names = res.task_names
+    folded = [s for s, t in enumerate(spec.tasks) if t.options["tau"] > 1]
+    folds = int((res.alloc_counts[:, folded] > 0).sum())
+    n = {a: param_count(p) for a, p in zip(names, res.params)}
+    want_shapes = {(tasks[names[s]]["batch"], n[names[s]], "float32"):
+                   int((res.alloc_counts[:, s] > 0).sum()) for s in folded}
+    want_shapes = {k: v for k, v in want_shapes.items() if v}
+    if not folds or launches.get("fedavg", 0) != folds or dict(shapes.fedavg) != want_shapes:
+        fail(f"phase 24: fedavg launched {launches.get('fedavg', 0)} times at "
+             f"{dict(shapes.fedavg)} for {folds} non-empty tau>1 folds {want_shapes}")
+    if set(launches) - {"fedavg", "rmsnorm"} or launches.get("rmsnorm", 0) <= 0:
+        fail(f"phase 24: launches {launches}")
+    trained = np.cumsum(res.alloc_counts > 0, axis=0) > 0
+    if not (trained[-1].all() and np.isfinite(res.loss[trained]).all()
+            and np.isfinite(res.acc).all()):
+        fail(f"phase 24: loss {res.loss} or accuracy {res.acc} not finite, or a task never "
+             f"trained ({res.alloc_counts.tolist()})")
+    per_task = {}
+    for s, t in enumerate(spec.tasks):
+        o = t.options
+        tok = int((res.alloc_counts[:, s] > 0).sum()) * o["batch"] * o["seq"] * o["tau"]
+        per_task[t.name] = {
+            "layers": FAMILIES_SYNC["layers"].get(t.name), "tau": o["tau"], "params": n[t.name],
+            "rounds_trained": clock.rounds[t.name], "seconds": clock.seconds[t.name],
+            "s_per_round": clock.seconds[t.name] / max(clock.rounds[t.name], 1),
+            "trained_tokens": tok,
+            "trained_tokens_per_s": tok / clock.seconds[t.name] if clock.seconds[t.name] else 0.0,
+            "final_loss": res.final_loss[t.name], "final_acc": float(res.acc[-1, s])}
+    with DepthCut(FAMILIES_SYNC["layers"]):
+        per_step = {t.name: norms_per_step(t, p) for t, p in zip(spec.tasks, res.params)}
+    for a, count in per_step.items():
+        per_task[a]["rmsnorm_per_training_step"] = count
+    tokens = _trained_tokens(spec, res)
+    rec = {"s_per_round": res.wall_time / spec.runtime.rounds,
+           "trained_tokens_per_s": tokens / res.wall_time, "wall_s": res.wall_time,
+           "peak_bytes": peak, "alloc_counts": res.alloc_counts.tolist(), "launches": launches,
+           "fedavg_folds": folds, "tasks": per_task}
+    print(f"arch sync {names} (depths {FAMILIES_SYNC['layers']}): {rec['s_per_round']:.3f} "
+          f"s/round, {rec['trained_tokens_per_s']:.1f} trained tokens/s ({tokens} tokens in "
+          f"{res.wall_time:.3f} s), peak {peak / 2**30:.3f} GiB; launches {launches}, fedavg = "
+          f"non-empty tau>1 folds {folds} at {dict(shapes.fedavg)}")
+    for a, r in per_task.items():
+        print(f"  {a}: {r['s_per_round']:.3f} s/round over {r['rounds_trained']} rounds, "
+              f"{r['trained_tokens_per_s']:.1f} trained tokens/s, final loss "
+              f"{r['final_loss']:.4f}, final acc {r['final_acc']:.4f}, rmsnorm launches per "
+              f"training step {r['rmsnorm_per_training_step']}")
+    checked = check_run_shapes("phase 24", shapes)
+    if checked["fedavg_calls_held"] != folds:
+        fail(f"phase 24: {checked['fedavg_calls_held']} fedavg calls held for {folds} folds")
+    del res
+    timed = time_lm_shapes(shapes)
+
+    steps = {a: _adamw_step("phase 24", a, *shape) for a, shape in FAMILIES_STEP.items()}
+
+    # the tiny mix on the card, its folds and flushes recorded (and each
+    # fedavg call held) at the shapes these runs give the kernels
+    tiny = arch_spec("families-tiny", {a: FAMILIES_TINY["options"] for a in FAMILIES_TINY["archs"]},
+                     FAMILIES_TINY["clients"], strategy="round_robin",
+                     rounds=FAMILIES_TINY["rounds"])
+    tiny_async = arch_spec("families-tiny-async",
+                           {a: FAMILIES_TINY["options"] for a in FAMILIES_TINY["archs"]},
+                           FAMILIES_TINY["clients"], mode="async", strategy="round_robin",
+                           arrivals=FAMILIES_TINY["arrivals"], buffer=FAMILIES_TINY["buffer"],
+                           aggregator="fedadam", options=ARCH_ASYNC["options"])
+    with FoldShapes() as tiny_shapes:
+        gpu, tlaunch = run_counted(tiny, "cuda")
+        agpu, alaunch = run_counted(tiny_async, "cuda")
+    tfolds, flushes = int((gpu.alloc_counts > 0).sum()), len(agpu.time)
+    if (tlaunch.get("fedavg", 0) != tfolds or sum(tiny_shapes.fedavg.values()) != tfolds
+            or alaunch.get("fedavg", 0) or sum(tiny_shapes.fused.values()) != flushes):
+        fail(f"phase 24: tiny runs' launches {tlaunch} / {alaunch} and shapes "
+             f"{dict(tiny_shapes.fedavg)} / {dict(tiny_shapes.fused)} for {tfolds} tau 2 folds "
+             f"and {flushes} flushes")
+    cpu, _ = run_counted(tiny, "cpu")
+    same = np.array_equal(gpu.alloc, cpu.alloc)
+    gap = _loss_gap(gpu, cpu)
+    print(f"tiny {list(FAMILIES_TINY['archs'])} round_robin tau 2 card vs CPU: allocation traces "
+          f"identical={same}, max |loss card - loss cpu| {gap:.3g}, accuracy curves identical="
+          f"{np.array_equal(gpu.acc, cpu.acc)}; fedavg {tlaunch.get('fedavg', 0)} launches for "
+          f"{tfolds} non-empty folds")
+    if not same or not gap <= 1e-3:
+        fail("phase 24: tiny arch sync card vs CPU disagree")
+    acpu, _ = run_counted(tiny_async, "cpu")
+    asame = _same_events(agpu, acpu)
+    agap = _loss_gap(agpu, acpu)
+    print(f"tiny async fedadam round_robin card vs CPU: event traces identical={asame}, max "
+          f"|eval loss card - cpu| {agap:.3g}; fused_aggregate {alaunch.get('fused_aggregate', 0)} "
+          f"launches for {flushes} flushes")
+    if not asame or not agap <= 1e-3 or alaunch.get("fused_aggregate", 0) != flushes:
+        fail("phase 24: tiny arch async card vs CPU disagree, or fused_aggregate did not run "
+             "once per flush")
+    tiny_checked = check_run_shapes("phase 24 tiny", tiny_shapes)
+    return ({**rec, "adamw_steps": steps, "card_vs_cpu_loss_gap": gap,
+             "card_vs_cpu_async_loss_gap": agap, "tiny_sync_folds": tfolds,
+             "tiny_sync_launches": tlaunch, "tiny_async_flushes": flushes,
+             "tiny_async_launches": alaunch}, checked, tiny_checked, timed)
+
+
 def main() -> int:
     import torch
 
@@ -2383,6 +3016,10 @@ def main() -> int:
     arch_async, arch_async_checked, arch_async_timed = phase_arch_async(line)
     population, pop_checked = phase_population(line)
     resume = phase_resume(line)
+    torch.cuda.empty_cache()
+    moe_served, moe_loss = phase_moe(line)
+    xlstm_served, xlstm_loss = phase_xlstm(line)
+    families, families_checked, tiny_checked, families_timed = phase_families_train(line)
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -2400,20 +3037,28 @@ def main() -> int:
         "launches_population": population["sync vmap"]["launches"]["fedavg"],
         "launches_resume_sync": resume["sync"]["launches_after_resume"]["fedavg"],
         "launches_resume_lm": resume["lm"]["launches_after_resume"].get("fedavg", 0),
+        # phase 24: one per non-empty fold of the tau 2 smollm task of the
+        # example's three-task mix, and of the tiny mix's tau 2 tasks
+        "launches_families_sync": families["launches"]["fedavg"],
+        "launches_families_tiny_sync": families["tiny_sync_launches"]["fedavg"],
         "max_abs_err": max(errs["float32"], sync_checked["fedavg"], async_checked["fedavg"],
-                           arch_sync_checked["fedavg"], pop_checked["fedavg"]),
+                           arch_sync_checked["fedavg"], pop_checked["fedavg"],
+                           families_checked["fedavg"], tiny_checked["fedavg"]),
         "max_abs_err_bf16": errs["bfloat16"],
-        # phases 16-18: the (K, N) folds those runs made, each held against
-        # ref_fedavg after the runs
+        # phases 16-18, 20 and 24: the (K, N) folds those runs made, each
+        # held against ref_fedavg after the runs
         "run_shapes_checked": (sync_checked["fedavg_shapes"] + async_checked["fedavg_shapes"]
                                + arch_sync_checked["fedavg_shapes"]
-                               + pop_checked["fedavg_shapes"]),
+                               + pop_checked["fedavg_shapes"]
+                               + families_checked["fedavg_shapes"]
+                               + tiny_checked["fedavg_shapes"]),
         "shape": list(TIMED_MAIN),
         "dtype": "float32",
         **timed[TIMED_MAIN],
         "async_flush": {"shape": list(FUSED_TIMED), **timed[FUSED_TIMED]},
         "lm_scale": {"shape": [LM_K, LM_N], **lm},
         "arch_sync_folds": arch_sync_timed,
+        "families_sync_folds": families_timed,
     }
     fused = {
         "name": "fused_aggregate",
@@ -2429,10 +3074,13 @@ def main() -> int:
         "launches_population_async": population["async vmap fedadam"]["launches"][
             "fused_aggregate"],
         "launches_resume_async": resume["async"]["launches_after_resume"]["fused_aggregate"],
+        # phase 24: one per flush of the tiny three-task mix's async fedadam run
+        "launches_families_tiny_async": families["tiny_async_launches"]["fused_aggregate"],
         "max_abs_err": max(f_err, async_checked["fused_aggregate"],
-                           arch_async_checked["fused_aggregate"], pop_checked["fused_aggregate"]),
+                           arch_async_checked["fused_aggregate"], pop_checked["fused_aggregate"],
+                           tiny_checked["fused_aggregate"]),
         "run_shapes_checked": (async_checked["fused_shapes"] + arch_async_checked["fused_shapes"]
-                               + pop_checked["fused_shapes"]),
+                               + pop_checked["fused_shapes"] + tiny_checked["fused_shapes"]),
         "yogi_ties": f_ties,
         "mode": "fedadam",
         "shape": list(FUSED_TIMED),
@@ -2454,6 +3102,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:74",
         "launches": loss["launches"]["flash_attention"],
         "launches_zamba2_loss": hloss["launches"]["flash_attention"],
+        "launches_qwen2_moe_loss": moe_loss["launches"]["flash_attention"],
         "max_abs_err": flash_errs["float32"],
         "max_abs_err_bf16": flash_errs["bfloat16"],
         "shape": list(FLASH_SHAPES[0]),
@@ -2463,6 +3112,8 @@ def main() -> int:
         "bf16": flash_timed[FLASH_SHAPES[0], "bfloat16"],
         "zamba2_hd112": {"shape": list(FLASH_ZAMBA), "float32": flash_timed[FLASH_ZAMBA, "float32"],
                          "bf16": flash_timed[FLASH_ZAMBA, "bfloat16"]},
+        "qwen2_moe_hd128": {"shape": list(FLASH_MOE), "float32": flash_timed[FLASH_MOE, "float32"],
+                            "bf16": flash_timed[FLASH_MOE, "bfloat16"]},
     }
     rms = {
         "name": "rmsnorm",
@@ -2480,6 +3131,16 @@ def main() -> int:
         "launches_per_training_step": arch_sync["rmsnorm_per_training_step"],
         # phase 21 (c): the LM run after its resume
         "launches_resume_lm": resume["lm"]["launches_after_resume"]["rmsnorm"],
+        # phases 22-24: serving (per prefill and per decode step) and the loss
+        # of qwen2-moe and xlstm, the three-task training run and one
+        # training step of each of its tasks
+        "launches_qwen2_moe_serve": moe_served["launches"]["rmsnorm"],
+        "launches_qwen2_moe_loss": moe_loss["launches"]["rmsnorm"],
+        "launches_xlstm_serve": xlstm_served["launches"]["rmsnorm"],
+        "launches_xlstm_loss": xlstm_loss["launches"]["rmsnorm"],
+        "launches_families_sync": families["launches"]["rmsnorm"],
+        "launches_per_training_step_families": {
+            a: r["rmsnorm_per_training_step"] for a, r in families["tasks"].items()},
         **norm,
     }
     gated_rec = {
@@ -2506,6 +3167,9 @@ def main() -> int:
                       "zamba2_loss": hloss}))
     print(json.dumps({"arch_sync": arch_sync, "arch_async": arch_async}))
     print(json.dumps({"population": population, "resume": resume}))
+    print(json.dumps({"qwen2_moe_serve": moe_served, "qwen2_moe_loss": moe_loss,
+                      "xlstm_serve": xlstm_served, "xlstm_loss": xlstm_loss,
+                      "families_sync": families}))
     print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

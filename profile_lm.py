@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's LM forward spends its time, on one NVIDIA GPU.
 
-    python3 profile_lm.py [--arch smollm-135m|zamba2-7b] [--train]
+    python3 profile_lm.py [--arch smollm-135m|zamba2-7b|qwen2-moe-a2.7b|xlstm-1.3b] [--train]
 
 Runs the LM configurations of ``chip_smoke.py`` for one arch, at full
 width from PRNGKey(0): serving (batch 8, prompt 128, 32 greedy tokens
 through ``repro_torch.launch.serve.generate``) and the forward loss with
 ``use_pallas=True``: smollm-135m (the default) at B=4, S=2048; zamba2-7b
 at full depth, serving with ``use_pallas`` too (chunk 64), its loss at
-B=1, S=2048. Each runs once to warm up, then under ``torch.profiler``
+B=1, S=2048; qwen2-moe-a2.7b and xlstm-1.3b at full depth (xlstm serving
+at chunk 64), their losses at B=1, S=2048 (xlstm's at chunk 256, where
+``use_pallas`` changes nothing: the JAX package sends none of its work to
+a kernel but the norms). Each runs once to warm up, then under ``torch.profiler``
 with CPU and CUDA activities (``profile_kernels.profile_calls``: one
 traced warm-up call that is discarded, then serving once and the loss
 ``LOSS_CALLS`` times, figures per call). Prints, for each: the wall time, the
@@ -126,10 +129,13 @@ def main(argv=None) -> int:
     import torch
 
     from chip_smoke import (HYBRID_ARCH, HYBRID_LOSS_B, HYBRID_LOSS_S, LM_ARCH, LOSS_B, LOSS_S,
-                            SERVE_BATCH, SERVE_GEN, SERVE_PROMPT, card_line)
+                            MOE_ARCH, MOE_LOSS_B, MOE_LOSS_S, SERVE_BATCH, SERVE_GEN,
+                            SERVE_PROMPT, XLSTM_ARCH, XLSTM_LOSS_B, XLSTM_LOSS_S, card_line)
 
+    loss_shapes = {LM_ARCH: (LOSS_B, LOSS_S), HYBRID_ARCH: (HYBRID_LOSS_B, HYBRID_LOSS_S),
+                   MOE_ARCH: (MOE_LOSS_B, MOE_LOSS_S), XLSTM_ARCH: (XLSTM_LOSS_B, XLSTM_LOSS_S)}
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=[LM_ARCH, HYBRID_ARCH], default=LM_ARCH)
+    ap.add_argument("--arch", choices=list(loss_shapes), default=LM_ARCH)
     ap.add_argument("--train", action="store_true",
                     help="break down one fused AdamW training step of smollm-135m instead")
     args = ap.parse_args(argv)
@@ -155,10 +161,11 @@ def main(argv=None) -> int:
     print(f"card: {card_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     arch = args.arch
-    hybrid = arch == HYBRID_ARCH
-    loss_b, loss_s = (HYBRID_LOSS_B, HYBRID_LOSS_S) if hybrid else (LOSS_B, LOSS_S)
+    loss_b, loss_s = loss_shapes[arch]
     cfg = get_config(arch)
-    serve_cfg = serve_config(cfg.replace(use_pallas=True), SERVE_PROMPT) if hybrid else cfg
+    # zamba2 serves under use_pallas, as chip_smoke.py phase 14 does; every
+    # arch with launch/serve.py's SSM chunk rule
+    serve_cfg = serve_config(cfg.replace(use_pallas=arch == HYBRID_ARCH), SERVE_PROMPT)
     dev = torch.device("cuda")
     api = get_api(cfg)
     params = api.init_params(prng.PRNGKey(0), cfg, device=dev)

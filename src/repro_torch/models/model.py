@@ -1,5 +1,5 @@
-"""Unified model API: the dense LM and the zamba2 hybrid expose the JAX
-package's five functions.
+"""Unified model API: the dense and MoE LMs, the zamba2 hybrid and the
+xLSTM LM expose the JAX package's five functions.
 
     init_params(key, cfg, device=None)          -> params
     loss_fn(params, cfg, batch)                 -> (loss, metrics)
@@ -18,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, transformer, xlstm_lm
 from repro_torch.tree import tree_leaves
 
 
@@ -31,16 +31,21 @@ class ModelApi:
     decode_fn: Callable
 
 
+_LM_API = ModelApi(transformer.init_lm, transformer.lm_loss, transformer.lm_prefill,
+                   transformer.init_lm_cache, transformer.lm_decode)
 _APIS = {
-    "dense": ModelApi(transformer.init_lm, transformer.lm_loss, transformer.lm_prefill,
-                      transformer.init_lm_cache, transformer.lm_decode),
+    "dense": _LM_API,
+    "moe": _LM_API,
     "hybrid": ModelApi(hybrid.init_hybrid, hybrid.hybrid_loss, hybrid.hybrid_prefill,
                        hybrid.init_hybrid_cache, hybrid.hybrid_decode),
+    "ssm": ModelApi(xlstm_lm.init_xlstm_lm, xlstm_lm.xlstm_loss, xlstm_lm.xlstm_prefill,
+                    xlstm_lm.init_xlstm_cache, xlstm_lm.xlstm_decode),
 }
 
 
 def get_api(cfg) -> ModelApi:
-    """The API of ``cfg``'s arch type; ``dense`` and ``hybrid`` are ported."""
+    """The API of ``cfg``'s arch type; ``dense``, ``moe`` (without MLA),
+    ``hybrid`` and ``ssm`` are ported."""
     transformer.check_ported(cfg)
     return _APIS[cfg.arch_type]
 
@@ -48,8 +53,9 @@ def get_api(cfg) -> ModelApi:
 def pad_cache(caches, old_len: int, new_len: int):
     """Grow a prefill cache to a larger serving length (zeros / -1 pos):
     the attention leaves ``k``, ``v`` and ``positions`` grow along the
-    sequence; every other leaf (the hybrid's Mamba2 ``state`` and ``conv``)
-    is left as it is."""
+    sequence; every other leaf (the Mamba2 and mLSTM ``state`` and
+    ``conv``, the sLSTM state) and a ``None`` sLSTM cache are left as they
+    are."""
     def grow(t, axis, fill):
         extra = list(t.shape)
         extra[axis] = new_len - old_len
@@ -73,3 +79,22 @@ def pad_cache(caches, old_len: int, new_len: int):
 
 def param_count(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
+
+
+def _leaves_with_names(tree, name=""):
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in _leaves_with_names(v, k)]
+    return [(name, tree)]
+
+
+def active_param_count(params, cfg) -> int:
+    """MoE: params actually touched per token (top_k of the routed experts,
+    and every other param), counted as the JAX package counts them: a leaf
+    named gate, up or down whose third axis from the end is n_experts."""
+    total = param_count(params)
+    if not cfg.is_moe:
+        return total
+    expert_total = sum(leaf.numel() for name, leaf in _leaves_with_names(params)
+                       if leaf.ndim >= 3 and leaf.shape[-3] == cfg.n_experts
+                       and name in ("gate", "up", "down"))
+    return int(total - expert_total + expert_total * cfg.top_k / cfg.n_experts)

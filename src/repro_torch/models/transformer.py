@@ -1,12 +1,15 @@
-"""Decoder-only LM assembly for the dense architectures.
+"""Decoder-only LM assembly for the dense and MoE architectures.
 
 Params keep the JAX package's tree, with the layers stacked on axis 0
-(``params["dense_layers"]``), so ``interop.lm_params_from_numpy`` carries
-a JAX param tree across by key. Where the JAX package ``lax.scan``s over
-the stack, the port loops over it in Python. Its sharding constraints have
-no counterpart on one GPU (multi-GPU is ROADMAP queue 1 item 14).
-MoE, MLA, vlm and the families other than the hybrid (``hybrid.py``) are
-refused by name.
+(``params["dense_layers"]``, and ``params["moe_layers"]`` for an MoE
+config after its ``first_dense_layers``), so ``interop.lm_params_from_numpy``
+carries a JAX tree across by key. Where the JAX package ``lax.scan``s over
+a stack, the port loops over it in Python, summing the MoE layers'
+load-balance losses in layer order as the scan does. Its sharding
+constraints have no counterpart on one GPU (multi-GPU is ROADMAP queue 1
+item 14). MLA, vlm and audio are refused by name; the hybrid
+(``hybrid.py``) and xLSTM (``xlstm_lm.py``) families have their own
+assemblies.
 """
 
 from __future__ import annotations
@@ -19,17 +22,19 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embedding,
                                        init_swiglu, normal, rms_norm, stacked_init, swiglu)
+from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map, unstack
 
-PORTED_ARCHS = ("dense", "hybrid")
+PORTED_ARCHS = ("dense", "moe", "hybrid", "ssm")
+# weight of the MoE load-balance loss in ``lm_loss`` (the JAX package's default)
+AUX_WEIGHT = 0.01
 # arch types of the JAX package that the port does not run yet, with the
 # ROADMAP queue 1 item that brings each
 UNPORTED_ARCHS = {
-    "moe": "MoE and MLA (qwen2-moe, deepseek-v2-lite) are ROADMAP queue 1 item 11",
     "vlm": "the vlm family (phi3-vision) is ROADMAP queue 1 item 10",
-    "ssm": "the ssm family (xlstm) is ROADMAP queue 1 item 11",
     "audio": "the audio family (whisper) is ROADMAP queue 1 item 11",
 }
+STACKS = ("dense", "moe")
 
 
 def check_ported(cfg) -> None:
@@ -37,9 +42,9 @@ def check_ported(cfg) -> None:
     if cfg.arch_type not in PORTED_ARCHS:
         why = UNPORTED_ARCHS.get(cfg.arch_type, "it is not an arch type of the JAX package")
         raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported: {why}")
-    if cfg.use_mla or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE and MLA layers are not ported yet "
-                                  "(ROADMAP queue 1 item 11)")
+    if cfg.use_mla:
+        raise NotImplementedError(f"{cfg.name}: MLA layers (deepseek-v2-lite) are not ported "
+                                  "yet (ROADMAP queue 1 item 11)")
     if cfg.n_img_tokens:
         raise NotImplementedError(f"{cfg.name}: image tokens (vlm) are not ported yet "
                                   "(ROADMAP queue 1 item 10)")
@@ -47,13 +52,14 @@ def check_ported(cfg) -> None:
 
 # ----------------------------------------------------------------- init
 
-def _init_block(key, cfg):
+def _init_block(key, cfg, kind):
     ks = prng.split(key, 2)
     dt = dtype_of(cfg)
     ones = torch.ones(*key.shape[:-1], cfg.d_model, dtype=dt, device=key.device)
-    return {"ln1": ones, "ln2": ones.clone(),
-            "attn": attn.init_attention(ks[..., 0, :], cfg),
-            "ffn": init_swiglu(ks[..., 1, :], cfg.d_model, cfg.d_ff, dt)}
+    ffn = (init_moe(ks[..., 1, :], cfg) if kind == "moe"
+           else init_swiglu(ks[..., 1, :], cfg.d_model, cfg.d_ff, dt))
+    return {"ln1": ones, "ln2": ones.clone(), "attn": attn.init_attention(ks[..., 0, :], cfg),
+            "ffn": ffn}
 
 
 def init_lm(key, cfg, device=None):
@@ -62,12 +68,18 @@ def init_lm(key, cfg, device=None):
     check_ported(cfg)
     key = key.to(resolve_device(device))
     dt = dtype_of(cfg)
-    k_emb, k_dense, _, k_head = prng.split(key, 4)
+    k_emb, k_dense, k_moe, k_head = prng.split(key, 4)
+    n_dense = cfg.first_dense_layers if cfg.is_moe else cfg.n_layers
+    n_moe = cfg.n_layers - n_dense if cfg.is_moe else 0
     params = {
         "emb": init_embedding(k_emb, cfg.padded_vocab, cfg.d_model, dt),
         "final_norm": torch.ones(cfg.d_model, dtype=dt, device=key.device),
-        "dense_layers": stacked_init(lambda k: _init_block(k, cfg), k_dense, cfg.n_layers),
     }
+    if n_dense:
+        params["dense_layers"] = stacked_init(lambda k: _init_block(k, cfg, "dense"), k_dense,
+                                              n_dense)
+    if n_moe:
+        params["moe_layers"] = stacked_init(lambda k: _init_block(k, cfg, "moe"), k_moe, n_moe)
     if not cfg.tie_embeddings:
         params["head"] = normal(k_head, (cfg.d_model, cfg.padded_vocab), cfg.d_model ** -0.5, dt)
     return params
@@ -75,8 +87,9 @@ def init_lm(key, cfg, device=None):
 
 # ----------------------------------------------------------------- blocks
 
-def _block_apply(p, cfg, x, positions, mode, cache=None, pos=None):
-    """One transformer block. Returns (x, new_cache)."""
+def _block_apply(p, cfg, x, positions, kind, mode, cache=None, pos=None):
+    """One transformer block. Returns (x, new_cache, aux): aux is the MoE
+    layer's load-balance loss, 0.0 for a dense layer."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     new_cache = None
     if mode == "train":
@@ -87,32 +100,44 @@ def _block_apply(p, cfg, x, positions, mode, cache=None, pos=None):
         a, new_cache = attn.attn_decode(p["attn"], cfg, h, pos, cache)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["ffn"], h), new_cache
+    if kind == "moe":
+        f, aux = moe_ffn(p["ffn"], cfg, h, groups=cfg.moe_groups)
+    else:
+        f, aux = swiglu(p["ffn"], h), 0.0
+    return x + f, new_cache, aux
 
 
 def lm_backbone(params, cfg, x, positions, mode, caches=None, pos=None):
-    """Runs the layer stack and the final norm. Returns (x, caches): the
-    prefill caches stacked on axis 0, or ``caches`` written in place by
-    decode, or {} in train mode. With ``cfg.remat`` each layer of a
-    training forward runs under ``torch.utils.checkpoint``, as the JAX
-    package ``jax.checkpoint``s its scan body: less memory, same values."""
+    """Runs the dense stack, then the MoE stack, then the final norm.
+    Returns (x, aux, caches): the summed MoE load-balance loss (0.0 without
+    MoE layers) and the prefill caches ``{"dense", "moe"}`` stacked on axis
+    0, or ``caches`` written in place by decode, or {} in train mode. With
+    ``cfg.remat`` each layer of a training forward runs under
+    ``torch.utils.checkpoint``, as the JAX package ``jax.checkpoint``s its
+    scan body: less memory, same values."""
     check_ported(cfg)
-    layers = params["dense_layers"]
-    stacked = caches["dense"] if mode == "decode" else None
-    new = []
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
-    for i, p_l in enumerate(unstack(layers)):
-        c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
-        if remat:
-            x, c = checkpoint(_block_apply, p_l, cfg, x, positions, mode, use_reentrant=False)
-        else:
-            x, c = _block_apply(p_l, cfg, x, positions, mode, cache=c_l, pos=pos)
-        new.append(c)
-    if mode == "prefill":
-        caches = {"dense": {name: torch.stack([c[name] for c in new]) for name in new[0]}}
-    elif mode == "train":
-        caches = {}
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+    aux_total = 0.0
+    new_caches = {}
+    for kind in STACKS:
+        if f"{kind}_layers" not in params:
+            continue
+        stacked = caches[kind] if mode == "decode" else None
+        new = []
+        for i, p_l in enumerate(unstack(params[f"{kind}_layers"])):
+            c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
+            if remat:
+                x, c, aux = checkpoint(_block_apply, p_l, cfg, x, positions, kind, mode,
+                                       use_reentrant=False)
+            else:
+                x, c, aux = _block_apply(p_l, cfg, x, positions, kind, mode, cache=c_l, pos=pos)
+            aux_total = aux_total + aux
+            new.append(c)
+        if mode == "prefill":
+            new_caches[kind] = {name: torch.stack([c[name] for c in new]) for name in new[0]}
+    if mode == "decode":
+        new_caches = caches
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total, new_caches
 
 
 def lm_logits(params, cfg, x):
@@ -136,33 +161,41 @@ def _positions(B, S, device):
 
 def lm_loss(params, cfg, batch):
     """Mean next-token CE over labels >= 0 (weighted by
-    ``batch["client_weights"]`` per row where given). Returns
-    (loss, {"aux": 0.0}); dense layers have no auxiliary loss."""
+    ``batch["client_weights"]`` per row where given), plus ``AUX_WEIGHT``
+    times the MoE load-balance loss for an MoE config. Returns (loss,
+    {"aux": aux}); aux is 0.0 without MoE layers."""
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
-    x, _ = lm_backbone(params, cfg, x, _positions(B, S, x.device), "train")
+    x, aux, _ = lm_backbone(params, cfg, x, _positions(B, S, x.device), "train")
     logits = lm_logits(params, cfg, x)
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     if "client_weights" in batch:
         mask = mask * batch["client_weights"][:, None]
-    return cross_entropy(logits, torch.clamp(labels, min=0), mask), {"aux": 0.0}
+    loss = cross_entropy(logits, torch.clamp(labels, min=0), mask)
+    if cfg.is_moe:
+        loss = loss + AUX_WEIGHT * aux
+    return loss, {"aux": aux}
 
 
 def lm_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the filled caches."""
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
-    x, caches = lm_backbone(params, cfg, x, _positions(B, S, x.device), "prefill")
+    x, _, caches = lm_backbone(params, cfg, x, _positions(B, S, x.device), "prefill")
     return lm_logits(params, cfg, x[:, -1:, :]), caches
 
 
 def init_lm_cache(params, cfg, batch_size, length, dtype, per_row=False):
-    """Empty caches for every layer, stacked on axis 0."""
-    ln1 = params["dense_layers"]["ln1"]
-    one = attn.init_cache(cfg, batch_size, length, dtype, ln1.device, per_row=per_row)
-    n = ln1.shape[0]
-    return {"dense": {name: t.expand(n, *t.shape).clone() for name, t in one.items()}}
+    """Empty caches for every layer of each stack, stacked on axis 0."""
+    caches = {}
+    for kind in STACKS:
+        if f"{kind}_layers" not in params:
+            continue
+        ln1 = params[f"{kind}_layers"]["ln1"]
+        one = attn.init_cache(cfg, batch_size, length, dtype, ln1.device, per_row=per_row)
+        caches[kind] = {name: t.expand(ln1.shape[0], *t.shape).clone() for name, t in one.items()}
+    return caches
 
 
 def lm_decode(params, cfg, token, pos, caches):
@@ -170,5 +203,5 @@ def lm_decode(params, cfg, token, pos, caches):
     slot into ``caches`` in place (it consumes the caches it is given) and
     returns (logits (B, 1, V), caches)."""
     x = embed(params["emb"], token)
-    x, caches = lm_backbone(params, cfg, x, None, "decode", caches=caches, pos=pos)
+    x, _, caches = lm_backbone(params, cfg, x, None, "decode", caches=caches, pos=pos)
     return lm_logits(params, cfg, x), caches

@@ -17,8 +17,10 @@ on whatever device the key tensor lies on.
 
 A batched draw holds several int64 temporaries of the whole batch's size,
 so ``uniform`` and ``normal`` draw key by key along the leading axis once a
-batch exceeds ``MAX_BATCHED_DRAW`` values: each key's draw is independent
-of the others, so the values are the same either way.
+batch exceeds ``MAX_BATCHED_DRAW`` values, and one key's draw that exceeds
+it goes by ranges of the threefry counter: each key's draw is independent
+of the others, and each value depends only on its key and its position,
+so the values are the same either way.
 """
 
 from __future__ import annotations
@@ -80,25 +82,26 @@ def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
     return torch.stack([o0, o1], dim=-1)
 
 
-def _counts(n: int, device) -> tuple:
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    return idx >> 32, idx & MASK
-
-
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: key (..., 2) -> (..., num, 2)."""
-    hi, lo = _counts(num, key.device)
-    b0, b1 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key[..., 0, None], key[..., 1, None], idx >> 32, idx & MASK)
     return torch.stack([b0, b1], dim=-1)
+
+
+def _bits(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """The uint32 values (in int64) at flat positions ``start .. start+n``
+    of ``jax.random.bits(key, ...)``: key (..., 2) -> (..., n)."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key[..., 0, None], key[..., 1, None], idx >> 32, idx & MASK)
+    return b0 ^ b1
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: key (..., 2) ->
     (..., *shape) uint32 values in int64."""
     shape = tuple(int(s) for s in shape)
-    hi, lo = _counts(math.prod(shape), key.device)
-    b0, b1 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
-    return (b0 ^ b1).reshape(*key.shape[:-1], *shape)
+    return _bits(key, 0, math.prod(shape)).reshape(*key.shape[:-1], *shape)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -> torch.Tensor:
@@ -223,37 +226,44 @@ def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def _key_by_key(draw, key: torch.Tensor, shape: Sequence[int], *args):
-    """``draw(key, shape, *args)`` into one f32 tensor, one leading key at a
-    time where the whole batch would exceed ``MAX_BATCHED_DRAW`` values;
-    ``None`` where it fits in one call."""
+def _draw(values, key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``values(bits)`` (an elementwise map of uint32 bits to f32) over the
+    bits of ``key``'s draw of ``shape``, in calls of at most
+    ``MAX_BATCHED_DRAW`` values: a batch of keys too large for one call
+    goes one leading key at a time, a single key's draw too large for one
+    call by ranges of its counter. The values do not depend on the split."""
     shape = tuple(int(s) for s in shape)
-    if key.ndim < 2 or key[..., 0].numel() * math.prod(shape) <= MAX_BATCHED_DRAW:
-        return None
-    out = torch.empty(*key.shape[:-1], *shape, dtype=torch.float32, device=key.device)
-    for i in range(key.shape[0]):
-        out[i] = draw(key[i], shape, *args)
-    return out
+    n = math.prod(shape)
+    if key.ndim >= 2 and key[..., 0].numel() * n > MAX_BATCHED_DRAW:
+        out = torch.empty(*key.shape[:-1], *shape, dtype=torch.float32, device=key.device)
+        for i in range(key.shape[0]):
+            out[i] = _draw(values, key[i], shape)
+        return out
+    if key.ndim == 1 and n > MAX_BATCHED_DRAW:
+        out = torch.empty(n, dtype=torch.float32, device=key.device)
+        step = max(MAX_BATCHED_DRAW, 1)
+        for start in range(0, n, step):
+            stop = min(n, start + step)
+            out[start:stop] = values(_bits(key, start, stop - start))
+        return out.reshape(shape)
+    return values(_bits(key, 0, n)).reshape(*key.shape[:-1], *shape)
+
+
+def _uniform_values(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits."""
-    out = _key_by_key(uniform, key, shape, minval, maxval)
-    if out is not None:
-        return out
-    bits = random_bits(key, shape)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return _draw(lambda bits: _uniform_values(bits, minval, maxval), key, shape)
 
 
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` with u
     uniform on ``(nextafter(-1, 0), 1)``."""
-    out = _key_by_key(normal, key, shape)
-    if out is not None:
-        return out
-    u = uniform(key, shape, float(_LO), float(_HI))
-    return _SQRT2.item() * _erfinv_f32(u)
+    return _draw(lambda bits: _SQRT2.item() * _erfinv_f32(
+        _uniform_values(bits, float(_LO), float(_HI))), key, shape)

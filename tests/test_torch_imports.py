@@ -86,3 +86,12 @@ POPULATION_CHECKPOINT_SLICE = ["checkpoint/__init__.py", "checkpoint/checkpoint.
 @pytest.mark.parametrize("rel", POPULATION_CHECKPOINT_SLICE)
 def test_population_checkpoint_slice_modules_are_checked(rel):
     assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
+FAMILIES_SLICE = ["configs/qwen2_moe_a2_7b.py", "configs/xlstm_1_3b.py", "models/moe.py",
+                  "models/xlstm.py", "models/xlstm_lm.py", "prng.py"]
+
+
+@pytest.mark.parametrize("rel", FAMILIES_SLICE)
+def test_families_slice_modules_are_checked(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES

@@ -57,7 +57,7 @@ def _tokens(cfg, B, S, seed=0):
 # ----------------------------------------------------------------- configs
 
 def test_port_registers_the_dense_archs():
-    assert list_archs() == tuple(sorted(DENSE + ("zamba2-7b",)))
+    assert list_archs() == tuple(sorted(DENSE + ("zamba2-7b", "qwen2-moe-a2.7b", "xlstm-1.3b")))
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -253,10 +253,8 @@ def test_serve_without_device_raises_without_cuda(monkeypatch):
 # ----------------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("change,item", [
-    (dict(arch_type="moe"), "item 11"), (dict(arch_type="vlm"), "item 10"),
-    (dict(arch_type="ssm", slstm_every=2), "item 11"), (dict(arch_type="ssm"), "item 11"),
-    (dict(arch_type="audio"), "item 11"), (dict(use_mla=True), "item 11"),
-    (dict(n_experts=4, top_k=2), "item 11"), (dict(n_img_tokens=8), "item 10"),
+    (dict(arch_type="vlm"), "item 10"), (dict(arch_type="audio"), "item 11"),
+    (dict(use_mla=True), "item 11"), (dict(n_img_tokens=8), "item 10"),
 ])
 def test_unported_configs_are_refused_by_name(change, item):
     cfg = smoke_config("smollm-135m").replace(**change)
@@ -264,6 +262,26 @@ def test_unported_configs_are_refused_by_name(change, item):
         get_api(cfg)
     with pytest.raises(NotImplementedError, match=item):
         init_lm(prng.PRNGKey(0), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(arch_type="moe"), dict(arch_type="ssm", slstm_every=2), dict(arch_type="ssm"),
+    dict(n_experts=4, top_k=2, moe_d_ff=64),
+], ids=["moe", "ssm_slstm", "ssm_mlstm_only", "experts"])
+def test_formerly_refused_config_runs(change):
+    """The MoE and xLSTM families are ported (tests/test_torch_moe.py,
+    test_torch_xlstm.py, test_torch_lm_families.py): these configs, once
+    refused by name, now build and give the JAX package's loss (1e-5).
+    The experts case names an expert width: at smollm's moe_d_ff of 0 the
+    JAX package's init itself fails (0 ** -0.5)."""
+    cfg = smoke_config("smollm-135m").replace(**change)
+    jcfg = jax_smoke_config("smollm-135m").replace(**change)
+    jparams = jax_get_api(jcfg).init_params(jax.random.PRNGKey(1), jcfg)
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    tj, tt = _tokens(cfg, 2, 12)
+    lj, _ = jax_get_api(jcfg).loss_fn(jparams, jcfg, {"tokens": tj, "labels": tj})
+    lt, _ = get_api(cfg).loss_fn(params, cfg, {"tokens": tt, "labels": tt})
+    np.testing.assert_allclose(lt.item(), float(lj), atol=1e-5)
 
 
 def test_unported_inputs_are_refused_by_name():

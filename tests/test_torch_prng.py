@@ -146,3 +146,21 @@ def test_key_by_key_draw_equals_the_batched_draw(monkeypatch, draw, lead):
     jkeys = jax.random.split(jax.random.PRNGKey(11), math.prod(lead))
     want = jax.vmap(lambda k: getattr(jax.random, draw)(k, (6, 7)))(jkeys).reshape(*lead, 6, 7)
     np.testing.assert_allclose(_np(one_by_one), np.asarray(want), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("draw", ["normal", "uniform"])
+@pytest.mark.parametrize("limit", [1, 7, 40])
+def test_one_key_draw_by_counter_ranges_equals_the_one_call_draw(monkeypatch, draw, limit):
+    """One key's draw larger than ``MAX_BATCHED_DRAW`` goes by ranges of
+    the threefry counter (a full-width expert leaf of qwen2-moe is 173 M
+    values); each value depends only on the key and its position, so the
+    values are the same bit for bit, and equal ``jax.random``'s."""
+    key = prng.PRNGKey(13)
+    fn = getattr(prng, draw)
+    whole = fn(key, (6, 7))
+    monkeypatch.setattr(prng, "MAX_BATCHED_DRAW", limit)
+    ranged = fn(key, (6, 7))
+    assert ranged.shape == (6, 7)
+    assert torch.equal(whole.view(torch.int32), ranged.view(torch.int32))
+    want = getattr(jax.random, draw)(jax.random.PRNGKey(13), (6, 7))
+    np.testing.assert_allclose(_np(ranged), np.asarray(want), atol=1e-6, rtol=0)
