@@ -14,7 +14,9 @@ printed only when every phase passed:
    and at an LM-scale fold, f32 and bf16, with times
    (CUDA events, median of 20; at the main path's small shapes also as
    device time inside a CUDA graph) beside the memory bound, the plain
-   version and one PyTorch call that computes the same function.
+   version and one PyTorch call that computes the same function, and the
+   host time per call of each of the three (host clock, no synchronise
+   inside a window of calls) at K=8 and K=4, N=6922 and at the LM scale.
 3. The sync slice: ``repro_torch.api.run_scenario`` on the quickstart
    configuration (3 synthetic tasks, 40 clients, participation 0.2,
    tau=3, 25 rounds, alpha=3, vmap backend) on the card, with fedfair and
@@ -35,10 +37,13 @@ printed only when every phase passed:
 7. Card against CPU for async: the fedadam run with round_robin must give
    identical event traces on both devices; fedfair is compared too.
 8. The rmsnorm kernel against its plain version on the card at the dense
-   LM's norm shapes and at the MoE and xLSTM families' widths 2048 and
-   4096 (rows x d, f32 and bf16; atol 1e-5 / 5e-2), with times at (8192,
-   576), (2048, 2048) and (2048, 4096) f32 beside the bytes bound, the
-   plain version and ``torch.nn.functional.rms_norm``.
+   LM's norm shapes, at the MoE and xLSTM families' widths 2048 and 4096,
+   and at the edges of its launcher (where the threads a row step up, the
+   two-pass kernel's widths, part-full blocks; rows x d, f32, bf16 and f16;
+   atol 1e-5 / 5e-2 / 1e-2), two calls bit-equal at each, with times at
+   (8192, 576), (2048, 2048) and (2048, 4096) f32 (device, eager and host
+   per call) beside the bytes bound, the plain version and
+   ``torch.nn.functional.rms_norm``.
 9. The flash_attention kernel against its plain version on the card at
    smollm-135m's, a qwen3-like, zamba2-7b's and qwen2-moe-a2.7b's attention
    shape, a small one and a ragged Sq != Sk one, causal and not, f32 and
@@ -171,7 +176,9 @@ printed only when every phase passed:
 23. xlstm-1.3b at full width and depth (42 mLSTM and 6 sLSTM layers, 2.9e9
    params): serving as phase 22's (chunk 64) with exactly 97 rmsnorm
    launches per prefill and per decode step; the loss at B=1, S=2048
-   (chunk 256), ms per forward and peak memory. Card against CPU at full
+   (chunk 256), ms per forward and peak memory, beside the same loss with
+   every norm taken by its plain version and with each of its outputs one
+   ulp up (how far rounding alone moves it). Card against CPU at full
    width and its first 8 layers (7 mLSTM, 1 sLSTM): identical greedy
    tokens, logits within 1e-3, the loss at B=1, S=256 within 1e-4.
 24. LM training on ``examples/train_concurrent_lms.py``'s mix
@@ -249,9 +256,17 @@ LM_ARCH = "smollm-135m"
 NORM_SHAPES = ((1, 576), (8192, 576), (8193, 576), (4096 * 9, 64), (2048 * 16, 128),
                (4097, 1024), (8, 2048), (1024, 2048), (2048, 2048), (8, 4096), (1024, 4096),
                (2048, 4096))
+# the edges of the kernel's launcher (tests/test_torch_lm_kernels.py):
+# where the threads a row step up (d 2048, 4096, 8192, just past 2048 and
+# the most, 16384), the two-pass kernel (d 33000 beyond the registers, d
+# 1001 and, in 2-byte types, d 100 off the 16-byte packs) and part-full
+# blocks (2047, 1025, 257 rows)
+NORM_EDGES = ((2047, 2048), (2048, 2052), (1025, 4096), (3, 8192), (2, 16384), (3, 33000),
+              (33, 1001), (5, 100), (300, 64), (257, 128))
 NORM_TIMED = (8192, 576)
 NORM_FAMILIES = ((2048, 2048), (2048, 4096))        # the families' loss shapes, timed too
-NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2}     # tests/test_kernels.py
+# tests/test_kernels.py; f16 one f16 ulp below 16 (tests/test_torch_lm_kernels.py)
+NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2, "float16": 1e-2}
 # (B, H, KV, Sq, Sk, hd): smollm-135m's forward at B=4 S=2048, a qwen3-like
 # head layout, the JAX sweep's small shape, a ragged Sq != Sk, zamba2-7b's
 # shared attention at B=1 S=2048 (hd 3584 / 32 = 112), qwen2-moe-a2.7b's
@@ -387,6 +402,25 @@ def time_ms(fn, inner: int = 1, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, inner: int = 200, reps: int = 20) -> float:
+    """Host time per call: median over ``reps`` windows of ``inner``
+    back-to-back calls on the host clock, with no synchronise inside a
+    window (so the kernels a call enqueues do not hold the host back while
+    the launch queue has room) and one between windows."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(inner):
+            fn()
+        times.append((time.perf_counter_ns() - t0) / 1e6 / inner)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def graph_ms(fn, inner: int = 200, reps: int = 20) -> float:
     """Device time per call: ``inner`` calls captured once in a CUDA graph,
     the graph replayed and timed as in ``time_ms``. Unlike back-to-back
@@ -480,6 +514,7 @@ def phase_kernels():
                 for key, fn in fns.items():
                     rec[f"{key}ms"] = graph_ms(fn)
                     rec[f"eager_{key}ms"] = time_ms(fn, inner=200)
+                    rec[f"host_{key}ms"] = host_ms(fn)
     print(f"main-path shapes K in {MAIN_K} x N in {MAIN_N}: max |err| "
           f"f32 {errs['float32']:.3g} (tol {TOL['float32']}), "
           f"bf16 {errs['bfloat16']:.3g} (tol {TOL['bfloat16']})")
@@ -488,7 +523,9 @@ def phase_kernels():
               f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.5f} ms, library (w @ x) "
               f"{rec['library_ms']:.5f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); "
               f"eager per call: kernel {rec['eager_ms']:.5f} ms, plain "
-              f"{rec['eager_plain_ms']:.5f} ms, library {rec['eager_library_ms']:.5f} ms")
+              f"{rec['eager_plain_ms']:.5f} ms, library {rec['eager_library_ms']:.5f} ms; "
+              f"host per call: wrapper {rec['host_ms']:.5f} ms, plain {rec['host_plain_ms']:.5f} "
+              f"ms, library {rec['host_library_ms']:.5f} ms")
 
     lm = {}
     t0 = time.perf_counter()
@@ -505,18 +542,19 @@ def phase_kernels():
         errs[name] = max(errs[name], err)
         bound, by = fold_bound_ms(LM_K, LM_N, size, size)
         w_lib = w.to(dtype)
-        rec = {
-            "ms": time_ms(lambda: fedavg(x, w)),
-            "plain_ms": time_ms(lambda: ref_fedavg(x, w)),
-            "library_ms": time_ms(lambda: w_lib @ x),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-        }
+        fns = {"": lambda: fedavg(x, w), "plain_": lambda: ref_fedavg(x, w),
+               "library_": lambda: w_lib @ x}
+        rec = {"bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        for key, fn in fns.items():
+            rec[f"{key}ms"] = time_ms(fn)
+            rec[f"host_{key}ms"] = host_ms(fn, inner=5, reps=5)
         lm[name] = rec
         del got, want
         print(f"LM-scale fold K={LM_K} N={LM_N} {name}: kernel {rec['ms']:.4f} ms "
               f"({rec['bound_ms'] / rec['ms']:.1%} of the {by} bound {rec['bound_ms']:.4f} ms), "
               f"plain {rec['plain_ms']:.4f} ms, library (w @ x) {rec['library_ms']:.4f} ms, "
-              f"max |err| {err:.3g}")
+              f"max |err| {err:.3g}; host per call: wrapper {rec['host_ms']:.5f} ms, plain "
+              f"{rec['host_plain_ms']:.5f} ms, library {rec['host_library_ms']:.5f} ms")
     del x32
     torch.cuda.empty_cache()
     return errs, timed, lm
@@ -863,11 +901,12 @@ def phase_rmsnorm():
     print("== phase 8: rmsnorm kernel vs plain version on the card")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
-    errs = {"float32": 0.0, "bfloat16": 0.0}
-    for rows, d in NORM_SHAPES:
+    errs = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
+    for rows, d in NORM_SHAPES + NORM_EDGES:
         x32 = torch.randn(rows, d, generator=gen, device=dev)
         w32 = torch.randn(d, generator=gen, device=dev).mul_(0.1).add_(1.0)
-        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                            ("float16", torch.float16)):
             x, w = x32.to(dtype), w32.to(dtype)
             got, want = rmsnorm(x, w), ref_rmsnorm(x, w)
             torch.cuda.synchronize()
@@ -877,11 +916,15 @@ def phase_rmsnorm():
             errs[name] = max(errs[name], err)
             if not err <= NORM_TOL[name]:
                 fail(f"rmsnorm ({rows}, {d}) {name}: max |err| {err} > {NORM_TOL[name]}")
-    print(f"shapes {NORM_SHAPES}: max |err| f32 {errs['float32']:.3g} (tol "
-          f"{NORM_TOL['float32']}), bf16 {errs['bfloat16']:.3g} (tol {NORM_TOL['bfloat16']})")
+            if not torch.equal(got, rmsnorm(x, w)):
+                fail(f"rmsnorm ({rows}, {d}) {name}: two calls on the same inputs differ")
+    print(f"shapes {NORM_SHAPES + NORM_EDGES}: max |err| f32 {errs['float32']:.3g} (tol "
+          f"{NORM_TOL['float32']}), bf16 {errs['bfloat16']:.3g} (tol {NORM_TOL['bfloat16']}), "
+          f"f16 {errs['float16']:.3g} (tol {NORM_TOL['float16']}); two calls bit-equal at each")
 
     rec = {"shape": list(NORM_TIMED), "dtype": "float32", "max_abs_err": errs["float32"],
-           "max_abs_err_bf16": errs["bfloat16"], **_time_norm(gen, *NORM_TIMED)}
+           "max_abs_err_bf16": errs["bfloat16"], "max_abs_err_f16": errs["float16"],
+           **_time_norm(gen, *NORM_TIMED)}
     rec["families"] = {f"{rows}x{d}": _time_norm(gen, rows, d) for rows, d in NORM_FAMILIES}
     for shape, r in [(NORM_TIMED, rec)] + [(sh, rec["families"][f"{sh[0]}x{sh[1]}"])
                                            for sh in NORM_FAMILIES]:
@@ -889,15 +932,17 @@ def phase_rmsnorm():
               f"{r['ms']:.5f} ms ({r['bound_ms'] / r['ms']:.1%} of the bytes bound "
               f"{r['bound_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, library (F.rms_norm) "
               f"{r['library_ms']:.5f} ms; eager per call: kernel {r['eager_ms']:.5f} ms, plain "
-              f"{r['eager_plain_ms']:.5f} ms, library {r['eager_library_ms']:.5f} ms")
+              f"{r['eager_plain_ms']:.5f} ms, library {r['eager_library_ms']:.5f} ms; host per "
+              f"call: wrapper {r['host_ms']:.5f} ms, plain {r['host_plain_ms']:.5f} ms, library "
+              f"{r['host_library_ms']:.5f} ms")
     torch.cuda.empty_cache()
     return rec
 
 
 def _time_norm(gen, rows: int, d: int) -> dict:
     """rmsnorm at (rows, d) f32 beside its bytes bound, its plain version
-    and ``F.rms_norm``: device time in a CUDA graph and eager time per
-    call, inputs cycled past the L2 cache."""
+    and ``F.rms_norm``: device time in a CUDA graph, eager time and host
+    time per call, inputs cycled past the L2 cache."""
     import torch
     import torch.nn.functional as F
 
@@ -914,6 +959,7 @@ def _time_norm(gen, rows: int, d: int) -> dict:
     for key, fn in fns.items():
         rec[f"{key}ms"] = graph_ms(fn, inner=40)
         rec[f"eager_{key}ms"] = time_ms(fn, inner=40)
+        rec[f"host_{key}ms"] = host_ms(fn)
     return rec
 
 
@@ -2690,6 +2736,7 @@ def phase_xlstm(line: str):
     loss = _family_loss("phase 23", params, full, XLSTM_LOSS_B, XLSTM_LOSS_S,
                         {"rmsnorm": norms}, reps=1, pallas=False)
     loss["parts"] = _xlstm_parts(params, full)
+    loss["norm_rounding"] = _norm_rounding(params, full, XLSTM_LOSS_B, XLSTM_LOSS_S, loss["loss"])
 
     # card against CPU: the first group (XLSTM_CPU_LAYERS layers: 7 mLSTM,
     # 1 sLSTM) of the same weights
@@ -2720,6 +2767,39 @@ def phase_xlstm(line: str):
     del small_cpu, small, params
     torch.cuda.empty_cache()
     return served, loss
+
+
+def _norm_rounding(params, cfg, B: int, S: int, kernel_loss: float) -> dict:
+    """The loss at (B, S) with every RMSNorm taken by its plain version, and
+    by the plain version with each output moved one f32 ulp toward +inf:
+    how far the full-depth loss moves with the norms' rounding alone,
+    beside the kernel's ``kernel_loss`` (mLSTM divides by a normaliser
+    that can cancel). A record, not a gate."""
+    import torch
+
+    import repro_torch.models.layers as layers
+    from repro_torch import prng
+    from repro_torch.kernels.ref import ref_rmsnorm
+    from repro_torch.models import get_api
+
+    def ulp_up(x, w, eps=1e-6):
+        y = ref_rmsnorm(x, w, eps)
+        return torch.nextafter(y, torch.full_like(y, float("inf")))
+
+    api = get_api(cfg)
+    tokens = prng.randint(prng.PRNGKey(1, device=torch.device("cuda")), (B, S), 0,
+                          cfg.vocab_size)
+    kernel, rec = layers.rmsnorm, {"kernel": kernel_loss}
+    try:
+        for name, norm in (("plain", ref_rmsnorm), ("plain_ulp_up", ulp_up)):
+            layers.rmsnorm = norm
+            with torch.no_grad():
+                rec[name] = api.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens})[0].item()
+    finally:
+        layers.rmsnorm = kernel
+    print(f"loss B={B} S={S} by the norms' rounding: kernel {kernel_loss:.6f}, plain "
+          f"{rec['plain']:.6f}, plain one ulp up {rec['plain_ulp_up']:.6f}")
+    return rec
 
 
 def _xlstm_parts(params, cfg) -> dict:

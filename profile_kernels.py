@@ -20,12 +20,21 @@ timed with CUDA events, as device time per call of the graph replayed and
 as eager time per call. The profiler's total device time and launch count
 are printed beside those, with the gap. Exits non-zero without CUDA, and
 when the profiler's launch count of a kernel family the script names
-(``flash_attention``, ``ssd_scan``) differs from the graph's.
+(``flash_attention``, ``ssd_scan``, ``rmsnorm``, ``fedavg``) differs from
+the graph's. ``rmsnorm`` at (8192, 576), (2048, 2048) and (2048, 4096) f32
+and ``fedavg`` at K=8 and K=4, N=6922 f32 (phases 8 and 2) are profiled and
+cross-checked the same way.
+
+Last, the host time of the ``fedavg`` and ``rmsnorm`` wrappers, part by
+part (``host_parts``): each step a wrapper call can take, alone, on the
+host clock over 10,000 calls (``chip_smoke.host_ms``), beside the whole
+wrapper call and the one PyTorch call that computes the same function.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -37,10 +46,17 @@ sys.path.insert(0, str(ROOT))
 # name substrings of the port's kernel families (first match wins:
 # gated_rmsnorm_rows before rmsnorm_rows; "ssd_" covers every launch of the
 # scan: ssd_chunk_scores, ssd_chunk_state, ssd_state_pass, ssd_chunk_out,
-# ssd_scan_seq)
+# ssd_scan_seq); "rmsnorm_rows" covers rmsnorm_rows_reg and the two-pass
+# rmsnorm_rows, "fedavg_" fedavg_vec16 and fedavg_scalar
 FAMILIES = (("flash_attention", ("flash_fwd",)), ("gated_rmsnorm", ("gated_rmsnorm_rows",)),
-            ("ssd_scan", ("ssd_",)), ("rmsnorm", ("rmsnorm_rows",)),
+            ("ssd_scan", ("ssd_",)), ("rmsnorm", ("rmsnorm_rows",)), ("fedavg", ("fedavg_",)),
             ("matmul", ("gemm", "cutlass", "xmma", "splitk")))
+HOST_CALLS = 10_000     # calls timed per part of a wrapper: 50 windows of 200,
+HOST_ROUNDS = 5         # in 5 rounds over the parts
+# calls a profiler window holds for the microsecond kernels (rmsnorm, fedavg):
+# a window of 20 such calls lasts about 0.3 ms, and one came back with no
+# kernel at all on an H100
+SHORT_CALLS = 200
 
 
 def family(name: str) -> str:
@@ -189,11 +205,127 @@ def show(label: str, times: dict) -> None:
         print(f"    {ms:9.4f} ms  x{n:<4g} {name[:100]}")
 
 
+def host_parts(kind: str, shape: tuple) -> dict:
+    """{part: fn} of one ``kind`` ("fedavg" or "rmsnorm") call at ``shape``
+    (f32 on the current card): each step the wrapper takes, or took before
+    the shared launch path (the ``Stream`` object, the no-op conversions,
+    ``promote_types``), alone: the checks, the conversions, the
+    allocation, the stream and device reads, the bound C entry point's
+    call, which enqueues the kernel, and the count; then the whole wrapper
+    call and the one PyTorch call that computes the same function. A part
+    whose accessor this PyTorch lacks is left out."""
+    import ctypes
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import LAUNCHES, fedavg, rmsnorm
+    from repro_torch.kernels.build import load
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    f32 = torch.float32
+    lib = load(kind).lib
+    entry = getattr(lib, f"{kind}_launch")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kind == "fedavg":
+        K, N = shape
+        x, w = torch.randn(K, N, device=dev), torch.rand(K, device=dev)
+        out = torch.empty(N, device=dev)
+        entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int,
+                                                                            ctypes.c_void_p]
+        codes = {(f32, f32): (0, f32)}
+        parts = {
+            "checks (ndim, shape, float, device, contiguity)": lambda: (
+                x.ndim != 2 or w.ndim != 1 or w.shape[0] != x.shape[0]
+                or not (x.is_floating_point() and w.is_floating_point())
+                or x.device != w.device or not x.is_contiguous()),
+            "torch.promote_types": lambda: torch.promote_types(x.dtype, w.dtype),
+            "dtype codes, one dict lookup": lambda: codes.get((x.dtype, w.dtype)),
+            "w.to(f32).to(f32).contiguous(), no-op": lambda: w.to(f32).to(f32).contiguous(),
+            "w dtype and contiguity tests": lambda: w.dtype == f32 and w.is_contiguous(),
+            "torch.empty(N)": lambda: torch.empty(N, dtype=x.dtype, device=dev),
+            "x.new_empty(N)": lambda: x.new_empty(N),
+            "ctypes call, launch": lambda: entry(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                                 K, N, 0, stream),
+            "wrapper fedavg(x, w)": lambda: fedavg(x, w),
+            "library w @ x": lambda: w @ x,
+        }
+    else:
+        rows, d = shape
+        x, w = torch.randn(rows, d, device=dev), torch.rand(d, device=dev)
+        out = torch.empty_like(x)
+        entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                  ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        parts = {
+            "checks (shape, float, device)": lambda: (
+                x.ndim < 1 or w.shape != (x.shape[-1],)
+                or not (x.is_floating_point() and w.is_floating_point()) or x.device != w.device),
+            "autograd test": lambda: torch.is_grad_enabled() and (x.requires_grad
+                                                                  or w.requires_grad),
+            "x.reshape(-1, d).contiguous(), no-op": lambda: x.reshape(-1, d).contiguous(),
+            "x.is_contiguous()": lambda: x.is_contiguous(),
+            "torch.empty_like(x)": lambda: torch.empty_like(x),
+            "w.to(f32).contiguous(), no-op": lambda: w.to(f32).contiguous(),
+            "w dtype and contiguity tests": lambda: w.dtype == f32 and w.is_contiguous(),
+            "out.view(x.shape)": lambda: out.view(x.shape),
+            "ctypes call, launch": lambda: entry(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                                 rows, d, 1e-6, 0, stream),
+            "wrapper rmsnorm(x, w)": lambda: rmsnorm(x, w),
+            "library F.rms_norm": lambda: F.rms_norm(x, (d,), w, 1e-6),
+        }
+    cached = functools.lru_cache(maxsize=None)(lambda: lib)
+
+    def count():
+        LAUNCHES["host_probe"] += 1
+
+    common = {
+        "x.device.type": lambda: x.device.type,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "functools.lru_cache lookup": cached,
+        "3 x data_ptr()": lambda: (x.data_ptr(), w.data_ptr(), out.data_ptr()),
+        "LAUNCHES[name] += 1": count,
+    }
+    for name in ("_cuda_getDevice", "_cuda_getCurrentRawStream"):
+        if hasattr(torch._C, name):
+            fn = getattr(torch._C, name)
+            common[f"torch._C.{name}"] = functools.partial(fn, dev.index) if "Stream" in name \
+                else fn
+    return {**common, **parts}
+
+
+def host_profile() -> dict:
+    """Print and return the host ms per call of every part of the fedavg
+    and rmsnorm wrappers (``host_parts``) at the main paths' shapes: the
+    median over ``HOST_ROUNDS`` rounds that each time every part in turn,
+    so that a host that slows down during the profile weighs on all parts
+    alike."""
+    from chip_smoke import host_ms
+
+    rec = {}
+    reps = HOST_CALLS // 200 // HOST_ROUNDS
+    for kind, shape in (("fedavg", (8, 6922)), ("fedavg", (4, 6922)), ("rmsnorm", (8192, 576))):
+        label = f"{kind} {shape} f32"
+        print(f"host time per call, {label} ({HOST_CALLS} calls a part):")
+        parts = host_parts(kind, shape)
+        times = {part: [] for part in parts}
+        for _ in range(HOST_ROUNDS):
+            for part, fn in parts.items():
+                times[part].append(host_ms(fn, inner=200, reps=reps))
+        rec[label] = {part: statistics.median(t) for part, t in times.items()}
+        for part, ms in rec[label].items():
+            print(f"    {ms * 1e3:8.3f} us  {part}")
+    return rec
+
+
 def main(argv=None) -> int:
     import torch
     import torch.nn.functional as F
 
-    from chip_smoke import FLASH_SHAPES, FLASH_ZAMBA, SSD_LOSS, SSD_SERVE, _ssd_inputs, card_line
+    from chip_smoke import (FLASH_SHAPES, FLASH_ZAMBA, FUSED_TIMED, NORM_FAMILIES, NORM_TIMED,
+                            SSD_LOSS, SSD_SERVE, TIMED_MAIN, _ssd_inputs, card_line)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
@@ -202,7 +334,7 @@ def main(argv=None) -> int:
         print("profile_kernels: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.kernels import fedavg, flash_attention, rmsnorm, ssd_scan
 
     print(f"card: {card_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -210,10 +342,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     failed = []
 
-    def run(label, fn, named):
-        times = device_ms(fn, args.reps)
+    def run(label, fn, named, calls=args.reps):
+        times = device_ms(fn, calls)
         show(label, times)
-        rec = crosscheck(label, fn, args.reps, times, named)
+        rec = crosscheck(label, fn, calls, times, named)
         failed.extend(f"{label}: {f}" for f in rec["mismatch"])
 
     for B, H, KV, Sq, Sk, hd in (FLASH_SHAPES[0], FLASH_ZAMBA):
@@ -233,6 +365,18 @@ def main(argv=None) -> int:
             bd, cd = (t[:, :1].to(dtype).expand(B, H, L, N) for t in (b, c))
             run(f"ssd_scan {(B, H, L, P, N)} chunk {chunk} {str(dtype)[6:]}",
                 lambda: ssd_scan(xd, a, bd, cd, chunk, return_state=True), ("ssd_scan",))
+    for rows, d in (NORM_TIMED, *NORM_FAMILIES):
+        x = torch.randn(rows, d, generator=gen, device=dev)
+        w = torch.randn(d, generator=gen, device=dev)
+        run(f"rmsnorm {(rows, d)} float32", lambda: rmsnorm(x, w), ("rmsnorm",), SHORT_CALLS)
+        run(f"F.rms_norm {(rows, d)} float32", lambda: F.rms_norm(x, (d,), w, 1e-6), (),
+            SHORT_CALLS)
+    for K, N in (TIMED_MAIN, FUSED_TIMED):
+        x = torch.randn(K, N, generator=gen, device=dev)
+        w = torch.rand(K, generator=gen, device=dev)
+        run(f"fedavg K={K} N={N} float32", lambda: fedavg(x, w), ("fedavg",), SHORT_CALLS)
+        run(f"w @ x K={K} N={N} float32", lambda: w @ x, (), SHORT_CALLS)
+    host_profile()
     if failed:
         print("profile_kernels FAILED: the profiler's launch counts differ from the CUDA "
               "graph's for " + "; ".join(failed), file=sys.stderr)

@@ -8,8 +8,6 @@ names it (``device="cpu"``), as the tests do.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 
@@ -21,11 +19,3 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
 
-
-def on_device(device: torch.device):
-    """A context that makes ``device`` (a CUDA device) current for a kernel
-    launch; a no-op when it already is, which saves the wrapper's host time
-    on the common path."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)

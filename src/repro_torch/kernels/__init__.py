@@ -10,9 +10,10 @@ attention (``csrc/flash_attention.cu``, replacing
 Mamba2's output gate (``csrc/gated_rmsnorm.cu``, replacing
 ``gated_rmsnorm_pallas``); ``ssd_scan`` is Mamba2's chunked state-space
 scan (``csrc/ssd_scan.cu``, replacing ``ssd_scan_pallas``). ``ref`` holds
-the plain PyTorch versions; ``build.LAUNCHES`` counts launches per kernel,
-``build.device_launches`` the device kernels of one call and
-``build.graph_kernels`` their names.
+the plain PyTorch versions; every wrapper launches through
+``build.launch``, which counts launches per kernel in ``build.LAUNCHES``;
+``build.device_launches`` counts the device kernels of one call and
+``build.graph_kernels`` names them.
 """
 
 from repro_torch.kernels.build import (KERNELS, LAUNCHES, device_launches,  # noqa: F401

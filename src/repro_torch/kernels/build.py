@@ -8,10 +8,14 @@ build takes seconds. Libraries go to ``build/repro_torch_ext/`` at the
 root of the checkout, named by a hash of the source and the flags, so an
 edited source is rebuilt and an unchanged one is reused.
 
-``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds
-one where it launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels. ``device_launches`` counts
-the device kernels one wrapper call enqueues (a call may make several),
+Every wrapper launches through ``launch``: it makes the tensor's device
+current where it is not, reads that device's current stream, calls the
+kernel's C entry point ``<name>_launch`` (bound once per process), raises
+with the kernel's own error string when the launch fails, and adds one to
+``LAUNCHES[name]``. So ``LAUNCHES`` counts kernel launches per kernel
+name, where they happen and nowhere else, and a run can show that its
+main path went through the kernels. ``device_launches`` counts the device
+kernels one wrapper call enqueues (a call may make several),
 ``graph_kernels`` names them.
 """
 
@@ -28,6 +32,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +49,47 @@ LAUNCHES: collections.Counter = collections.Counter()
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     LAUNCHES.clear()
+
+
+# name -> (the bound ``<name>_launch``, ``<name>_error_string``)
+_ENTRIES: Dict[str, tuple] = {}
+
+
+def _bind(name: str, argtypes) -> tuple:
+    lib = load(name).lib
+    fn, err = getattr(lib, f"{name}_launch"), getattr(lib, f"{name}_error_string")
+    fn.argtypes, fn.restype = [*argtypes, ctypes.c_void_p], ctypes.c_int
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    _ENTRIES[name] = (fn, err)
+    return fn, err
+
+
+def launch(name: str, argtypes, device: int, *args) -> None:
+    """Launch kernel ``name`` on CUDA device ``device`` (an index): call
+    ``<name>_launch(*args, stream)`` of ``csrc/<name>.cu`` (built and bound
+    with ``argtypes``, the C types of ``args``, at the first call) on that
+    device's current stream, then count the launch in ``LAUNCHES``. The
+    device is made current for the call where it is not; a stream of
+    another device than the current one is refused by CUDA. Raises
+    ``RuntimeError`` with the kernel's error string when the launch fails.
+
+    ``torch._C._cuda_getDevice`` and ``torch._C._cuda_getCurrentRawStream``
+    are private accessors (the ones PyTorch's own generated code calls):
+    the current device index, and the raw handle of the device's current
+    stream, which is ``torch.cuda.current_stream(device).cuda_stream``
+    without building a ``Stream`` object (tests/test_torch_launch.py holds
+    one against the other, on a side stream too). The current device is
+    read on every call rather than cached, since a caller may change it
+    (``torch.cuda.set_device``) between two launches."""
+    fn, err = _ENTRIES.get(name) or _bind(name, argtypes)
+    if device == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: {err(rc).decode()}")
+    LAUNCHES[name] += 1
 
 
 def _check(rc: int, what: str) -> None:
@@ -85,8 +132,6 @@ def graph_kernels(fn) -> list:
     current CUDA device, in capture order: the call is run once, then
     captured once in a CUDA graph (never replayed) whose kernel nodes are
     read through libcuda. A kernel libcuda cannot name is "?"."""
-    import torch
-
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

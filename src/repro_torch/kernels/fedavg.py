@@ -12,27 +12,18 @@ takes the plain version, ``ref.ref_fedavg``.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES, load
+from repro_torch.kernels.build import launch
 from repro_torch.kernels.ref import ref_fedavg
 
 # dtype codes of csrc/fedavg.cu::fedavg_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load("fedavg").lib
-    lib.fedavg_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_void_p]
-    lib.fedavg_launch.restype = ctypes.c_int
-    lib.fedavg_error_string.argtypes = [ctypes.c_int]
-    lib.fedavg_error_string.restype = ctypes.c_char_p
-    return lib
+# (stacked dtype, weights dtype) the kernel takes -> (stacked's code, their common dtype)
+_CODES = {(x, w): (code, torch.promote_types(x, w)) for x, code in _DTYPE_CODE.items()
+          for w in _DTYPE_CODE}
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
 
 
 def fedavg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -52,32 +43,32 @@ def fedavg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         raise TypeError(
             f"fedavg: floating-point inputs required, got stacked={stacked.dtype}, "
             f"weights={weights.dtype}")
-    if stacked.device != weights.device:
+    dev = stacked.device
+    if dev != weights.device:
         raise ValueError(
             f"fedavg: stacked is on {stacked.device} but weights on {weights.device}")
     if not stacked.is_contiguous():
         raise ValueError("fedavg: stacked must be contiguous")
-    common = torch.promote_types(stacked.dtype, weights.dtype)
-    if stacked.device.type == "cpu":
+    if dev.type == "cpu":
+        common = torch.promote_types(stacked.dtype, weights.dtype)
         return ref_fedavg(stacked.to(common), weights.to(common)).to(stacked.dtype)
-    if stacked.device.type != "cuda":
+    if dev.type != "cuda":
         raise ValueError(f"fedavg: no kernel for device {stacked.device}")
-    if stacked.dtype not in _DTYPE_CODE or common not in _DTYPE_CODE:
+    codes = _CODES.get((stacked.dtype, weights.dtype))
+    if codes is None:
         raise TypeError(
             f"fedavg: the CUDA kernel takes float32/bfloat16/float16, got "
             f"stacked={stacked.dtype}, weights={weights.dtype}")
+    code, common = codes
     # round the weights to the common dtype, then hand them over in f32
-    w32 = weights.to(common).to(torch.float32).contiguous()
+    w32 = weights if weights.dtype == common else weights.to(common)
+    if w32.dtype != torch.float32:
+        w32 = w32.float()
+    if not w32.is_contiguous():
+        w32 = w32.contiguous()
     K, N = stacked.shape
-    out = torch.empty(N, dtype=stacked.dtype, device=stacked.device)
-    if N == 0:
-        return out
-    lib = _lib()
-    stream = torch.cuda.current_stream(stacked.device).cuda_stream
-    rc = lib.fedavg_launch(stacked.data_ptr(), w32.data_ptr(), out.data_ptr(), K, N,
-                           _DTYPE_CODE[stacked.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fedavg: kernel launch failed: {lib.fedavg_error_string(rc).decode()}")
-    LAUNCHES["fedavg"] += 1
+    out = stacked.new_empty(N)
+    if N:
+        launch("fedavg", _ARGTYPES, dev.index, stacked.data_ptr(), w32.data_ptr(),
+               out.data_ptr(), K, N, code)
     return out

@@ -17,18 +17,18 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from repro_torch.device import on_device
-from repro_torch.kernels.build import LAUNCHES, load
+from repro_torch.kernels.build import launch
 from repro_torch.kernels.ref import ref_attention
 from repro_torch.kernels.rmsnorm import NO_BACKWARD
 
 # dtype codes of csrc/flash_attention.cu::flash_attention_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int]
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
@@ -37,18 +37,6 @@ def rows_aligned(t: torch.Tensor) -> bool:
     size = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s * size % 16 == 0 for s in t.stride()[:-1]))
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load("flash_attention").lib
-    lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.flash_attention_launch.restype = ctypes.c_int
-    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -81,15 +69,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{HEAD_DIMS}, got {q.dtype} and hd={hd}")
     q, k, v = (t if rows_aligned(t) else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)  # q's layout: (B, S, H, hd) memory for the model's views
-    lib = _lib()
-    with on_device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-        rc = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                        out.data_ptr(), *strides, B, H, KV, Sq, Sk, hd,
-                                        hd ** -0.5, int(causal), _DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError("flash_attention: kernel launch failed: "
-                           f"{lib.flash_attention_error_string(rc).decode()}")
-    LAUNCHES["flash_attention"] += 1
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    launch("flash_attention", _ARGTYPES, q.device.index, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), out.data_ptr(), *strides, B, H, KV, Sq, Sk, hd, hd ** -0.5,
+           int(causal), _DTYPE_CODE[q.dtype])
     return out

@@ -15,28 +15,17 @@ tensor it takes the plain version, ``ref.ref_fused_aggregate``.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import LAUNCHES, load
+from repro_torch.kernels.build import launch
 from repro_torch.kernels.ref import ref_fused_aggregate
 
 FUSED_MODES = ("fedavg", "fedavgm", "fedadam", "fedyogi")
 _MODE_CODE = {mode: i for i, mode in enumerate(FUSED_MODES)}
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load("fused_aggregate").lib
-    lib.fused_aggregate_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-    lib.fused_aggregate_launch.restype = ctypes.c_int
-    lib.fused_aggregate_error_string.argtypes = [ctypes.c_int]
-    lib.fused_aggregate_error_string.restype = ctypes.c_char_p
-    return lib
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+             + [ctypes.c_float] * 6)
 
 
 def _check(stacked, weights, staleness, m, v, mode):
@@ -87,16 +76,9 @@ def fused_aggregate(stacked: torch.Tensor, weights: torch.Tensor, staleness: tor
     ov = torch.empty_like(upd) if mode in ("fedadam", "fedyogi") else v
     if N == 0:
         return upd, om, ov
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.fused_aggregate_launch(
-        x.data_ptr(), w.data_ptr(), s.data_ptr(), m.data_ptr(), v.data_ptr(), upd.data_ptr(),
-        None if om is m else om.data_ptr(), None if ov is v else ov.data_ptr(), K, N,
-        _MODE_CODE[mode], float(beta), float(inv_norm), float(lr), float(beta1),
-        float(beta2), float(eps), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_aggregate: kernel launch failed: "
-            f"{lib.fused_aggregate_error_string(rc).decode()}")
-    LAUNCHES["fused_aggregate"] += 1
+    launch("fused_aggregate", _ARGTYPES, x.device.index,
+           x.data_ptr(), w.data_ptr(), s.data_ptr(), m.data_ptr(), v.data_ptr(), upd.data_ptr(),
+           None if om is m else om.data_ptr(), None if ov is v else ov.data_ptr(), K, N,
+           _MODE_CODE[mode], float(beta), float(inv_norm), float(lr), float(beta1),
+           float(beta2), float(eps))
     return upd, om, ov

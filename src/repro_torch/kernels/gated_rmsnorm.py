@@ -14,28 +14,17 @@ on CUDA a call that autograd would record raises instead.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES, load
+from repro_torch.kernels.build import launch
 from repro_torch.kernels.ref import ref_gated_rmsnorm
 from repro_torch.kernels.rmsnorm import NO_BACKWARD
 
 # dtype codes of csrc/gated_rmsnorm.cu::gated_rmsnorm_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load("gated_rmsnorm").lib
-    lib.gated_rmsnorm_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.gated_rmsnorm_launch.restype = ctypes.c_int
-    lib.gated_rmsnorm_error_string.argtypes = [ctypes.c_int]
-    lib.gated_rmsnorm_error_string.restype = ctypes.c_char_p
-    return lib
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float,
+                                                               ctypes.c_int]
 
 
 def _rows(t: torch.Tensor, d: int) -> torch.Tensor:
@@ -74,13 +63,7 @@ def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
         return out
     x2, z2 = _rows(x, d), _rows(z, d)
     w32 = w.to(torch.float32).contiguous()
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.gated_rmsnorm_launch(x2.data_ptr(), z2.data_ptr(), w32.data_ptr(),
-                                  out.data_ptr(), x2.shape[0], x2.stride(0), z2.stride(0), d,
-                                  eps, _DTYPE_CODE[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError("gated_rmsnorm: kernel launch failed: "
-                           f"{lib.gated_rmsnorm_error_string(rc).decode()}")
-    LAUNCHES["gated_rmsnorm"] += 1
+    launch("gated_rmsnorm", _ARGTYPES, x.device.index, x2.data_ptr(), z2.data_ptr(),
+           w32.data_ptr(), out.data_ptr(), x2.shape[0], x2.stride(0), z2.stride(0), d, eps,
+           _DTYPE_CODE[x.dtype])
     return out

@@ -19,31 +19,20 @@ kernel either.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES, load
+from repro_torch.kernels.build import launch
 from repro_torch.kernels.ref import ref_rmsnorm, ref_rmsnorm_backward
 
 # dtype codes of csrc/rmsnorm.cu::rmsnorm_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_int]
 
 NO_BACKWARD = ("has no backward kernel (arch training, ROADMAP queue 1 item 12, runs on "
                "the plain versions, and RMSNorm through kernels.rmsnorm.rmsnorm_trainable); "
                "run it under torch.no_grad() or on inputs that do not require grad")
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load("rmsnorm").lib
-    lib.rmsnorm_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                                   ctypes.c_int, ctypes.c_void_p]
-    lib.rmsnorm_launch.restype = ctypes.c_int
-    lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
-    lib.rmsnorm_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -57,31 +46,30 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     if not (x.is_floating_point() and w.is_floating_point()):
         raise TypeError(f"rmsnorm: floating-point inputs required, got x={x.dtype}, "
                         f"w={w.dtype}")
-    if x.device != w.device:
+    dev = x.device
+    if dev != w.device:
         raise ValueError(f"rmsnorm: x is on {x.device} but w on {w.device}")
-    if x.device.type == "cpu":
+    if dev.type == "cpu":
         return ref_rmsnorm(x, w, eps)
-    if x.device.type != "cuda":
+    if dev.type != "cuda":
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise NotImplementedError(f"rmsnorm: the CUDA kernel {NO_BACKWARD}")
-    if x.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise TypeError(f"rmsnorm: the CUDA kernel takes float32/bfloat16/float16 x, got {x.dtype}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    w32 = w if w.dtype == torch.float32 else w.float()
+    if not w32.is_contiguous():
+        w32 = w32.contiguous()
     d = x.shape[-1]
-    xf = x.reshape(-1, d).contiguous()
-    out = torch.empty_like(xf)
-    if xf.numel() == 0:
-        return out.view(x.shape)
-    w32 = w.to(torch.float32).contiguous()
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.rmsnorm_launch(xf.data_ptr(), w32.data_ptr(), out.data_ptr(), xf.shape[0], d,
-                            eps, _DTYPE_CODE[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"rmsnorm: kernel launch failed: {lib.rmsnorm_error_string(rc).decode()}")
-    LAUNCHES["rmsnorm"] += 1
-    return out.view(x.shape)
+    launch("rmsnorm", _ARGTYPES, dev.index, x.data_ptr(), w32.data_ptr(), out.data_ptr(),
+           x.numel() // d, d, eps, code)
+    return out
 
 
 class _RMSNormFn(torch.autograd.Function):

@@ -33,29 +33,23 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import on_device
-from repro_torch.kernels.build import LAUNCHES, load
+from repro_torch.kernels.build import launch, load
 from repro_torch.kernels.ref import ref_ssd
 from repro_torch.kernels.rmsnorm import NO_BACKWARD
 
 # dtype and path codes of csrc/ssd_scan.cu::ssd_scan_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PATH_CODE = {"auto": 0, "chunks": 1, "seq": 2}
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 9
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load("ssd_scan").lib
-    lib.ssd_scan_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 9
-        + [ctypes.c_void_p])
-    lib.ssd_scan_launch.restype = ctypes.c_int
     lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_fits.argtypes = [ctypes.c_int] * 3
     lib.ssd_scan_fits.restype = ctypes.c_int
-    lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
-    lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -145,18 +139,11 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     off = -(-n_scores // 4) * 4
     scratch = torch.empty(off + n_states + B * H * Z, dtype=torch.float32, device=x.device)
     base = scratch.data_ptr()
-    with on_device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        strides = [s for t in (x, a, b, c, y) for s in t.stride()[:3]]
-        rc = lib.ssd_scan_launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                 y.data_ptr(), 0 if h is None else h.data_ptr(),
-                                 base + 4 * off, base + 4 * (off + n_states), base,
-                                 *strides, B, H, Lp, P, N, chunk, int(shared),
-                                 _DTYPE_CODE[x.dtype], _PATH_CODE[path], stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan: kernel launch failed: "
-                           f"{lib.ssd_scan_error_string(rc).decode()}")
-    LAUNCHES["ssd_scan"] += 1
+    strides = [s for t in (x, a, b, c, y) for s in t.stride()[:3]]
+    launch("ssd_scan", _ARGTYPES, x.device.index, x.data_ptr(), a.data_ptr(), b.data_ptr(),
+           c.data_ptr(), y.data_ptr(), 0 if h is None else h.data_ptr(), base + 4 * off,
+           base + 4 * (off + n_states), base, *strides, B, H, Lp, P, N, chunk, int(shared),
+           _DTYPE_CODE[x.dtype], _PATH_CODE[path])
     if Lp != L:
         y = y[:, :, :L]
     return (y, h) if return_state else y

@@ -107,7 +107,7 @@ _CUDA_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2, torch.float16: 5e-3}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,N", [(1, 1), (1, 1738), (3, 3786), (8, 6922), (16, 2049),
-                                 (5, 4096), (2, 8192)])
+                                 (5, 4096), (2, 8192), (8, 2**20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_fedavg_cuda_kernel_matches_plain(cuda_device, K, N, dtype):
     """Scalar path (ragged N) and 16-byte path (N a multiple of 8)."""

@@ -27,9 +27,11 @@ from repro_torch.kernels.ref import ref_attention, ref_rmsnorm
 from repro_torch.models.layers import rms_norm
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# f16: one f16 ulp of an output below 16 (a sum taken in another order can
+# round to the next one), as the kernel and the plain version both round
+NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2, "float16": 1e-2}
 
 
 def _normal(shape, seed, scale=1.0, shift=0.0):
@@ -42,6 +44,8 @@ def _to_torch(a, dtype):
     if dtype == "bfloat16":
         bits = a.astype(ml_dtypes.bfloat16).view(np.uint16).astype(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16)
+    if dtype == "float16":
+        return torch.from_numpy(a.astype(np.float16))
     return torch.from_numpy(a)
 
 
@@ -199,10 +203,20 @@ def test_flash_attention_cuda_reads_transposed_views(cuda_device):
     assert (got - want).abs().max().item() <= ATTN_TOL["float32"]
 
 
+# (rows, d): the threads a row the launcher picks (the fewest, 8 to 1024,
+# whose four 16-byte packs each cover the row) change at d 128, 256, ...,
+# 16384 in f32 and twice those in 2-byte types; d 2052 just past a step;
+# d 33000 beyond 1024 threads in every dtype and d 100 (bf16, f16) and 1001
+# off the 16-byte packs take the two-pass kernel; 8193, 2047, 1025 and 257
+# rows leave a block of several rows part full
+RMSNORM_CUDA_SHAPES = [(1, 576), (8193, 576), (300, 64), (257, 128), (33, 1024), (5, 100),
+                       (2047, 2048), (2048, 2052), (1025, 4096), (3, 8192), (2, 16384),
+                       (3, 33000), (33, 1001)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(1, 576), (8193, 576), (300, 64), (257, 128), (33, 1024),
-                                    (5, 100)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", RMSNORM_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_rmsnorm_cuda_matches_plain(cuda_device, rows, d, dtype):
     x = _to_torch(_normal((rows, d), 80), dtype).to(cuda_device)
     w = _to_torch(_normal((d,), 81, scale=0.1, shift=1.0), dtype).to(cuda_device)
@@ -212,6 +226,17 @@ def test_rmsnorm_cuda_matches_plain(cuda_device, rows, d, dtype):
     assert LAUNCHES["rmsnorm"] == 1
     assert got.dtype == _TORCH[dtype] and got.shape == (rows, d)
     assert (got.float() - want.float()).abs().max().item() <= NORM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(8193, 576), (2047, 2048), (1025, 4096), (3, 8192),
+                                    (3, 33000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_cuda_two_calls_are_bit_equal(cuda_device, rows, d, dtype):
+    """The sum of squares crosses a row's warps in a fixed order."""
+    x = _to_torch(_normal((rows, d), 82), dtype).to(cuda_device)
+    w = _to_torch(_normal((d,), 83, scale=0.1, shift=1.0), dtype).to(cuda_device)
+    assert torch.equal(rmsnorm(x, w), rmsnorm(x, w))
 
 
 @pytest.mark.cuda
