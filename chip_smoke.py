@@ -37,8 +37,8 @@ printed only when every phase passed:
 7. Card against CPU for async: the fedadam run with round_robin must give
    identical event traces on both devices; fedfair is compared too.
 8. The rmsnorm kernel against its plain version on the card at the dense
-   LM's norm shapes, at the MoE and xLSTM families' widths 2048 and 4096,
-   and at the edges of its launcher (where the threads a row step up, the
+   LM's norm shapes, at the MoE and xLSTM families' widths 2048 and 4096
+   and MLA's latent width 512, and at the edges of its launcher (where the threads a row step up, the
    two-pass kernel's widths, part-full blocks; rows x d, f32, bf16 and f16;
    atol 1e-5 / 5e-2 / 1e-2), two calls bit-equal at each, with times at
    (8192, 576), (2048, 2048) and (2048, 4096) f32 (device, eager and host
@@ -197,16 +197,47 @@ printed only when every phase passed:
    fedadam (identical event traces, fused_aggregate once per flush); the
    card's folds and flushes of both are held against ``ref_fedavg`` and
    ``ref_fused_aggregate`` at the shapes they were made at.
-25. A JSON line describing every kernel, the card line, and the final
+25. deepseek-v2-lite-16b (MLA on the MoE) at full width and depth (27
+   layers, 15,706,484,224 f32 params drawn on the card from PRNGKey(0);
+   init time and peak memory against the predicted 72.7 GiB): serving as
+   phase 22's, once with the latent expanded in decode and once absorbed
+   (``mla_absorb``), each with exactly 82 rmsnorm launches (ln1, ln2 and
+   the latent's kv_norm of 27 layers, and the final norm) and no other
+   kernel per prefill and per decode step; the two settings' decode logits
+   over the same inputs within 2e-3; the loss at B=1, S=2048 with
+   ``use_pallas`` (MLA takes no kernel: 82 rmsnorm launches) and without,
+   within 2e-4, beside one layer's MLA attention and MoE FFN timed alone.
+   Card against CPU at full width and 2 layers (the dense
+   first layer and one MoE layer), both settings: batch 2, 4 tokens,
+   identical greedy tokens, prefill logits within 1e-3, identical routing.
+26. whisper-medium at full size (24 encoder and 24 decoder layers,
+   811,864,064 params): serving batch 8 over frames (8, 1500, 1024) drawn
+   as the serve launcher draws them, prompt 128, 32 greedy tokens, and the
+   loss at B=4, S=448 over 1,500 frames, with no kernel launched (LayerNorm
+   and the chunked attention, as in the JAX package). Card against CPU at 2
+   encoder and 2 decoder layers: identical greedy tokens, prefill logits
+   within 1e-3.
+27. Both archs in training (``run_scenario``, arch family, vmap backend,
+   phase 18's settings): whisper-medium at full size with tau 2 (the
+   fedavg fold at 811.9 M params, each call held against ``ref_fedavg``)
+   and deepseek-v2-lite at full width and 2 layers with tau 1 (fused
+   AdamW), sync, 3 rounds; s/round, trained tokens/s, peak memory. Then
+   whisper alone async (tau 2, 16 arrivals, fedadam) at a buffer of 2 (4
+   does not fit its flush on the card): fused_aggregate once per flush,
+   flushes/s, peak memory. Card against CPU on the tiny presets of both,
+   sync (round_robin, tau 2) and async (fedadam): identical allocation or
+   event traces, losses within 1e-3.
+28. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
-In phases 16-20 and 24 every fedavg call of the card's runs is also held
+In phases 16-20, 24 and 27 every fedavg call of the card's runs is also held
 against ``ref_fedavg`` on its own inputs as it runs (``FoldShapes``); the
 seconds and the device memory of that check are kept out of the times and
 peaks the phases report.
 
 Needs CUDA, nvcc (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``)
-and nothing of the JAX package.
+and nothing of the JAX package. Runs with the CUDA caching allocator's
+expandable segments (``PYTORCH_CUDA_ALLOC_CONF``, unless set otherwise).
 """
 
 from __future__ import annotations
@@ -251,11 +282,12 @@ LM_ARCH = "smollm-135m"
 # (rows, d): a token of smollm (d 576) at 1, B*S = 8192 and a ragged 8193
 # rows; qwen3's qk-norms (d = hd) over 4096 tokens x 9 and 2048 x 16 heads;
 # qwen3's d_model 1024 at a ragged 4097 rows
-# qwen2-moe's and xlstm's d_model 2048 and mLSTM's gate width 4096 at a
-# decode step (8 rows), the serve prefill (8 x 128) and the loss (1 x 2048)
+# qwen2-moe's and xlstm's d_model 2048 and mLSTM's gate width 4096, and
+# MLA's kv_norm over deepseek-v2-lite's latent of 512, at a decode step (8
+# rows), the serve prefill (8 x 128) and the loss (1 x 2048)
 NORM_SHAPES = ((1, 576), (8192, 576), (8193, 576), (4096 * 9, 64), (2048 * 16, 128),
                (4097, 1024), (8, 2048), (1024, 2048), (2048, 2048), (8, 4096), (1024, 4096),
-               (2048, 4096))
+               (2048, 4096), (8, 512), (1024, 512), (2048, 512))
 # the edges of the kernel's launcher (tests/test_torch_lm_kernels.py):
 # where the threads a row step up (d 2048, 4096, 8192, just past 2048 and
 # the most, 16384), the two-pass kernel (d 33000 beyond the registers, d
@@ -369,6 +401,34 @@ FAMILIES_STEP = {"xlstm-1.3b": (24, 1, 512), "qwen2-moe-a2.7b": (2, 1, 512)}
 FAMILIES_TINY = dict(archs=("smollm-135m", "xlstm-1.3b", "qwen2-moe-a2.7b"),
                      options=dict(preset="tiny", seq=32, batch=4, tau=2), clients=6, rounds=2,
                      arrivals=9, buffer=3)
+
+# deepseek-v2-lite-16b (MLA on the MoE; phase 25) and whisper-medium
+# (encoder-decoder; phase 26) at full width and depth, weights from
+# PRNGKey(0); the MLA loss at B=1 S=2048 and whisper's at B=4 S=448 (its
+# published text context) over 1,500 frames; card against CPU at full
+# width and the first layers (deepseek's dense layer and one MoE layer;
+# whisper's first 2 encoder and 2 decoder layers), batch 2, 4 tokens
+MLA_ARCH, AUDIO_ARCH = "deepseek-v2-lite-16b", "whisper-medium"
+MLA_PARAMS = 15_706_484_224
+MLA_INIT_PEAK_GIB = 72.7            # predicted: qwen2-moe's init overhead scaled by the leaf
+MLA_LOSS_B, MLA_LOSS_S = 1, 2048
+AUDIO_LOSS_B, AUDIO_LOSS_S = 4, 448
+MLA_CPU_LAYERS, AUDIO_CPU_LAYERS = 2, 2
+# phase 27: both archs in training, with phases 18 and 24's settings:
+# whisper-medium at full size (tau 2, the fedavg fold) and deepseek at full
+# width and 2 layers (tau 1, fused AdamW); async whisper alone at tau 2
+# under fedadam at a buffer of 2: a flush holds several (buffer, N) copies
+# of its 3.02 GiB of params (the cohort, the deltas, their stack, the flat
+# copy) beside the moments, retained versions and a row's activations over
+# 4 x 1,500 frames, and at a buffer of 2 it already peaked at 74.7 GiB of
+# an H100's 79
+MLA_AUDIO_SYNC = dict(tasks={AUDIO_ARCH: dict(preset="full", seq=256, batch=8, tau=2),
+                             MLA_ARCH: dict(preset="full", seq=256, batch=8, tau=1)},
+                      layers={MLA_ARCH: 2}, clients=8)
+AUDIO_ASYNC_BUFFER = 2
+MLA_AUDIO_TINY = dict(archs=(MLA_ARCH, AUDIO_ARCH),
+                      options=dict(preset="tiny", seq=32, batch=4, tau=2), clients=6, rounds=2,
+                      arrivals=9, buffer=3)
 
 
 def fail(msg: str) -> None:
@@ -1396,8 +1456,9 @@ def phase_ssd():
     return err, timed
 
 
-def _hybrid_counts(api, params, cfg, prompts, token):
-    """Launches of one prefill and of one decode step after it."""
+def _hybrid_counts(api, params, cfg, prompts, token, features=None):
+    """Launches of one prefill (with ``features``, whisper's frames, where
+    given) and of one decode step after it."""
     import torch
 
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1406,7 +1467,8 @@ def _hybrid_counts(api, params, cfg, prompts, token):
     P = prompts.shape[1]
     with torch.no_grad():
         reset_launches()
-        _, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+        _, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts,
+                                                 **(features or {})})
         prefill = dict(LAUNCHES)
         caches = pad_cache(caches, P, P + 1)
         reset_launches()
@@ -1604,6 +1666,9 @@ def run_sync_counted(label: str, spec, device: str = "cuda"):
     return res, launches
 
 
+HELD_SPAN = 2**24        # columns of a fold held against ref_fedavg at once
+
+
 class FoldShapes:
     """Records the shapes the runs of phases 16-19 hand to the fold
     kernels, with the number of calls at each: (K, N, dtype) of each
@@ -1643,7 +1708,12 @@ class FoldShapes:
             torch.cuda.synchronize()
             self.held_peak = max(self.held_peak, torch.cuda.max_memory_allocated())
             t0 = time.perf_counter()
-            err = (out.float() - ref_fedavg(stacked, weights).float()).abs().max().item()
+            # in spans of columns: an LM fold's plain version at once would
+            # need one more (N,) buffer than the fold itself
+            N = stacked.shape[1]
+            err = max((out[a:a + HELD_SPAN].float() - ref_fedavg(
+                stacked[:, a:a + HELD_SPAN], weights).float()).abs().max().item()
+                for a in range(0, N, HELD_SPAN))
             dt = time.perf_counter() - t0
             self.seconds += dt
             FoldShapes.held_s += dt
@@ -1951,7 +2021,7 @@ def norms_per_step(task, params) -> int:
     toks = torch.randint(0, cfg.vocab_size, (1, o["seq"]), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(0))
     reset_launches()
-    train.loss_and_grads(get_api(cfg), cfg, params, {"tokens": toks, "labels": toks})
+    train.loss_and_grads(get_api(cfg), cfg, params, train.arch_features(cfg, toks))
     torch.cuda.synchronize()
     return LAUNCHES["rmsnorm"]
 
@@ -2519,25 +2589,29 @@ class MoeInputs:
 
 
 def _routing(layers, cfg, inputs):
-    """Per MoE layer of ``inputs``: the experts each token chose and each
-    expert's picks with a nonzero gate (token index, -1 where the gate is
-    0), on the host."""
+    """Per recorded MoE call of ``inputs`` (in layer order, call after
+    call): the experts each token chose and each expert's picks with a
+    nonzero gate (token index, -1 where the gate is 0), on the host."""
     import torch
 
     from repro_torch.models.moe import moe_route
     from repro_torch.tree import unstack
 
     out = []
+    stack = unstack(layers)
     with torch.no_grad():
-        for p_l, x in zip(unstack(layers), inputs):
+        # the i-th recorded call is layer i mod L's (prefill, then each step)
+        for i, x in enumerate(inputs):
+            p_l = stack[i % len(stack)]
             _, topi, w_sel, idx = moe_route(p_l["ffn"], cfg, x.reshape(1, -1, x.shape[-1]))
             out.append((topi.cpu(), torch.where(w_sel > 0, idx, -1).cpu()))
     return out
 
 
-def _card_vs_cpu_generate(params, params_cpu, cfg, prompts, gen):
+def _card_vs_cpu_generate(params, params_cpu, cfg, prompts, gen, features=None):
     """Greedy tokens and prefill logits of the same weights on the card and
-    the host CPU. Returns (tokens identical, max |logits diff|, CPU s)."""
+    the host CPU (with ``features``, whisper's frames, on both). Returns
+    (tokens identical, max |logits diff|, CPU s)."""
     import torch
 
     from repro_torch.launch.serve import generate
@@ -2545,28 +2619,27 @@ def _card_vs_cpu_generate(params, params_cpu, cfg, prompts, gen):
 
     api = get_api(cfg)
     cpu = torch.device("cpu")
-    gpu = generate(params, cfg, prompts, gen)
+    features = features or {}
+    host_features = {k: v.to(cpu) for k, v in features.items()}
+    gpu = generate(params, cfg, prompts, gen, features)
     t0 = time.perf_counter()
-    host = generate(params_cpu, cfg, prompts.to(cpu), gen)
+    host = generate(params_cpu, cfg, prompts.to(cpu), gen, host_features)
     cpu_s = time.perf_counter() - t0
     with torch.no_grad():
-        lg_gpu, _ = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+        lg_gpu, _ = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts,
+                                                 **features})
         lg_cpu, _ = api.prefill_fn(params_cpu, cfg, {"tokens": prompts.to(cpu),
-                                                     "labels": prompts.to(cpu)})
+                                                     "labels": prompts.to(cpu), **host_features})
     diff = (lg_gpu.cpu() - lg_cpu).abs().max().item()
     return torch.equal(gpu.tokens.cpu(), host.tokens), diff, cpu_s
 
 
-def _serve_family(label: str, arch: str, cfg, norms: int):
-    """Init ``arch`` at full width and depth on the card from PRNGKey(0)
-    (time and peak memory), then serve batch 8, prompt 128, 32 greedy
-    tokens: ``norms`` rmsnorm launches per prefill and per decode step,
-    none of another kernel. Returns (params, prompts, record)."""
+def _init_family(arch: str, cfg):
+    """Init ``arch`` at full width and depth on the card from PRNGKey(0):
+    (params, record of time, param count and memory)."""
     import torch
 
     from repro_torch import prng
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch.serve import generate
     from repro_torch.models import get_api, param_count
 
     api = get_api(cfg)
@@ -2585,38 +2658,75 @@ def _serve_family(label: str, arch: str, cfg, norms: int):
     print(f"init_params(PRNGKey(0)) on the card: {n_params} params ({cfg.n_layers} layers), "
           f"{init_s:.2f} s, {held / 2**30:.3f} GiB held, peak {init_peak / 2**30:.3f} GiB "
           f"during the init")
-    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
-    prompts = prng.randint(prng.PRNGKey(0, device=dev), (B, P), 0, cfg.vocab_size)
-    generate(params, cfg, prompts, 2)                          # warm-up: cuBLAS, allocator
+    return params, {"arch": arch, "params": n_params, "layers": cfg.n_layers, "init_s": init_s,
+                    "init_peak_bytes": init_peak, "params_bytes": held}
+
+
+def _serve_with(label: str, params, cfg, prompts, want: dict, features=None) -> dict:
+    """Serve ``prompts`` (batch 8, prompt 128) for 32 greedy tokens after a
+    warm-up: the launches of the run must be ``want`` per forward (32
+    forwards), and so must those of one prefill and of one decode step;
+    tokens in range. Returns the record."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_api
+
+    api = get_api(cfg)
+    (B, P), G = prompts.shape, SERVE_GEN
+    generate(params, cfg, prompts, 2, features)                # warm-up: cuBLAS, allocator
     reset_launches()
-    res = generate(params, cfg, prompts, G)
+    res = generate(params, cfg, prompts, G, features)
     launches = dict(LAUNCHES)
-    if launches != {"rmsnorm": norms * G}:
-        fail(f"{label}: serve launches {launches}, expected rmsnorm {norms} x {G} forwards")
-    per_prefill, per_decode = _hybrid_counts(api, params, cfg, prompts, res.tokens[:, :1])
-    if per_prefill != {"rmsnorm": norms} or per_decode != {"rmsnorm": norms}:
+    if launches != {k: n * G for k, n in want.items()}:
+        fail(f"{label}: serve launches {launches}, expected {want} x {G} forwards")
+    per_prefill, per_decode = _hybrid_counts(api, params, cfg, prompts, res.tokens[:, :1],
+                                             features)
+    if per_prefill != want or per_decode != want:
         fail(f"{label}: one prefill launched {per_prefill}, one decode step {per_decode}, "
-             f"expected rmsnorm {norms} each")
+             f"expected {want} each")
     if res.tokens.shape != (B, G) or not bool(((res.tokens >= 0)
                                                 & (res.tokens < cfg.vocab_size)).all()):
         fail(f"{label}: tokens {tuple(res.tokens.shape)} out of range")
-    rec = {"arch": arch, "params": n_params, "layers": cfg.n_layers, "init_s": init_s,
-           "init_peak_bytes": init_peak, "params_bytes": held, "batch": B, "prompt": P, "gen": G,
-           "ssm_chunk": cfg.ssm_chunk, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+    rec = {"batch": B, "prompt": P, "gen": G, "ssm_chunk": cfg.ssm_chunk,
+           "prefill_s": res.prefill_s, "decode_s": res.decode_s,
            "prefill_tok_s": B * P / res.prefill_s, "decode_tok_s": B * (G - 1) / res.decode_s,
-           "launches": launches, "per_prefill": per_prefill, "per_decode_step": per_decode}
-    print(f"serve {arch} batch {B} prompt {P} gen {G}: prefill {res.prefill_s * 1e3:.2f} ms "
+           "launches": launches, "per_prefill": per_prefill, "per_decode_step": per_decode,
+           "tokens": res.tokens}
+    print(f"serve {cfg.name} batch {B} prompt {P} gen {G}: prefill {res.prefill_s * 1e3:.2f} ms "
           f"({rec['prefill_tok_s']:.0f} tok/s), decode {res.decode_s * 1e3:.2f} ms for {G - 1} "
           f"steps ({rec['decode_tok_s']:.1f} tok/s); launches {launches}; per prefill "
           f"{per_prefill}, per decode step {per_decode}")
-    return params, prompts, rec
+    return rec
+
+
+def _serve_prompts(cfg):
+    """The serve prompts, batch 8 of 128 tokens, from PRNGKey(0) on the card."""
+    import torch
+
+    from repro_torch import prng
+
+    return prng.randint(prng.PRNGKey(0, device=torch.device("cuda")),
+                        (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+
+
+def _serve_family(label: str, arch: str, cfg, norms: int):
+    """Init ``arch`` at full width and depth on the card from PRNGKey(0)
+    (time and peak memory), then serve batch 8, prompt 128, 32 greedy
+    tokens: ``norms`` rmsnorm launches per prefill and per decode step,
+    none of another kernel. Returns (params, prompts, record)."""
+    params, rec = _init_family(arch, cfg)
+    prompts = _serve_prompts(cfg)
+    served = _serve_with(label, params, cfg, prompts, {"rmsnorm": norms})
+    served.pop("tokens")
+    return params, prompts, {**rec, **served}
 
 
 def _family_loss(label: str, params, cfg, B: int, S: int, want: dict, reps: int,
-                 pallas: bool):
-    """The forward loss at (B, S) on the card: launches of one forward (must
-    equal ``want``), ms per forward and peak memory; with ``pallas`` also
-    the ``use_pallas=False`` loss, which must agree within 2e-4."""
+                 pallas: bool, features=None):
+    """The forward loss at (B, S) on the card (with ``features``, whisper's
+    frames, where given): launches of one forward (must equal ``want``),
+    ms per forward and peak memory; with ``pallas`` also the
+    ``use_pallas=False`` loss, which must agree within 2e-4."""
     import torch
 
     from repro_torch import prng
@@ -2627,7 +2737,7 @@ def _family_loss(label: str, params, cfg, B: int, S: int, want: dict, reps: int,
     run_cfg = cfg.replace(use_pallas=True) if pallas else cfg
     dev = torch.device("cuda")
     tokens = prng.randint(prng.PRNGKey(1, device=dev), (B, S), 0, cfg.vocab_size)
-    batch = {"tokens": tokens, "labels": tokens}
+    batch = {"tokens": tokens, "labels": tokens, **(features or {})}
     rec = {"B": B, "S": S, "ssm_chunk": cfg.ssm_chunk}
     with torch.no_grad():
         api.loss_fn(params, run_cfg, batch)                      # warm-up
@@ -3064,7 +3174,326 @@ def phase_families_train(line: str):
              "tiny_async_launches": alaunch}, checked, tiny_checked, timed)
 
 
+def _decode_logits(params, cfg, prompts, tokens) -> list:
+    """Logits (host) of prefill over ``prompts`` and of a decode step for
+    each of ``tokens``' columns after the first, fed in turn (the same
+    inputs whatever ``cfg.mla_absorb``)."""
+    import torch
+
+    from repro_torch.models import get_api, pad_cache
+
+    api = get_api(cfg)
+    P, G = prompts.shape[1], tokens.shape[1]
+    with torch.no_grad():
+        logits, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+        caches = pad_cache(caches, P, P + G)
+        out = [logits.cpu()]
+        for i in range(G - 1):
+            logits, caches = api.decode_fn(params, cfg, tokens[:, i:i + 1], P + i, caches)
+            out.append(logits.cpu())
+    return out
+
+
+def phase_mla(line: str):
+    """Phase 25: deepseek-v2-lite-16b at full width and depth."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, serve_config
+    from repro_torch.models import param_count
+    from repro_torch.tree import tree_map
+
+    print(f"== phase 25: {MLA_ARCH} (MLA) at full width and depth on the card")
+    print(f"card: {line}")
+    cfg = serve_config(get_config(MLA_ARCH), SERVE_PROMPT)
+    # ln1, ln2 and the latent's kv_norm in every layer, and the final norm
+    norms = 3 * cfg.n_layers + 1
+    params, rec = _init_family(MLA_ARCH, cfg)
+    print(f"  init peak {rec['init_peak_bytes'] / 2**30:.3f} GiB against the predicted "
+          f"{MLA_INIT_PEAK_GIB} GiB; {rec['params']} params (expected {MLA_PARAMS})")
+    if rec["params"] != MLA_PARAMS:
+        fail(f"phase 25: {rec['params']} params, expected {MLA_PARAMS}")
+    prompts = _serve_prompts(cfg)
+    served = {}
+    for absorb in (False, True):
+        run_cfg = cfg.replace(mla_absorb=absorb)
+        served[absorb] = _serve_with(f"phase 25 absorb={absorb}", params, run_cfg, prompts,
+                                     {"rmsnorm": norms})
+    toks = served[False].pop("tokens")
+    served[True].pop("tokens")
+    expand = _decode_logits(params, cfg, prompts, toks)
+    absorbed = _decode_logits(params, cfg.replace(mla_absorb=True), prompts, toks)
+    settings_diff = max((a - b).abs().max().item() for a, b in zip(expand, absorbed))
+    print(f"  decode logits with the latent expanded and absorbed, the same {toks.shape[1]} "
+          f"forwards: max |diff| {settings_diff:.3g} (tol 2e-3)")
+    if not settings_diff <= 2e-3:
+        fail(f"phase 25: absorbed and expanded decode logits differ by {settings_diff}")
+    loss = _family_loss("phase 25", params, cfg, MLA_LOSS_B, MLA_LOSS_S, {"rmsnorm": norms},
+                        reps=3, pallas=True)
+    loss["parts"] = _mla_parts(params, cfg)
+
+    # card against CPU: the dense first layer and one MoE layer
+    L = MLA_CPU_LAYERS
+    small_cfg = cfg.replace(n_layers=L)
+    small = dict(params, moe_layers=tree_map(lambda t: t[:L - cfg.first_dense_layers],
+                                             params["moe_layers"]))
+    small_cpu = tree_map(lambda t: t.cpu(), small)
+    few = prompts[:CPU_BATCH]
+    cpu = {}
+    for absorb in (False, True):
+        c = small_cfg.replace(mla_absorb=absorb)
+        same, diff, cpu_s = _card_vs_cpu_generate(small, small_cpu, c, few, CPU_GEN)
+        # each device's routing, recomputed from its own MoE inputs of a
+        # whole generate (prefill and every decode step)
+        with MoeInputs() as on_gpu:
+            generate(small, c, few, CPU_GEN)
+        with MoeInputs() as on_cpu:
+            generate(small_cpu, c, few.cpu(), CPU_GEN)
+        r_gpu = _routing(small["moe_layers"], c, on_gpu.inputs)
+        r_cpu = _routing(small_cpu["moe_layers"], c, on_cpu.inputs)
+        routing_same = len(r_gpu) == len(r_cpu) > 0 and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(r_gpu, r_cpu))
+        print(f"  {L} of {cfg.n_layers} layers ({param_count(small_cpu)} params), absorb={absorb}, "
+              f"batch {CPU_BATCH}, {CPU_GEN} tokens on the host CPU ({cpu_s:.2f} s): greedy "
+              f"tokens identical={same}, max |prefill logits card - cpu| {diff:.3g} (tol "
+              f"1e-3), routing of {len(r_gpu)} MoE calls identical={routing_same}")
+        if not same or not diff <= 1e-3 or not routing_same:
+            fail(f"phase 25: card and CPU disagree (absorb={absorb})")
+        cpu[absorb] = {"tokens_identical": same, "prefill_logits_max_abs_diff": diff,
+                       "routing_identical": routing_same, "moe_calls": len(r_gpu)}
+    del small_cpu, small, params
+    torch.cuda.empty_cache()
+    out = {**rec, "serve_expand": served[False], "serve_absorb": served[True],
+           "absorb_vs_expand_logits_max_abs_diff": settings_diff, "cpu_layers": L,
+           "cpu_expand": cpu[False], "cpu_absorb": cpu[True]}
+    return out, loss
+
+
+def _mla_parts(params, cfg) -> dict:
+    """Time, at the MLA loss's shape (B=1, S=2048), one layer's parts alone
+    on the model's weights and seeded activations: the MLA attention
+    (projections, the latent's norm and expansion, the chunked attention)
+    of the first MoE layer, and that layer's MoE FFN (router, expert and
+    shared-expert products, combine)."""
+    import torch
+
+    from repro_torch.models import attention, moe
+    from repro_torch.tree import tree_map
+
+    B, S = MLA_LOSS_B, MLA_LOSS_S
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    h = torch.randn(B, S, cfg.d_model, generator=gen, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    p_l = tree_map(lambda t: t[0], params["moe_layers"])
+    with torch.no_grad():
+        rec = {"mla_attention_ms": time_ms(lambda: attention.mla_train(p_l["attn"], cfg, h, pos),
+                                           reps=5),
+               "moe_ffn_ms": time_ms(lambda: moe.moe_ffn(p_l["ffn"], cfg, h), reps=5),
+               "moe_layers": cfg.n_layers - cfg.first_dense_layers, "layers": cfg.n_layers}
+    print(f"  one layer's parts alone at B={B} S={S}: MLA attention {rec['mla_attention_ms']:.2f} "
+          f"ms (x {rec['layers']} layers), MoE FFN {rec['moe_ffn_ms']:.2f} ms (x "
+          f"{rec['moe_layers']} layers)")
+    del h
+    return rec
+
+
+def phase_audio(line: str):
+    """Phase 26: whisper-medium at full size."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_features
+    from repro_torch.models import param_count
+    from repro_torch.tree import tree_map
+
+    print(f"== phase 26: {AUDIO_ARCH} (encoder-decoder) at full size on the card")
+    print(f"card: {line}")
+    cfg = get_config(AUDIO_ARCH)
+    params, rec = _init_family(AUDIO_ARCH, cfg)
+    dev = torch.device("cuda")
+    # the serve launcher's frames and prompts, both from its key
+    key = prng.PRNGKey(0, device=dev)
+    features = serve_features(key, cfg, SERVE_BATCH)
+    prompts = _serve_prompts(cfg)
+    served = _serve_with("phase 26", params, cfg, prompts, {}, features)
+    served.pop("tokens")
+    served["frames"] = list(features["frames"].shape)
+    frames = serve_features(prng.PRNGKey(1, device=dev), cfg, AUDIO_LOSS_B)
+    loss = _family_loss("phase 26", params, cfg, AUDIO_LOSS_B, AUDIO_LOSS_S, {}, reps=3,
+                        pallas=False, features=frames)
+    loss["frames"] = list(frames["frames"].shape)
+
+    # card against CPU: the first encoder and decoder layers, batch 2
+    L = AUDIO_CPU_LAYERS
+    small_cfg = cfg.replace(n_layers=L, n_enc_layers=L)
+    small = dict(params, enc_layers=tree_map(lambda t: t[:L], params["enc_layers"]),
+                 dec_layers=tree_map(lambda t: t[:L], params["dec_layers"]))
+    small_cpu = tree_map(lambda t: t.cpu(), small)
+    few = {"frames": features["frames"][:CPU_BATCH]}
+    same, diff, cpu_s = _card_vs_cpu_generate(small, small_cpu, small_cfg, prompts[:CPU_BATCH],
+                                              CPU_GEN, few)
+    print(f"  {L} encoder and {L} decoder layers ({param_count(small_cpu)} params), batch "
+          f"{CPU_BATCH}, {CPU_GEN} tokens on the host CPU ({cpu_s:.2f} s): greedy tokens "
+          f"identical={same}, max |prefill logits card - cpu| {diff:.3g} (tol 1e-3)")
+    if not same or not diff <= 1e-3:
+        fail("phase 26: card and CPU disagree")
+    del small_cpu, small, params
+    torch.cuda.empty_cache()
+    return ({**rec, **served, "cpu_layers": L, "cpu_tokens_identical": same,
+             "cpu_prefill_logits_max_abs_diff": diff}, loss)
+
+
+def phase_mla_audio_train(line: str):
+    """Phase 27: deepseek-v2-lite and whisper-medium in training."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import param_count
+
+    print("== phase 27: arch training of deepseek-v2-lite and whisper-medium on the card "
+          "(run_scenario, vmap backend)")
+    print(f"card: {line}")
+    torch.cuda.empty_cache()
+    tasks = MLA_AUDIO_SYNC["tasks"]
+    spec = arch_spec("arch-mla-audio", tasks, MLA_AUDIO_SYNC["clients"])
+    with DepthCut(MLA_AUDIO_SYNC["layers"]), FoldShapes() as shapes, TaskClock() as clock:
+        shapes.reset_peak()
+        res, launches = run_counted(spec, "cuda")
+    peak = shapes.peak_bytes()
+    names = res.task_names
+    folded = [s for s, t in enumerate(spec.tasks) if t.options["tau"] > 1]
+    folds = int((res.alloc_counts[:, folded] > 0).sum())
+    n = {a: param_count(p) for a, p in zip(names, res.params)}
+    want_shapes = {(tasks[names[s]]["batch"], n[names[s]], "float32"):
+                   int((res.alloc_counts[:, s] > 0).sum()) for s in folded}
+    want_shapes = {k: v for k, v in want_shapes.items() if v}
+    if not folds or launches.get("fedavg", 0) != folds or dict(shapes.fedavg) != want_shapes:
+        fail(f"phase 27: fedavg launched {launches.get('fedavg', 0)} times at "
+             f"{dict(shapes.fedavg)} for {folds} non-empty tau>1 folds {want_shapes}")
+    if set(launches) - {"fedavg", "rmsnorm"} or launches.get("rmsnorm", 0) <= 0:
+        fail(f"phase 27: launches {launches}")
+    trained = np.cumsum(res.alloc_counts > 0, axis=0) > 0
+    if not (trained[-1].all() and np.isfinite(res.loss[trained]).all()
+            and np.isfinite(res.acc).all()):
+        fail(f"phase 27: loss {res.loss} or accuracy {res.acc} not finite, or a task never "
+             f"trained ({res.alloc_counts.tolist()})")
+    per_task = {}
+    for s, t in enumerate(spec.tasks):
+        o = t.options
+        tok = int((res.alloc_counts[:, s] > 0).sum()) * o["batch"] * o["seq"] * o["tau"]
+        sec = clock.seconds[t.name]
+        per_task[t.name] = {
+            "layers": MLA_AUDIO_SYNC["layers"].get(t.name), "tau": o["tau"], "params": n[t.name],
+            "rounds_trained": clock.rounds[t.name], "seconds": sec,
+            "s_per_round": sec / max(clock.rounds[t.name], 1), "trained_tokens": tok,
+            "trained_tokens_per_s": tok / sec if sec else 0.0,
+            "final_loss": res.final_loss[t.name], "final_acc": float(res.acc[-1, s])}
+    with DepthCut(MLA_AUDIO_SYNC["layers"]):
+        per_step = {t.name: norms_per_step(t, p) for t, p in zip(spec.tasks, res.params)}
+    for a, count in per_step.items():
+        per_task[a]["rmsnorm_per_training_step"] = count
+    tokens = _trained_tokens(spec, res)
+    rec = {"s_per_round": res.wall_time / spec.runtime.rounds,
+           "trained_tokens_per_s": tokens / res.wall_time, "wall_s": res.wall_time,
+           "peak_bytes": peak, "alloc_counts": res.alloc_counts.tolist(), "launches": launches,
+           "fedavg_folds": folds, "tasks": per_task}
+    print(f"arch sync {names} (depths {MLA_AUDIO_SYNC['layers']}): {rec['s_per_round']:.3f} "
+          f"s/round, {rec['trained_tokens_per_s']:.1f} trained tokens/s ({tokens} tokens in "
+          f"{res.wall_time:.3f} s), peak {peak / 2**30:.3f} GiB; launches {launches}, fedavg = "
+          f"non-empty tau>1 folds {folds} at {dict(shapes.fedavg)}")
+    for a, r in per_task.items():
+        print(f"  {a}: {r['s_per_round']:.3f} s/round over {r['rounds_trained']} rounds, "
+              f"{r['trained_tokens_per_s']:.1f} trained tokens/s, final loss "
+              f"{r['final_loss']:.4f}, final acc {r['final_acc']:.4f}, rmsnorm launches per "
+              f"training step {r['rmsnorm_per_training_step']}")
+    checked = check_run_shapes("phase 27", shapes)
+    if checked["fedavg_calls_held"] != folds:
+        fail(f"phase 27: {checked['fedavg_calls_held']} fedavg calls held for {folds} folds")
+    del res
+    torch.cuda.empty_cache()
+    timed = time_lm_shapes(shapes)
+
+    # async: whisper alone at tau 2 under fedadam, AUDIO_ASYNC_BUFFER a flush
+    torch.cuda.empty_cache()
+    aspec = arch_spec("arch-audio-async", {AUDIO_ARCH: dict(tasks[AUDIO_ARCH],
+                                                            tau=ARCH_ASYNC["tau"])},
+                      MLA_AUDIO_SYNC["clients"], mode="async", buffer=AUDIO_ASYNC_BUFFER,
+                      aggregator=ARCH_ASYNC["aggregator"], options=ARCH_ASYNC["options"])
+    with FoldShapes() as ashapes:
+        ashapes.reset_peak()
+        ares, alaunch = run_counted(aspec, "cuda")
+    apeak = ashapes.peak_bytes()
+    flushes = len(ares.time)
+    an = param_count(ares.params[0])
+    if (flushes == 0 or alaunch != {"fused_aggregate": flushes}
+            or dict(ashapes.fused) != {(AUDIO_ASYNC_BUFFER, an, "fedadam"): flushes}):
+        fail(f"phase 27: async launches {alaunch} at {dict(ashapes.fused)} for {flushes} "
+             f"flushes")
+    if not (np.isfinite(ares.loss).all() and np.isfinite(ares.acc).all()):
+        fail(f"phase 27: async metric {ares.loss} or accuracy {ares.acc} not finite")
+    arec = {"flushes": flushes, "flushes_per_s": flushes / ares.wall_time,
+            "wall_s": ares.wall_time, "peak_bytes": apeak, "buffer": AUDIO_ASYNC_BUFFER,
+            "params": an, "launches": alaunch, "acc_eval": ares.acc.tolist(),
+            "metric": ares.loss.tolist()}
+    print(f"arch async {ares.task_names} buffer {AUDIO_ASYNC_BUFFER}: "
+          f"{arec['flushes_per_s']:.3f} flushes/s ({flushes} flushes of "
+          f"{aspec.runtime.total_arrivals} arrivals, {ares.wall_time:.3f} s), peak "
+          f"{apeak / 2**30:.3f} GiB, launches {alaunch}")
+    achecked = check_run_shapes("phase 27 async", ashapes)
+    del ares
+    torch.cuda.empty_cache()
+    atimed = time_lm_shapes(ashapes)
+
+    # the tiny presets on the card and the CPU, sync and async
+    opts = MLA_AUDIO_TINY["options"]
+    tiny = arch_spec("mla-audio-tiny", {a: opts for a in MLA_AUDIO_TINY["archs"]},
+                     MLA_AUDIO_TINY["clients"], strategy="round_robin",
+                     rounds=MLA_AUDIO_TINY["rounds"])
+    tiny_async = arch_spec("mla-audio-tiny-async", {a: opts for a in MLA_AUDIO_TINY["archs"]},
+                           MLA_AUDIO_TINY["clients"], mode="async", strategy="round_robin",
+                           arrivals=MLA_AUDIO_TINY["arrivals"], buffer=MLA_AUDIO_TINY["buffer"],
+                           aggregator="fedadam", options=ARCH_ASYNC["options"])
+    with FoldShapes() as tiny_shapes:
+        gpu, tlaunch = run_counted(tiny, "cuda")
+        agpu, talaunch = run_counted(tiny_async, "cuda")
+    tfolds, tflushes = int((gpu.alloc_counts > 0).sum()), len(agpu.time)
+    if (tlaunch.get("fedavg", 0) != tfolds or sum(tiny_shapes.fedavg.values()) != tfolds
+            or talaunch.get("fedavg", 0) or sum(tiny_shapes.fused.values()) != tflushes
+            or talaunch.get("fused_aggregate", 0) != tflushes):
+        fail(f"phase 27: tiny runs' launches {tlaunch} / {talaunch} and shapes "
+             f"{dict(tiny_shapes.fedavg)} / {dict(tiny_shapes.fused)} for {tfolds} folds and "
+             f"{tflushes} flushes")
+    cpu, _ = run_counted(tiny, "cpu")
+    acpu, _ = run_counted(tiny_async, "cpu")
+    same, gap = np.array_equal(gpu.alloc, cpu.alloc), _loss_gap(gpu, cpu)
+    asame, agap = _same_events(agpu, acpu), _loss_gap(agpu, acpu)
+    print(f"tiny {list(MLA_AUDIO_TINY['archs'])} card vs CPU: sync round_robin tau 2 allocation "
+          f"traces identical={same}, max |loss card - cpu| {gap:.3g}, fedavg "
+          f"{tlaunch.get('fedavg', 0)} launches for {tfolds} folds; async fedadam event traces "
+          f"identical={asame}, max |eval loss card - cpu| {agap:.3g}, fused_aggregate "
+          f"{talaunch.get('fused_aggregate', 0)} launches for {tflushes} flushes")
+    if not same or not gap <= 1e-3 or not asame or not agap <= 1e-3:
+        fail("phase 27: tiny deepseek-v2-lite and whisper card vs CPU disagree")
+    tiny_checked = check_run_shapes("phase 27 tiny", tiny_shapes)
+    return ({**rec, "async": arec, "card_vs_cpu_loss_gap": gap,
+             "card_vs_cpu_async_loss_gap": agap, "tiny_sync_launches": tlaunch,
+             "tiny_async_launches": talaunch},
+            {k: max(checked[k], achecked[k], tiny_checked[k]) for k in
+             ("fedavg", "fused_aggregate")}
+            | {"fedavg_shapes": checked["fedavg_shapes"] + tiny_checked["fedavg_shapes"],
+               "fused_shapes": achecked["fused_shapes"] + tiny_checked["fused_shapes"]},
+            timed + atimed)
+
+
 def main() -> int:
+    import os
+
+    # before CUDA starts: phase 27's whisper fold holds ~73 GiB of the card's
+    # 79, which fits only where freed blocks can be remapped (without this
+    # 7.6 GiB of free blocks were too small for one 3.03 GiB tensor)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3100,6 +3529,9 @@ def main() -> int:
     moe_served, moe_loss = phase_moe(line)
     xlstm_served, xlstm_loss = phase_xlstm(line)
     families, families_checked, tiny_checked, families_timed = phase_families_train(line)
+    mla_served, mla_loss = phase_mla(line)
+    audio_served, audio_loss = phase_audio(line)
+    mla_audio, mla_audio_checked, mla_audio_timed = phase_mla_audio_train(line)
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -3121,9 +3553,14 @@ def main() -> int:
         # example's three-task mix, and of the tiny mix's tau 2 tasks
         "launches_families_sync": families["launches"]["fedavg"],
         "launches_families_tiny_sync": families["tiny_sync_launches"]["fedavg"],
+        # phase 27: one per non-empty fold of whisper-medium's tau 2 task
+        # (at its 811.9 M params) and of the tiny deepseek/whisper mix
+        "launches_mla_audio_sync": mla_audio["launches"]["fedavg"],
+        "launches_mla_audio_tiny_sync": mla_audio["tiny_sync_launches"]["fedavg"],
         "max_abs_err": max(errs["float32"], sync_checked["fedavg"], async_checked["fedavg"],
                            arch_sync_checked["fedavg"], pop_checked["fedavg"],
-                           families_checked["fedavg"], tiny_checked["fedavg"]),
+                           families_checked["fedavg"], tiny_checked["fedavg"],
+                           mla_audio_checked["fedavg"]),
         "max_abs_err_bf16": errs["bfloat16"],
         # phases 16-18, 20 and 24: the (K, N) folds those runs made, each
         # held against ref_fedavg after the runs
@@ -3131,7 +3568,8 @@ def main() -> int:
                                + arch_sync_checked["fedavg_shapes"]
                                + pop_checked["fedavg_shapes"]
                                + families_checked["fedavg_shapes"]
-                               + tiny_checked["fedavg_shapes"]),
+                               + tiny_checked["fedavg_shapes"]
+                               + mla_audio_checked["fedavg_shapes"]),
         "shape": list(TIMED_MAIN),
         "dtype": "float32",
         **timed[TIMED_MAIN],
@@ -3139,6 +3577,7 @@ def main() -> int:
         "lm_scale": {"shape": [LM_K, LM_N], **lm},
         "arch_sync_folds": arch_sync_timed,
         "families_sync_folds": families_timed,
+        "mla_audio_folds": [r for r in mla_audio_timed if r["kernel"] == "fedavg"],
     }
     fused = {
         "name": "fused_aggregate",
@@ -3156,11 +3595,16 @@ def main() -> int:
         "launches_resume_async": resume["async"]["launches_after_resume"]["fused_aggregate"],
         # phase 24: one per flush of the tiny three-task mix's async fedadam run
         "launches_families_tiny_async": families["tiny_async_launches"]["fused_aggregate"],
+        # phase 27: one per flush of whisper-medium's async fedadam run and of
+        # the tiny deepseek/whisper mix's
+        "launches_whisper_async": mla_audio["async"]["launches"]["fused_aggregate"],
+        "launches_mla_audio_tiny_async": mla_audio["tiny_async_launches"]["fused_aggregate"],
         "max_abs_err": max(f_err, async_checked["fused_aggregate"],
                            arch_async_checked["fused_aggregate"], pop_checked["fused_aggregate"],
-                           tiny_checked["fused_aggregate"]),
+                           tiny_checked["fused_aggregate"], mla_audio_checked["fused_aggregate"]),
         "run_shapes_checked": (async_checked["fused_shapes"] + arch_async_checked["fused_shapes"]
-                               + pop_checked["fused_shapes"] + tiny_checked["fused_shapes"]),
+                               + pop_checked["fused_shapes"] + tiny_checked["fused_shapes"]
+                               + mla_audio_checked["fused_shapes"]),
         "yogi_ties": f_ties,
         "mode": "fedadam",
         "shape": list(FUSED_TIMED),
@@ -3174,6 +3618,7 @@ def main() -> int:
         "modes": f_timed,
         "lm_scale": {"shape": [LM_K, LM_N], "reduce_only_ms": f_lm_reduce, **f_lm},
         "arch_async_flushes": arch_async_timed,
+        "whisper_async_flushes": [r for r in mla_audio_timed if r["kernel"] == "fused_aggregate"],
     }
     flash = {
         "name": "flash_attention",
@@ -3221,6 +3666,13 @@ def main() -> int:
         "launches_families_sync": families["launches"]["rmsnorm"],
         "launches_per_training_step_families": {
             a: r["rmsnorm_per_training_step"] for a, r in families["tasks"].items()},
+        # phases 25 and 27: deepseek-v2-lite serving (per prefill and per
+        # decode step, either decode setting) and its loss, 82 a forward;
+        # the deepseek/whisper training run (whisper launches none)
+        "launches_deepseek_serve": mla_served["serve_expand"]["launches"]["rmsnorm"],
+        "launches_deepseek_serve_absorb": mla_served["serve_absorb"]["launches"]["rmsnorm"],
+        "launches_deepseek_loss": mla_loss["launches"]["rmsnorm"],
+        "launches_mla_audio_sync": mla_audio["launches"]["rmsnorm"],
         **norm,
     }
     gated_rec = {
@@ -3250,6 +3702,9 @@ def main() -> int:
     print(json.dumps({"qwen2_moe_serve": moe_served, "qwen2_moe_loss": moe_loss,
                       "xlstm_serve": xlstm_served, "xlstm_loss": xlstm_loss,
                       "families_sync": families}))
+    print(json.dumps({"deepseek_v2_lite": mla_served, "deepseek_v2_lite_loss": mla_loss,
+                      "whisper_medium": audio_served, "whisper_medium_loss": audio_loss,
+                      "mla_audio_train": mla_audio}))
     print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

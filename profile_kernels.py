@@ -8,8 +8,8 @@ graph and CUDA events.
 Runs ``flash_attention`` at smollm-135m's and zamba2-7b's causal shapes
 and ``ssd_scan`` at zamba2-7b's loss and serve-prefill shapes (the shapes
 of ``chip_smoke.py`` phases 9 and 13), in f32 and bf16, ``reps`` times
-each under ``torch.profiler`` (after a warm-up call it traces and
-discards, ``profile_calls``), and prints the mean device time per call of
+each under ``torch.profiler`` (between traced calls it does not count,
+``profile_calls``), and prints the mean device time per call of
 every CUDA kernel they launch (the scan's two or four launches apart), with
 ``scaled_dot_product_attention`` beside flash.
 
@@ -21,7 +21,8 @@ as eager time per call. The profiler's total device time and launch count
 are printed beside those, with the gap. Exits non-zero without CUDA, and
 when the profiler's launch count of a kernel family the script names
 (``flash_attention``, ``ssd_scan``, ``rmsnorm``, ``fedavg``) differs from
-the graph's. ``rmsnorm`` at (8192, 576), (2048, 2048) and (2048, 4096) f32
+the graph's; each window's counted launches are also held against their
+kernels by correlation id (``launch_trace``). ``rmsnorm`` at (8192, 576), (2048, 2048) and (2048, 4096) f32
 and ``fedavg`` at K=8 and K=4, N=6922 f32 (phases 8 and 2) are profiled and
 cross-checked the same way.
 
@@ -47,9 +48,11 @@ sys.path.insert(0, str(ROOT))
 # gated_rmsnorm_rows before rmsnorm_rows; "ssd_" covers every launch of the
 # scan: ssd_chunk_scores, ssd_chunk_state, ssd_state_pass, ssd_chunk_out,
 # ssd_scan_seq); "rmsnorm_rows" covers rmsnorm_rows_reg and the two-pass
-# rmsnorm_rows, "fedavg_" fedavg_vec16 and fedavg_scalar
+# rmsnorm_rows, "fedavg_" fedavg_vec16 and fedavg_scalar; "indexfunc" is
+# index_add_ (the MoE combine), "softmax" the chunked attention's softmax
 FAMILIES = (("flash_attention", ("flash_fwd",)), ("gated_rmsnorm", ("gated_rmsnorm_rows",)),
             ("ssd_scan", ("ssd_",)), ("rmsnorm", ("rmsnorm_rows",)), ("fedavg", ("fedavg_",)),
+            ("index_add", ("indexfunc",)), ("softmax", ("softmax",)),
             ("matmul", ("gemm", "cutlass", "xmma", "splitk")))
 HOST_CALLS = 10_000     # calls timed per part of a wrapper: 50 windows of 200,
 HOST_ROUNDS = 5         # in 5 rounds over the parts
@@ -57,6 +60,10 @@ HOST_ROUNDS = 5         # in 5 rounds over the parts
 # a window of 20 such calls lasts about 0.3 ms, and one came back with no
 # kernel at all on an H100
 SHORT_CALLS = 200
+# the host range of a profiler window whose launches are counted, and the
+# host seconds of the guard calls around it
+MEASURED = "profile_calls.measured"
+GUARD_S = 0.01
 
 
 def family(name: str) -> str:
@@ -70,48 +77,143 @@ def _is_copy(key: str) -> bool:
     return key.startswith(("Memcpy", "Memset"))
 
 
-def profile_calls(fn, calls: int, cpu: bool = False) -> tuple:
-    """``calls`` calls of ``fn`` in the one active step of a
-    ``torch.profiler`` window (CUDA activity, and CPU with ``cpu``), after
-    a warm-up step of one call that the profiler already traces and then
-    discards: kernels launched just after tracing starts can go missing
-    (the first 9 launches of a one-call zamba2 loss window on an H100), so
-    no measured call is launched then. Returns the profiler and the wall
-    ms per call (host clock, around work that ends in a synchronise)."""
+def _guard(fn) -> None:
+    """Calls of ``fn``, each waited for, until ``GUARD_S`` of host time has
+    passed (at least one)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=activities,
+    t0 = time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= GUARD_S:
+            return
+
+
+def profile_calls(fn, calls: int) -> tuple:
+    """``calls`` calls of ``fn`` inside the host range ``MEASURED`` of the
+    one active step of a ``torch.profiler`` window (CPU and CUDA
+    activity). The window opens with a warm-up step of one call that the
+    profiler traces and discards (kernels launched just after tracing
+    starts went missing: the first 9 launches of a one-call zamba2 loss
+    window on an H100), and the active step puts ``_guard`` calls, traced
+    but not counted, before and after the measured ones: kineto keeps a
+    device activity only where its start and end, on CUPTI's clock mapped
+    to the host's, fall inside the active step's host-clock window, and
+    that mapping put kernels up to 51 us before their own launches on an
+    H100, so kernels near an edge of the window could be dropped. Only the
+    device work of launches made inside ``MEASURED`` is counted
+    (``measured_device``). Returns the profiler and the wall ms per call
+    (host clock, around work that ends in a synchronise)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
         prof.step()
+        _guard(fn)
         t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+        with record_function(MEASURED):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        _guard(fn)
         prof.step()
     return prof, wall_ms
 
 
-def device_events(prof) -> list:
-    """The profiler's rows of device work, kernels and copies, without the
-    step annotation (``ProfilerStep*``) that a scheduled window with CPU
-    activity also records on the device timeline, spanning the step."""
+def _is_api(e) -> bool:
+    """A CUDA API call, of the runtime or of libcuda (``cudaLaunchKernel``,
+    ``cuLaunchKernel``, ``cudaMemcpyAsync``, ...): a host-side kineto event."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+    name = e.name()
+    return e.device_type() == DeviceType.CPU and (
+        name.startswith("cuda") or (name.startswith("cu") and name[2:3].isupper()))
 
 
-def device_ms(fn, reps: int) -> dict:
-    """{kernel: (mean device ms per call, launches per call)} of the CUDA
-    kernels (and copies) ``fn`` launches, under the profiler."""
-    prof, _ = profile_calls(fn, reps)
-    return {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
-            for e in device_events(prof)}
+def _window(prof) -> tuple:
+    """The window's kineto events, and those of its CUDA API calls made
+    inside the ``MEASURED`` range, by host clock."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+              if e.name() == MEASURED and e.device_type() == DeviceType.CPU]
+    if len(ranges) != 1:
+        raise RuntimeError(f"profile window holds {len(ranges)} {MEASURED!r} ranges, not 1")
+    t0, t1 = ranges[0]
+    return events, [e for e in events if _is_api(e) and t0 <= e.start_ns() <= t1]
+
+
+def _device_work(events) -> list:
+    """The device's kernels, copies and sets, without the annotations a
+    scheduled window with CPU activity also records on the device timeline
+    (``ProfilerStep*``, ``MEASURED``)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type() == DeviceType.CUDA
+            and e.name() != MEASURED and not e.name().startswith("ProfilerStep")]
+
+
+def measured_device(prof) -> dict:
+    """{kernel or copy: (device us, count)} of the device work launched
+    inside the window's ``MEASURED`` range (each activity tied to its
+    launch by CUPTI's correlation id)."""
+    events, api = _window(prof)
+    corr = {e.correlation_id() for e in api}
+    rows = {}
+    for e in _device_work(events):
+        if e.correlation_id() in corr:
+            us, n = rows.get(e.name(), (0.0, 0))
+            rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return rows
+
+
+def launch_trace(prof, names=()) -> dict:
+    """Hold the kernels of the window's measured launches (``cudaLaunchKernel``,
+    ``cuLaunchKernel`` and their ``Ex`` forms, inside ``MEASURED``)
+    against those launches, by the CUPTI correlation id each launch shares
+    with the kernel it enqueues. A launch without its kernel is a kernel
+    the profiler lost; for each, its index among the measured launches and
+    its place in their host time (0 = the first launch, 1 = the last),
+    and, where they are whole calls of the graph's ``names`` (one call's
+    kernels in order), its family. Also the least time from a launch to
+    its kernel's start as recorded (negative where CUPTI's clock, mapped
+    to the host's, puts the kernel before its launch). Prints one line;
+    returns the record."""
+    events, api = _window(prof)
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in api
+                      if "LaunchKernel" in e.name())
+    starts = {e.correlation_id(): e.start_ns() for e in _device_work(events)
+              if not _is_copy(e.name())}
+    if not launches:
+        print("  launch trace: the profiler recorded no measured launch")
+        return {"launches": 0, "kernels": 0, "lost": []}
+    t0, t1 = launches[0][0], launches[-1][0]
+    whole = bool(names) and len(launches) % len(names) == 0
+    lost = [{"index": i, "place": (t - t0) / max(t1 - t0, 1),
+             "family": family(names[i % len(names)]) if whole else "?"}
+            for i, (t, corr) in enumerate(launches) if corr not in starts]
+    lead = [(starts[c] - t) / 1e3 for t, c in launches if c in starts]
+    rec = {"launches": len(launches), "kernels": len(lead), "lost": lost,
+           "min_launch_to_start_us": min(lead) if lead else None}
+    line = (f"  launch trace: {len(launches)} measured launches, {len(lead)} of their kernels "
+            f"recorded; least launch-to-start {rec['min_launch_to_start_us']} us")
+    if lost:
+        fams = {}
+        for x in lost:
+            fams[x["family"]] = fams.get(x["family"], 0) + 1
+        runs = 1 + sum(b["index"] != a["index"] + 1 for a, b in zip(lost, lost[1:]))
+        line += (f"; {len(lost)} lost in {runs} run(s) of consecutive launches, at launches "
+                 f"{lost[0]['index']}-{lost[-1]['index']} ({lost[0]['place']:.4f}-"
+                 f"{lost[-1]['place']:.4f} of the measured launches): "
+                 + ", ".join(f"{f} {n}" for f, n in sorted(fams.items())))
+    print(line)
+    return rec
 
 
 def graph_replay_ms(fn, reps: int) -> float:
@@ -154,7 +256,7 @@ def eager_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def crosscheck(label: str, fn, reps: int, profiler: dict, named=()) -> dict:
+def crosscheck(label: str, fn, reps: int, profiler: dict, named=(), names=None) -> dict:
     """Hold the profiler's figures for one piece of work (``profiler``:
     {kernel or copy: (ms per call, launches per call)}) against a CUDA
     graph of one call and CUDA-event timings of the same work; print both
@@ -164,7 +266,7 @@ def crosscheck(label: str, fn, reps: int, profiler: dict, named=()) -> dict:
     counts differ (compared as totals where libcuda names no kernel)."""
     from repro_torch.kernels import graph_kernels
 
-    names = graph_kernels(fn)
+    names = graph_kernels(fn) if names is None else names
     kernels = {k: v for k, v in profiler.items() if not _is_copy(k)}
     prof_ms = sum(ms for ms, _ in profiler.values())
     prof_n = sum(n for _, n in kernels.values())
@@ -334,7 +436,7 @@ def main(argv=None) -> int:
         print("profile_kernels: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels import fedavg, flash_attention, rmsnorm, ssd_scan
+    from repro_torch.kernels import fedavg, flash_attention, graph_kernels, rmsnorm, ssd_scan
 
     print(f"card: {card_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -343,9 +445,12 @@ def main(argv=None) -> int:
     failed = []
 
     def run(label, fn, named, calls=args.reps):
-        times = device_ms(fn, calls)
+        prof, _ = profile_calls(fn, calls)
+        times = {k: (us / 1e3 / calls, n / calls) for k, (us, n) in measured_device(prof).items()}
         show(label, times)
-        rec = crosscheck(label, fn, calls, times, named)
+        names = graph_kernels(fn)
+        launch_trace(prof, names)
+        rec = crosscheck(label, fn, calls, times, named, names=names)
         failed.extend(f"{label}: {f}" for f in rec["mismatch"])
 
     for B, H, KV, Sq, Sk, hd in (FLASH_SHAPES[0], FLASH_ZAMBA):

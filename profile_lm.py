@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
 """Where the port's LM forward spends its time, on one NVIDIA GPU.
 
-    python3 profile_lm.py [--arch smollm-135m|zamba2-7b|qwen2-moe-a2.7b|xlstm-1.3b] [--train]
+    python3 profile_lm.py [--arch smollm-135m|zamba2-7b|qwen2-moe-a2.7b|xlstm-1.3b|
+                           deepseek-v2-lite-16b] [--train]
 
 Runs the LM configurations of ``chip_smoke.py`` for one arch, at full
 width from PRNGKey(0): serving (batch 8, prompt 128, 32 greedy tokens
 through ``repro_torch.launch.serve.generate``) and the forward loss with
 ``use_pallas=True``: smollm-135m (the default) at B=4, S=2048; zamba2-7b
 at full depth, serving with ``use_pallas`` too (chunk 64), its loss at
-B=1, S=2048; qwen2-moe-a2.7b and xlstm-1.3b at full depth (xlstm serving
-at chunk 64), their losses at B=1, S=2048 (xlstm's at chunk 256, where
-``use_pallas`` changes nothing: the JAX package sends none of its work to
-a kernel but the norms). Each runs once to warm up, then under ``torch.profiler``
-with CPU and CUDA activities (``profile_kernels.profile_calls``: one
-traced warm-up call that is discarded, then serving once and the loss
-``LOSS_CALLS`` times, figures per call). Prints, for each: the wall time, the
+B=1, S=2048; qwen2-moe-a2.7b, xlstm-1.3b and deepseek-v2-lite-16b at full
+depth (xlstm serving at chunk 64), their losses at B=1, S=2048 (xlstm's at
+chunk 256; for xlstm and deepseek ``use_pallas`` changes nothing: the JAX
+package sends none of their work to a kernel but the norms). Each runs
+once to warm up, then under ``torch.profiler`` with CPU and CUDA
+activities (``profile_kernels.profile_calls``: serving
+once and the loss ``LOSS_CALLS`` times, between traced calls that are
+not counted; figures per call). Prints, for each: the wall time, the
 device's busy time (kernel and copy time on the card) and idle share
 (1 - busy / wall), device time by kernel family (``flash_attention``,
-``gated_rmsnorm``, ``ssd_scan``, ``rmsnorm``, matmuls, the rest) and the
-kernels with the most device time; for serving also the prefill and
-decode times of a ``generate`` call outside the profiler (host clock).
+``gated_rmsnorm``, ``ssd_scan``, ``rmsnorm``, ``index_add_``, softmax,
+matmuls, the rest) and the kernels with the most device time; for
+serving also the prefill and decode times of a ``generate`` call
+outside the profiler (host clock).
 
 Each piece of work is then measured outside the profiler
 (``profile_kernels.crosscheck``): its kernels counted and named from a
 CUDA graph of one run, its device time from replays of that graph and
 from eager runs between CUDA events, beside the profiler's totals and the
-gap. Exits non-zero without CUDA, and when the profiler's launch count of
-one of the port's kernel families differs from the graph's.
+gap, and each window's counted launches are held against their kernels
+by correlation id (``profile_kernels.launch_trace``: lost kernels by
+family and place, and the least launch-to-start time as recorded). Exits
+non-zero without CUDA, and when the profiler's launch count of one of the
+port's kernel families differs from the graph's.
 
 With ``--train`` it breaks down one training step instead: the fused
 AdamW server step of the ``arch`` family (``launch.train.arch_fused_step``:
@@ -46,7 +52,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from profile_kernels import crosscheck, device_events, family, profile_calls  # noqa: E402
+from profile_kernels import (crosscheck, family, launch_trace, measured_device,  # noqa: E402
+                             profile_calls)
 
 PORT_FAMILIES = ("flash_attention", "gated_rmsnorm", "ssd_scan", "rmsnorm")
 CHECK_REPS = 3          # graph replays and eager runs of each piece of work
@@ -54,34 +61,39 @@ LOSS_CALLS = 5          # loss calls in the profiler's measured step
 TRAIN_B, TRAIN_S, TRAIN_CALLS = 8, 256, 3
 
 
-def profiled(label: str, fn, calls: int) -> dict:
+def profiled(label: str, fn, calls: int) -> tuple:
     """Run ``fn`` ``calls`` times under the profiler; print and return its
-    device summary per call."""
-    prof, wall_ms = profile_calls(fn, calls, cpu=True)
-    kernels = device_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    device summary per call, and the profiler."""
+    prof, wall_ms = profile_calls(fn, calls)
+    kernels = measured_device(prof)
+    busy_ms = sum(us for us, _ in kernels.values()) / 1e3 / calls
     by_family = {}
-    for e in kernels:
-        fam = family(e.key)
-        by_family[fam] = by_family.get(fam, 0.0) + e.self_device_time_total / 1e3 / calls
-    events = sum(e.count for e in kernels) / calls
+    for key, (us, _) in kernels.items():
+        fam = family(key)
+        by_family[fam] = by_family.get(fam, 0.0) + us / 1e3 / calls
+    events = sum(n for _, n in kernels.values()) / calls
     print(f"{label}: {calls} call(s) profiled; per call: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms in {events:g} device events: idle share {1 - busy_ms / wall_ms:.4f}")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:16s} {ms:9.3f} ms device ({ms / busy_ms:6.1%} of busy)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"    {e.self_device_time_total / 1e3 / calls:9.3f} ms  x{e.count / calls:<5g} "
-              f"{e.key[:90]}")
+    for key, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"    {us / 1e3 / calls:9.3f} ms  x{n / calls:<5g} {key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
             "device_events": events, "by_family_ms": by_family,
-            "kernels": {e.key: (e.self_device_time_total / 1e3 / calls, e.count / calls)
-                        for e in kernels}}
+            "kernels": {key: (us / 1e3 / calls, n / calls)
+                        for key, (us, n) in kernels.items()}}, prof
 
 
 def checked(label: str, fn, failed: list, calls: int = 1) -> dict:
-    """``profiled`` and then ``crosscheck`` of the same work."""
-    rec = profiled(label, fn, calls)
-    rec["check"] = crosscheck(label, fn, CHECK_REPS, rec.pop("kernels"), PORT_FAMILIES)
+    """``profiled`` and then ``crosscheck`` of the same work, with the
+    window's launches held against its kernels (``launch_trace``)."""
+    from repro_torch.kernels import graph_kernels
+
+    rec, prof = profiled(label, fn, calls)
+    names = graph_kernels(fn)
+    rec["trace"] = launch_trace(prof, names)
+    rec["check"] = crosscheck(label, fn, CHECK_REPS, rec.pop("kernels"), PORT_FAMILIES,
+                              names=names)
     failed.extend(f"{label}: {f}" for f in rec["check"]["mismatch"])
     return rec
 
@@ -111,7 +123,8 @@ def profile_train(arch: str, failed: list) -> dict:
 
     train()                                                     # warm-up
     label = f"train {arch} arch_fused_step B={TRAIN_B} S={TRAIN_S}"
-    rec = profiled(label, train, TRAIN_CALLS)
+    rec, prof = profiled(label, train, TRAIN_CALLS)
+    rec["trace"] = launch_trace(prof)
     kernels = rec.pop("kernels")
     try:
         rec["check"] = crosscheck(label, train, CHECK_REPS, kernels, PORT_FAMILIES)
@@ -129,11 +142,13 @@ def main(argv=None) -> int:
     import torch
 
     from chip_smoke import (HYBRID_ARCH, HYBRID_LOSS_B, HYBRID_LOSS_S, LM_ARCH, LOSS_B, LOSS_S,
-                            MOE_ARCH, MOE_LOSS_B, MOE_LOSS_S, SERVE_BATCH, SERVE_GEN,
-                            SERVE_PROMPT, XLSTM_ARCH, XLSTM_LOSS_B, XLSTM_LOSS_S, card_line)
+                            MLA_ARCH, MLA_LOSS_B, MLA_LOSS_S, MOE_ARCH, MOE_LOSS_B, MOE_LOSS_S,
+                            SERVE_BATCH, SERVE_GEN, SERVE_PROMPT, XLSTM_ARCH, XLSTM_LOSS_B,
+                            XLSTM_LOSS_S, card_line)
 
     loss_shapes = {LM_ARCH: (LOSS_B, LOSS_S), HYBRID_ARCH: (HYBRID_LOSS_B, HYBRID_LOSS_S),
-                   MOE_ARCH: (MOE_LOSS_B, MOE_LOSS_S), XLSTM_ARCH: (XLSTM_LOSS_B, XLSTM_LOSS_S)}
+                   MOE_ARCH: (MOE_LOSS_B, MOE_LOSS_S), XLSTM_ARCH: (XLSTM_LOSS_B, XLSTM_LOSS_S),
+                   MLA_ARCH: (MLA_LOSS_B, MLA_LOSS_S)}
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(loss_shapes), default=LM_ARCH)
     ap.add_argument("--train", action="store_true",

@@ -1,7 +1,7 @@
 """Config registry of the port: importing this package registers the
-archs it runs (the dense ones, qwen2-moe, the zamba2 hybrid and xlstm).
-The other three archs of the JAX package come with their families
-(ROADMAP queue 1 items 10-11)."""
+archs it runs (the dense ones, qwen2-moe, deepseek-v2-lite, the zamba2
+hybrid, xlstm and whisper). phi-3-vision comes with the vlm family
+(ROADMAP queue 1 item 10)."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     InputShape,
@@ -11,11 +11,13 @@ from repro_torch.configs.base import (  # noqa: F401
     smoke_config,
 )
 from repro_torch.configs import (  # noqa: F401
+    deepseek_v2_lite_16b,
     qwen1_5_0_5b,
     qwen1_5_110b,
     qwen2_moe_a2_7b,
     qwen3_0_6b,
     smollm_135m,
+    whisper_medium,
     xlstm_1_3b,
     zamba2_7b,
 )

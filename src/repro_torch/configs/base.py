@@ -2,8 +2,7 @@
 
 ``ModelConfig`` is a frozen dataclass with the JAX package's fields and
 defaults, so a config built on either side describes the same model; the
-port runs the ``dense``, ``moe`` (without MLA), ``hybrid`` and ``ssm`` ones
-(``models.get_api`` refuses the others). The registry maps ``--arch <id>`` to a config factory; ``smoke_config`` gives
+port runs every arch type but ``vlm`` (``models.get_api`` refuses it). The registry maps ``--arch <id>`` to a config factory; ``smoke_config`` gives
 the reduced variant of the same family that the CPU tests run.
 """
 
@@ -135,9 +134,7 @@ def register(name: str):
 # archs of the JAX package that come with the families the port has not
 # ported yet, with the ROADMAP queue 1 item that brings each
 UNPORTED_ARCHS = {
-    "deepseek-v2-lite-16b": "item 11 (MLA, on the ported MoE)",
     "phi-3-vision-4.2b": "item 10 (vlm)",
-    "whisper-medium": "item 11 (audio)",
 }
 
 
@@ -157,11 +154,12 @@ def list_archs() -> Tuple[str, ...]:
 def smoke_config(name: str) -> ModelConfig:
     """Reduced variant of the same family: 2 layers, d_model 128, 4 heads
     of 32, vocab 512; 4 experts, top-2, expert width 64, at most one
-    shared expert and one first dense layer; an SSM state of 16 with heads
-    of 16 and chunks of 8, a shared attention every 2 layers with LoRA
-    rank 8, and an sLSTM every 2 layers, as the JAX package reduces them.
-    Its MLA/encdec/vlm reductions come with those families (ROADMAP queue
-    1 items 10-11)."""
+    shared expert and one first dense layer; an MLA latent of 32 with
+    nope/rope/v heads of 32/16/32; an SSM state of 16 with heads of 16 and
+    chunks of 8, a shared attention every 2 layers with LoRA rank 8, an
+    sLSTM every 2 layers, and 2 encoder layers over 16 frames, as the JAX
+    package reduces them. Its vlm reduction comes with that family
+    (ROADMAP queue 1 item 10)."""
     cfg = get_config(name)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -181,10 +179,15 @@ def smoke_config(name: str) -> ModelConfig:
         kw.update(n_experts=4, top_k=2, moe_d_ff=64,
                   n_shared_experts=min(cfg.n_shared_experts, 1),
                   first_dense_layers=min(cfg.first_dense_layers, 1))
+    if cfg.use_mla:
+        kw.update(kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=32,
+                  qk_rope_head_dim=16, v_head_dim=32)
     if cfg.ssm_state:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
     if cfg.attn_every:
         kw.update(attn_every=2, shared_attn_lora_rank=8)
     if cfg.slstm_every:
         kw.update(slstm_every=2)
+    if cfg.n_enc_layers:
+        kw.update(n_enc_layers=2, enc_frames=16)
     return cfg.replace(**kw)

@@ -4,7 +4,9 @@ A batch of prompts is prefilled (building per-layer caches), the caches are
 grown to the serving horizon, then tokens are decoded step by step with
 greedy sampling, as the JAX package's ``launch/serve.py`` does. The model is
 drawn from ``--seed`` through ``repro_torch.prng`` (the JAX package's model
-for the same seed) and the prompts from the same key, as there.
+for the same seed) and the prompts from the same key, as there; for an
+audio model (whisper) also the stub frame embeddings, ``0.02 * normal``
+(B, enc_frames, d_model) from that key.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --preset tiny --device cpu
@@ -36,6 +38,16 @@ class Generation:
     decode_s: float
 
 
+def serve_features(key, cfg, batch: int) -> dict:
+    """The model inputs besides the prompts that ``main`` makes from its
+    key: an audio model's stub frames ``0.02 * normal(key, (B, enc_frames,
+    d_model))``, as the JAX package's serve launcher draws them; none for
+    the other families."""
+    if cfg.arch_type != "audio":
+        return {}
+    return {"frames": prng.normal(key, (batch, cfg.enc_frames, cfg.d_model)).mul_(0.02)}
+
+
 def serve_config(cfg, prompt_len: int):
     """The config a serve run uses: the SSM chunk cut to half the prompt
     (at least 8), as the JAX package's serve driver cuts it."""
@@ -49,12 +61,15 @@ def _clock(device: torch.device) -> float:
 
 
 @torch.no_grad()
-def prefill(params, cfg, prompts: torch.Tensor, gen: int):
-    """Prefill ``prompts`` (B, P) and grow the caches to P + ``gen`` slots.
-    Returns the first greedy token (B, 1) and the caches."""
+def prefill(params, cfg, prompts: torch.Tensor, gen: int, features=None):
+    """Prefill ``prompts`` (B, P), with ``features`` (the model inputs
+    besides the tokens: whisper's ``frames``) where given, and grow the
+    caches to P + ``gen`` slots. Returns the first greedy token (B, 1) and
+    the caches."""
     api = get_api(cfg)
     P = prompts.shape[1]
-    logits, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+    logits, caches = api.prefill_fn(params, cfg,
+                                    {"tokens": prompts, "labels": prompts, **(features or {})})
     caches = pad_cache(caches, P, P + gen)
     return torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1), caches
 
@@ -73,12 +88,13 @@ def decode(params, cfg, tok: torch.Tensor, caches, start: int, steps: int) -> li
     return out
 
 
-def generate(params, cfg, prompts: torch.Tensor, gen: int) -> Generation:
-    """Prefill ``prompts`` (B, P) and decode ``gen`` greedy tokens in all,
-    on the device the params and prompts lie on."""
+def generate(params, cfg, prompts: torch.Tensor, gen: int, features=None) -> Generation:
+    """Prefill ``prompts`` (B, P) (with ``features``, as ``prefill`` takes
+    them) and decode ``gen`` greedy tokens in all, on the device the params
+    and prompts lie on."""
     P = prompts.shape[1]
     t0 = _clock(prompts.device)
-    tok, caches = prefill(params, cfg, prompts, gen)
+    tok, caches = prefill(params, cfg, prompts, gen, features)
     t1 = _clock(prompts.device)
     out = [tok] + decode(params, cfg, tok, caches, P, gen - 1)
     t2 = _clock(prompts.device)
@@ -106,7 +122,7 @@ def main(argv=None) -> Generation:
     prompts = prng.randint(key, (B, P), 0, cfg.vocab_size)
 
     print(f"serving {cfg.name} on {dev}: batch={B} prompt={P} gen={G}")
-    res = generate(params, cfg, prompts, G)
+    res = generate(params, cfg, prompts, G, serve_features(key, cfg, B))
     print(f"prefill: {res.prefill_s:.2f}s")
     print(f"decoded {G - 1} steps in {res.decode_s:.2f}s "
           f"({B * (G - 1) / max(res.decode_s, 1e-9):.1f} tok/s batch-aggregate)")

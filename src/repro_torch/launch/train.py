@@ -61,11 +61,16 @@ def make_dataset(key, cfg, n_clients, shards_per_client, seq, seed=0):
 
 
 def arch_features(cfg, toks):
-    """Model-input dict from token rows, on any leading batch shape. The
-    vlm and audio families (image embeddings, audio frames) are refused by
-    name until they are ported."""
+    """Model-input dict from token rows, on any leading batch shape: an
+    audio model's frames are zeros (B..., enc_frames, d_model), as in the
+    reference. The vlm family (image embeddings) is refused by name until
+    it is ported."""
     check_ported(cfg)
-    return {"tokens": toks, "labels": toks}
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.arch_type == "audio":
+        batch["frames"] = torch.zeros(*toks.shape[:-1], cfg.enc_frames, cfg.d_model,
+                                      device=toks.device)
+    return batch
 
 
 def _tokens(toks: np.ndarray, device) -> torch.Tensor:
@@ -134,7 +139,7 @@ def make_arch_eval(task, data):
     n_eval = min(8, data.shape[0])
     toks = _tokens(data[:n_eval, 0] % cfg.vocab_size, dev)
     feats = arch_features(cfg, toks)
-    probe = {"tokens": feats["tokens"][:, :-1], "labels": feats["labels"][:, :-1]}
+    probe = dict(feats, tokens=feats["tokens"][:, :-1], labels=feats["labels"][:, :-1])
     target = feats["tokens"][:, -1]
 
     @torch.no_grad()
@@ -206,7 +211,9 @@ def assemble_batch(task, data, client_ids, weights, rng):
     """The task's batch for one round: ``batch`` rows tiled over the
     selected clients, one random shard each (numpy draws in the
     reference's order), with the p_k weights per row normalised into
-    ``client_weights``."""
+    ``client_weights``; an audio model's frames ``0.02 * standard_normal``
+    (B, enc_frames, d_model) in f32, drawn after the shards from the same
+    generator, as in the reference."""
     cfg = task["cfg"]
     B, seq = task["batch"], task["seq"]
     reps = int(np.ceil(B / max(len(client_ids), 1)))
@@ -216,9 +223,12 @@ def assemble_batch(task, data, client_ids, weights, rng):
     w = np.asarray(weights)
     w_rows = np.tile(w, reps)[:B]
     w_rows = w_rows / max(w_rows.sum(), 1e-9)
-    batch = arch_features(cfg, toks)
+    batch = {"tokens": toks, "labels": toks}
     batch["client_weights"] = torch.from_numpy(
         np.asarray(w_rows, np.float32)).to(task["device"])
+    if cfg.arch_type == "audio":
+        frames = rng.standard_normal((B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+        batch["frames"] = torch.from_numpy(frames * np.float32(0.02)).to(task["device"])
     return batch
 
 

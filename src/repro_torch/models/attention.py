@@ -1,5 +1,6 @@
-"""GQA attention of the LMs: qk-norm, qkv-bias, RoPE, sliding window, and
-per-invocation LoRA adapters on q/k/v (the zamba2 shared block).
+"""Attention of the LMs: GQA (qk-norm, qkv-bias, RoPE, sliding window, and
+per-invocation LoRA adapters on q/k/v for the zamba2 shared block), MLA
+(deepseek-v2) and whisper's cross-attention.
 
 Three entry modes, as in the JAX package:
   * ``attn_train``   — full-sequence causal (the forward loss)
@@ -14,8 +15,10 @@ overwrite. Keys are stored RoPE'd at their absolute positions.
 ``attn_train`` runs the ``flash_attention`` kernel when ``cfg.use_pallas``
 is set and S % 128 == 0, the JAX package's gate; otherwise, and in prefill
 and decode, the model's own chunked softmax attention ``_sdpa_chunked``.
-MLA and cross-attention are not ported (ROADMAP queue 1 item 11);
-per-row (continuous-batching) decode is item 13.
+MLA (q/k heads of nope + rope width, a compressed latent cache
+``{"c_kv", "k_rope", "positions"}``) and cross-attention (no mask, no
+RoPE) always take ``_sdpa_chunked``, as in the JAX package. Per-row
+(continuous-batching) decode is ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ def _maybe_lora(w, lora, name):
     return w + lora[f"a_{name}"] @ lora[f"b_{name}"]
 
 
-def init_attention(key, cfg):
-    """GQA projection params; key (..., 2) -> leaves with leading axes."""
+def init_attention(key, cfg, cross=False):
+    """GQA projection params; key (..., 2) -> leaves with leading axes.
+    ``cross=True`` (whisper's attentions) adds the zero biases."""
     dt = dtype_of(cfg)
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     lead = tuple(key.shape[:-1])
@@ -54,7 +58,7 @@ def init_attention(key, cfg):
         "wv": normal(ks[..., 2, :], (d, KV * hd), std, dt),
         "wo": normal(ks[..., 3, :], (H * hd, d), (H * hd) ** -0.5, dt),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias or cross:
         for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd), ("bo", d)):
             p[name] = torch.zeros(*lead, n, dtype=dt, device=key.device)
     if cfg.qk_norm:
@@ -181,3 +185,155 @@ def attn_decode(p, cfg, x, pos, cache, lora=None):
     o = _sdpa_chunked(q, cache["k"], cache["v"], posv[0], cache["positions"], cfg.hd ** -0.5,
                       causal=True, window=cfg.sliding_window)
     return _bias(o.reshape(B, 1, -1) @ p["wo"], p, "bo"), cache
+
+
+# ---------------------------------------------------------------- cross-attn
+
+def cross_kv(p, cfg, enc):
+    """Encoder K/V, once per sequence (whisper serving)."""
+    B, T, _ = enc.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = _bias(enc @ p["wk"], p, "bk").reshape(B, T, KV, hd)
+    v = _bias(enc @ p["wv"], p, "bv").reshape(B, T, KV, hd)
+    return k, v
+
+
+def cross_attn(p, cfg, x, kv):
+    """No mask, no RoPE: the decoder attends to every encoder frame."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    k, v = kv
+    q = _bias(x @ p["wq"], p, "bq").reshape(B, S, H, hd)
+    q_pos = torch.zeros(S, dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros(k.shape[1], dtype=torch.int32, device=x.device)
+    o = _sdpa_chunked(q, k, v, q_pos, k_pos, hd ** -0.5, causal=False)
+    return _bias(o.reshape(B, S, -1) @ p["wo"], p, "bo")
+
+
+# ======================================================================= MLA
+
+def init_mla(key, cfg):
+    """DeepSeek-V2 Multi-head Latent Attention (no q compression: V2-Lite);
+    key (..., 2) -> leaves with leading axes."""
+    dt = dtype_of(cfg)
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    ks = prng.split(key, 4)
+    std = d ** -0.5
+    return {
+        "wq": normal(ks[..., 0, :], (d, H * (dn + dr)), std, dt),
+        "wkv_a": normal(ks[..., 1, :], (d, r + dr), std, dt),
+        "kv_norm": torch.ones(*key.shape[:-1], r, dtype=dt, device=key.device),
+        "wkv_b": normal(ks[..., 2, :], (r, H * (dn + dv)), r ** -0.5, dt),
+        "wo": normal(ks[..., 3, :], (H * dv, d), (H * dv) ** -0.5, dt),
+    }
+
+
+def _mla_q(p, cfg, x, positions):
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_compress(p, cfg, x, positions):
+    """The latent ``c_kv`` (B, S, r), normed, and the shared RoPE key (B, S, dr)."""
+    r = cfg.kv_lora_rank
+    kv_a = x @ p["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
+    return c_kv, apply_rope(kv_a[..., r:], positions, cfg.rope_theta)
+
+
+def _mla_expand(p, cfg, c_kv):
+    B, S, _ = c_kv.shape
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    kv = (c_kv @ p["wkv_b"]).reshape(B, S, cfg.n_heads, dn + dv)
+    return kv[..., :dn], kv[..., dn:]                      # k_nope, v
+
+
+def _mla_sdpa(cfg, qn, qr, kn, kr, v, q_pos, k_pos, window=0):
+    """Scores qn.kn + qr.kr (kr shared across heads), scale (dn + dr)^-0.5."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    q = torch.cat([qn, qr], dim=-1)
+    kr_b = kr[:, :, None, :].expand(*kn.shape[:3], kr.shape[-1])
+    k = torch.cat([kn, kr_b], dim=-1)
+    return _sdpa_chunked(q, k, v, q_pos, k_pos, scale, causal=True, window=window)
+
+
+def mla_train(p, cfg, x, positions):
+    B, S, _ = x.shape
+    qn, qr = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_compress(p, cfg, x, positions)
+    kn, v = _mla_expand(p, cfg, c_kv)
+    o = _mla_sdpa(cfg, qn, qr, kn, k_rope, v, positions[0], positions[0])
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def mla_prefill(p, cfg, x, positions):
+    B, S, _ = x.shape
+    qn, qr = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_compress(p, cfg, x, positions)
+    kn, v = _mla_expand(p, cfg, c_kv)
+    o = _mla_sdpa(cfg, qn, qr, kn, k_rope, v, positions[0], positions[0])
+    cache = {"c_kv": c_kv, "k_rope": k_rope, "positions": positions[0]}
+    return o.reshape(B, S, -1) @ p["wo"], cache
+
+
+def init_mla_cache(cfg, batch, length, dtype, device, per_row=False):
+    """An empty compressed cache of ``length`` slots (positions -1 = empty)."""
+    if per_row:
+        raise NotImplementedError(PER_ROW_DECODE)
+    return {
+        "c_kv": torch.zeros(batch, length, cfg.kv_lora_rank, dtype=dtype, device=device),
+        "k_rope": torch.zeros(batch, length, cfg.qk_rope_head_dim, dtype=dtype, device=device),
+        "positions": torch.full((length,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _einsum_f32(eq, *ops):
+    """``jnp.einsum(..., preferred_element_type=f32)``: the operands cast up
+    (exact) and the product in f32."""
+    return torch.einsum(eq, *(o.to(torch.float32) for o in ops))
+
+
+def mla_decode(p, cfg, x, pos, cache, absorb=False):
+    """One token against the compressed cache; writes slot ``pos % W`` of
+    ``cache`` in place and returns it.
+
+    absorb=False: expand the whole cached latent through ``wkv_b`` each
+    step. absorb=True: fold ``wkv_b`` into the query and output sides, so
+    decode touches only the (r + dr)-wide latents; its four products in
+    f32, each cast back as the JAX package casts it."""
+    if cache["positions"].ndim == 2:
+        raise NotImplementedError(PER_ROW_DECODE)
+    B = x.shape[0]
+    W = cache["c_kv"].shape[1]
+    pos = int(pos)
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    qn, qr = _mla_q(p, cfg, x, posv)
+    c_new, kr_new = _mla_compress(p, cfg, x, posv)
+    slot = pos % W
+    cache["c_kv"][:, slot] = c_new[:, 0]
+    cache["k_rope"][:, slot] = kr_new[:, 0]
+    cache["positions"][slot].fill_(pos)       # a fill kernel: no host copy
+    c_kv, k_rope, cpos = cache["c_kv"], cache["k_rope"], cache["positions"]
+    H, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    if not absorb:
+        kn, v = _mla_expand(p, cfg, c_kv)
+        o = _mla_sdpa(cfg, qn, qr, kn, k_rope, v, posv[0], cpos, window=cfg.sliding_window)
+    else:
+        scale = (dn + cfg.qk_rope_head_dim) ** -0.5
+        wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, dn + dv)
+        w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]      # (r, H, dn), (r, H, dv)
+        q_lat = _einsum_f32("bqhd,rhd->bqhr", qn, w_uk).to(qn.dtype)
+        s = (_einsum_f32("bqhr,bsr->bhqs", q_lat, c_kv)
+             + _einsum_f32("bqhd,bsd->bhqs", qr, k_rope)) * scale
+        mask = (cpos >= 0) & (cpos <= pos)
+        if cfg.sliding_window:
+            mask = mask & (cpos > pos - cfg.sliding_window)
+        s = s.masked_fill(~mask, -1e30)
+        pa = torch.softmax(s, dim=-1).to(c_kv.dtype)
+        o_lat = _einsum_f32("bhqs,bsr->bqhr", pa, c_kv).to(c_kv.dtype)
+        o = _einsum_f32("bqhr,rhd->bqhd", o_lat, w_uv).to(x.dtype)
+    return o.reshape(B, 1, -1) @ p["wo"], cache

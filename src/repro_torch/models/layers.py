@@ -1,4 +1,6 @@
-"""Shared building blocks of the LM: norms, the SwiGLU MLP, RoPE, embeddings.
+"""Shared building blocks of the LMs: norms (RMSNorm and whisper's
+LayerNorm), the SwiGLU and GELU MLPs, RoPE, sinusoidal positions,
+embeddings.
 
 Parameters are plain nested dicts of tensors with the JAX package's keys
 and shapes. ``init_*`` draw from ``repro_torch.prng`` exactly as the JAX
@@ -42,6 +44,21 @@ def rms_norm(x, scale, eps=1e-6):
     return rmsnorm(x, scale, eps)
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm over the last axis in f32, with the two-pass variance the
+    JAX package takes (``jnp.var``); no kernel on either side."""
+    x32 = x.to(torch.float32)
+    centered = x32 - torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
+def linear(x, w, b=None):
+    y = x @ w
+    return y if b is None else y + b
+
+
 # ---------------------------------------------------------------- MLP
 
 def init_swiglu(key, d_model, d_ff, dtype):
@@ -56,6 +73,22 @@ def init_swiglu(key, d_model, d_ff, dtype):
 
 def swiglu(p, x):
     return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+
+
+def init_gelu_mlp(key, d_model, d_ff, dtype):
+    ks = prng.split(key, 2)
+    lead = tuple(key.shape[:-1])
+    return {
+        "fc1": normal(ks[..., 0, :], (d_model, d_ff), d_model ** -0.5, dtype),
+        "b1": torch.zeros(*lead, d_ff, dtype=dtype, device=key.device),
+        "fc2": normal(ks[..., 1, :], (d_ff, d_model), d_ff ** -0.5, dtype),
+        "b2": torch.zeros(*lead, d_model, dtype=dtype, device=key.device),
+    }
+
+
+def gelu_mlp(p, x):
+    """``jax.nn.gelu``'s default is the tanh approximation."""
+    return linear(F.gelu(linear(x, p["fc1"], p["b1"]), approximate="tanh"), p["fc2"], p["b2"])
 
 
 # ---------------------------------------------------------------- RoPE
@@ -85,6 +118,22 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n_pos, d_model, device="cpu"):
+    """The (n_pos, d_model) sinusoid table, built in float64 numpy and cast
+    to f32, as the JAX package builds it."""
+    return _sinusoid_on(n_pos, d_model, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_on(n_pos, d_model, device):
+    # one upload per (n_pos, d_model, device), as for the RoPE frequencies
+    pos = np.arange(n_pos)[:, None]
+    dim = np.arange(d_model)[None, :]
+    ang = pos / np.power(10_000, 2 * (dim // 2) / d_model)
+    enc = np.where(dim % 2 == 0, np.sin(ang), np.cos(ang))
+    return torch.from_numpy(enc.astype(np.float32)).to(device)
+
+
 # ---------------------------------------------------------------- embedding
 
 def init_embedding(key, vocab, d_model, dtype):
@@ -93,6 +142,10 @@ def init_embedding(key, vocab, d_model, dtype):
 
 def embed(p, tokens):
     return p["tok"][tokens]
+
+
+def unembed(p, x, head=None):
+    return x @ (head if head is not None else p["tok"].T)
 
 
 def stacked_init(init_fn, key, n):

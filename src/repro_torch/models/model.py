@@ -1,5 +1,6 @@
-"""Unified model API: the dense and MoE LMs, the zamba2 hybrid and the
-xLSTM LM expose the JAX package's five functions.
+"""Unified model API: the dense, MoE and MLA LMs, the zamba2 hybrid, the
+xLSTM LM and the whisper encoder-decoder expose the JAX package's five
+functions.
 
     init_params(key, cfg, device=None)          -> params
     loss_fn(params, cfg, batch)                 -> (loss, metrics)
@@ -7,8 +8,8 @@ xLSTM LM expose the JAX package's five functions.
     init_cache_fn(params, cfg, B, length, dt)   -> caches
     decode_fn(params, cfg, token, pos, caches)  -> (logits, caches)
 
-batch is a dict: tokens/labels (+ client_weights for MMFL p_k
-aggregation). ``decode_fn`` writes into the caches it is given.
+batch is a dict: tokens/labels (+ frames for audio, client_weights for
+MMFL p_k aggregation). ``decode_fn`` writes into the caches it is given.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import hybrid, transformer, xlstm_lm
+from repro_torch.models import encdec, hybrid, transformer, xlstm_lm
 from repro_torch.tree import tree_leaves
 
 
@@ -40,22 +41,25 @@ _APIS = {
                        hybrid.init_hybrid_cache, hybrid.hybrid_decode),
     "ssm": ModelApi(xlstm_lm.init_xlstm_lm, xlstm_lm.xlstm_loss, xlstm_lm.xlstm_prefill,
                     xlstm_lm.init_xlstm_cache, xlstm_lm.xlstm_decode),
+    "audio": ModelApi(encdec.init_encdec, encdec.encdec_loss, encdec.encdec_prefill,
+                      encdec.init_encdec_cache, encdec.encdec_decode),
 }
 
 
 def get_api(cfg) -> ModelApi:
-    """The API of ``cfg``'s arch type; ``dense``, ``moe`` (without MLA),
-    ``hybrid`` and ``ssm`` are ported."""
+    """The API of ``cfg``'s arch type; every one but ``vlm`` is ported."""
     transformer.check_ported(cfg)
     return _APIS[cfg.arch_type]
 
 
 def pad_cache(caches, old_len: int, new_len: int):
-    """Grow a prefill cache to a larger serving length (zeros / -1 pos):
-    the attention leaves ``k``, ``v`` and ``positions`` grow along the
-    sequence; every other leaf (the Mamba2 and mLSTM ``state`` and
-    ``conv``, the sLSTM state) and a ``None`` sLSTM cache are left as they
-    are."""
+    """Grow a prefill cache to a larger serving length (zeros / -1 pos),
+    by the JAX package's rule: a leaf named ``k``, ``v``, ``c_kv`` or
+    ``k_rope`` whose axis 2 is ``old_len`` grows along it, and so do
+    ``positions`` along their last axis; every other leaf (the Mamba2 and
+    mLSTM ``state`` and ``conv``, the sLSTM state) and a ``None`` sLSTM
+    cache are left as they are. As there, whisper's cross K/V grow too
+    when the encoder's frame count equals the prompt length."""
     def grow(t, axis, fill):
         extra = list(t.shape)
         extra[axis] = new_len - old_len
@@ -66,7 +70,7 @@ def pad_cache(caches, old_len: int, new_len: int):
         for name, leaf in tree.items():
             if isinstance(leaf, dict):
                 out[name] = pad(leaf)
-            elif name in ("k", "v") and leaf.ndim >= 3 and leaf.shape[2] == old_len:
+            elif name in ("k", "v", "c_kv", "k_rope") and leaf.ndim >= 3 and leaf.shape[2] == old_len:
                 out[name] = grow(leaf, 2, 0)
             elif name == "positions" and leaf.shape[-1] == old_len:
                 out[name] = grow(leaf, leaf.ndim - 1, -1)

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for the dense and MoE architectures.
+"""Decoder-only LM assembly for the dense, MoE and MLA architectures.
 
 Params keep the JAX package's tree, with the layers stacked on axis 0
 (``params["dense_layers"]``, and ``params["moe_layers"]`` for an MoE
@@ -7,9 +7,11 @@ carries a JAX tree across by key. Where the JAX package ``lax.scan``s over
 a stack, the port loops over it in Python, summing the MoE layers'
 load-balance losses in layer order as the scan does. Its sharding
 constraints have no counterpart on one GPU (multi-GPU is ROADMAP queue 1
-item 14). MLA, vlm and audio are refused by name; the hybrid
-(``hybrid.py``) and xLSTM (``xlstm_lm.py``) families have their own
-assemblies.
+item 14). With ``cfg.use_mla`` (deepseek-v2-lite) every layer's attention
+is MLA (``attention.mla_*``; decode absorbed under ``cfg.mla_absorb``).
+The vlm family is refused by name; the hybrid (``hybrid.py``), xLSTM
+(``xlstm_lm.py``) and encoder-decoder (``encdec.py``) families have their
+own assemblies.
 """
 
 from __future__ import annotations
@@ -25,14 +27,13 @@ from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embe
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map, unstack
 
-PORTED_ARCHS = ("dense", "moe", "hybrid", "ssm")
+PORTED_ARCHS = ("dense", "moe", "hybrid", "ssm", "audio")
 # weight of the MoE load-balance loss in ``lm_loss`` (the JAX package's default)
 AUX_WEIGHT = 0.01
 # arch types of the JAX package that the port does not run yet, with the
 # ROADMAP queue 1 item that brings each
 UNPORTED_ARCHS = {
     "vlm": "the vlm family (phi3-vision) is ROADMAP queue 1 item 10",
-    "audio": "the audio family (whisper) is ROADMAP queue 1 item 11",
 }
 STACKS = ("dense", "moe")
 
@@ -42,9 +43,6 @@ def check_ported(cfg) -> None:
     if cfg.arch_type not in PORTED_ARCHS:
         why = UNPORTED_ARCHS.get(cfg.arch_type, "it is not an arch type of the JAX package")
         raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported: {why}")
-    if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: MLA layers (deepseek-v2-lite) are not ported "
-                                  "yet (ROADMAP queue 1 item 11)")
     if cfg.n_img_tokens:
         raise NotImplementedError(f"{cfg.name}: image tokens (vlm) are not ported yet "
                                   "(ROADMAP queue 1 item 10)")
@@ -58,8 +56,8 @@ def _init_block(key, cfg, kind):
     ones = torch.ones(*key.shape[:-1], cfg.d_model, dtype=dt, device=key.device)
     ffn = (init_moe(ks[..., 1, :], cfg) if kind == "moe"
            else init_swiglu(ks[..., 1, :], cfg.d_model, cfg.d_ff, dt))
-    return {"ln1": ones, "ln2": ones.clone(), "attn": attn.init_attention(ks[..., 0, :], cfg),
-            "ffn": ffn}
+    init_attn = attn.init_mla if cfg.use_mla else attn.init_attention
+    return {"ln1": ones, "ln2": ones.clone(), "attn": init_attn(ks[..., 0, :], cfg), "ffn": ffn}
 
 
 def init_lm(key, cfg, device=None):
@@ -92,7 +90,14 @@ def _block_apply(p, cfg, x, positions, kind, mode, cache=None, pos=None):
     layer's load-balance loss, 0.0 for a dense layer."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     new_cache = None
-    if mode == "train":
+    if cfg.use_mla:
+        if mode == "train":
+            a = attn.mla_train(p["attn"], cfg, h, positions)
+        elif mode == "prefill":
+            a, new_cache = attn.mla_prefill(p["attn"], cfg, h, positions)
+        else:
+            a, new_cache = attn.mla_decode(p["attn"], cfg, h, pos, cache, absorb=cfg.mla_absorb)
+    elif mode == "train":
         a = attn.attn_train(p["attn"], cfg, h, positions)
     elif mode == "prefill":
         a, new_cache = attn.attn_prefill(p["attn"], cfg, h, positions)
@@ -149,9 +154,8 @@ def lm_logits(params, cfg, x):
 
 def embed_inputs(params, cfg, batch):
     """tokens -> (B, S, d) activations."""
-    if "img_embeds" in batch or "frames" in batch:
-        raise NotImplementedError("image and audio inputs are not ported yet "
-                                  "(ROADMAP queue 1 items 10-11)")
+    if "img_embeds" in batch:
+        raise NotImplementedError("image inputs are not ported yet (ROADMAP queue 1 item 10)")
     return embed(params["emb"], batch["tokens"])
 
 
@@ -187,13 +191,15 @@ def lm_prefill(params, cfg, batch):
 
 
 def init_lm_cache(params, cfg, batch_size, length, dtype, per_row=False):
-    """Empty caches for every layer of each stack, stacked on axis 0."""
+    """Empty caches for every layer of each stack, stacked on axis 0: the
+    compressed MLA caches with ``cfg.use_mla``, else GQA K/V caches."""
+    init_cache = attn.init_mla_cache if cfg.use_mla else attn.init_cache
     caches = {}
     for kind in STACKS:
         if f"{kind}_layers" not in params:
             continue
         ln1 = params[f"{kind}_layers"]["ln1"]
-        one = attn.init_cache(cfg, batch_size, length, dtype, ln1.device, per_row=per_row)
+        one = init_cache(cfg, batch_size, length, dtype, ln1.device, per_row=per_row)
         caches[kind] = {name: t.expand(ln1.shape[0], *t.shape).clone() for name, t in one.items()}
     return caches
 

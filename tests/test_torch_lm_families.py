@@ -1,5 +1,6 @@
-"""The MoE (qwen2-moe-a2.7b) and xLSTM (xlstm-1.3b) families through the
-port's entry points, against the JAX package.
+"""The MoE (qwen2-moe-a2.7b), xLSTM (xlstm-1.3b), MLA (deepseek-v2-lite-16b)
+and encoder-decoder (whisper-medium) families through the port's entry
+points, against the JAX package.
 
 Configs field for field; param trees, counts and active counts at full
 width from shapes (the meta device against ``jax.eval_shape``);
@@ -9,8 +10,14 @@ within 1e-6, the loss with its load-balance term (aux weight 0.01) within
 1e-5 and aux itself, prefill and decode logits within 1e-4, the
 ``use_pallas`` loss within 2e-4, gradients within 1e-5 x max(1, max|g|).
 The serve CLI (``--preset tiny --device cpu``) gives the JAX serve loop's
-greedy tokens for both families. deepseek-v2-lite, phi-3-vision and
-whisper stay refused by name with their ROADMAP items.
+greedy tokens for both families. deepseek-v2-lite (with ``mla_absorb``
+off and on) and whisper through ``get_api`` on their smoke configs: init
+within 1e-6, the loss with client weights within 1e-5 (and deepseek's
+``use_pallas`` loss, which sends MLA to no kernel on either side), prefill
+and three decode steps within 1e-4, and the serve CLI's greedy tokens
+(whisper's frames drawn from the serve key). Their full-width trees are
+the JAX package's, with 15,706,484,224 and 811,864,064 params.
+phi-3-vision stays refused by name with its ROADMAP item.
 """
 import dataclasses
 
@@ -33,6 +40,13 @@ from repro_torch.models import active_param_count, get_api, pad_cache, param_cou
 from repro_torch.tree import tree_map
 
 FAMILIES = ("qwen2-moe-a2.7b", "xlstm-1.3b")
+MLA, AUDIO = "deepseek-v2-lite-16b", "whisper-medium"
+# full-width param counts from the JAX package's init shapes
+FULL_PARAMS = {MLA: 15_706_484_224, AUDIO: 811_864_064}
+# (arch, config changes) of the MLA and audio cases: deepseek decodes with
+# the latent expanded and absorbed
+NEW_CASES = {"mla_expand": (MLA, dict()), "mla_absorb": (MLA, dict(mla_absorb=True)),
+             "whisper": (AUDIO, dict())}
 
 
 @pytest.fixture(autouse=True)
@@ -72,13 +86,13 @@ def _tokens(cfg, B, S, seed=0):
 
 # ----------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + (MLA, AUDIO))
 def test_configs_match_jax(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
     assert dataclasses.asdict(smoke_config(arch)) == dataclasses.asdict(jax_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + (MLA, AUDIO))
 def test_full_width_tree_and_counts_match_jax(arch):
     """From shapes alone: the port's tree on the meta device against
     ``jax.eval_shape`` of the JAX init; param and active param counts."""
@@ -90,8 +104,10 @@ def test_full_width_tree_and_counts_match_jax(arch):
     assert {k: tuple(v.shape) for k, v in _flat(meta).items()} == want
     assert param_count(meta) == sum(int(np.prod(s)) for s in want.values())
     assert active_param_count(meta, cfg) == jax_active_param_count(shapes, jcfg)
-    if arch == MOE:
+    if arch in (MOE, MLA):
         assert active_param_count(meta, cfg) < param_count(meta)
+    if arch in FULL_PARAMS:
+        assert param_count(meta) == FULL_PARAMS[arch]
 
 
 @pytest.mark.parametrize("variant", list(MOE_VARIANTS))
@@ -101,10 +117,9 @@ def test_active_param_count_matches_jax_on_smoke_trees(variant):
     assert active_param_count(params, cfg) == jax_active_param_count(jparams, jcfg)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "phi-3-vision-4.2b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b"])
 def test_remaining_families_are_refused_by_name(arch):
-    item = "item 10" if arch.startswith("phi") else "item 11"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 10"):
         get_config(arch)
 
 
@@ -119,6 +134,23 @@ def test_lm_params_from_numpy_carries_both_families(arch):
     for k, w in _flat(tree).items():
         np.testing.assert_array_equal(got[k], w, err_msg=k)
     stack = "moe_layers" if arch == MOE else "slstm_layers"
+    missing = {k: v for k, v in tree.items() if k != stack}
+    with pytest.raises(ValueError, match="params"):
+        lm_params_from_numpy(missing, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", [MLA, AUDIO])
+def test_lm_params_from_numpy_carries_mla_and_audio_trees(arch):
+    """By key, the nested LayerNorm dicts ({"scale", "bias"}) included."""
+    jcfg, cfg = _cfgs(arch)
+    tree = jax.tree.map(np.asarray, jax_get_api(jcfg).init_params(jax.random.PRNGKey(2), jcfg))
+    got = _flat(params_to_numpy(lm_params_from_numpy(tree, cfg, device="cpu")))
+    assert set(got) == set(_flat(tree))
+    assert ("/moe_layers/attn/kv_norm" in got) == (arch == MLA)
+    assert ("/enc_layers/ln1/bias" in got) == (arch == AUDIO)
+    for k, w in _flat(tree).items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    stack = "moe_layers" if arch == MLA else "enc_layers"
     missing = {k: v for k, v in tree.items() if k != stack}
     with pytest.raises(ValueError, match="params"):
         lm_params_from_numpy(missing, cfg, device="cpu")
@@ -223,6 +255,67 @@ def test_pad_cache_leaves_xlstm_state_alone():
         assert c2["mlstm"][k] is c["mlstm"][k]
 
 
+# ----------------------------------------------------------------- MLA and audio
+
+def _new_batch(cfg, B, S, seed=0):
+    """Tokens from the JAX PRNG, and whisper's frames from numpy."""
+    tj, tt = _tokens(cfg, B, S, seed)
+    bj, bt = {"tokens": tj, "labels": tj}, {"tokens": tt, "labels": tt}
+    if cfg.arch_type == "audio":
+        f = (0.02 * np.random.default_rng(seed).standard_normal(
+            (B, cfg.enc_frames, cfg.d_model))).astype(np.float32)
+        bj["frames"], bt["frames"] = jnp.asarray(f), torch.from_numpy(f)
+    return bj, bt
+
+
+@pytest.mark.parametrize("arch", [MLA, AUDIO])
+def test_mla_and_audio_init_matches_jax(arch):
+    jcfg, cfg = _cfgs(arch)
+    want = _flat(jax.tree.map(np.asarray,
+                              jax_get_api(jcfg).init_params(jax.random.PRNGKey(7), jcfg)))
+    got = _flat(params_to_numpy(get_api(cfg).init_params(prng.PRNGKey(7), cfg, device="cpu")))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape and got[k].dtype == w.dtype, k
+        np.testing.assert_allclose(got[k], w, atol=1e-6, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(NEW_CASES))
+def test_mla_and_audio_loss_prefill_and_decode_match_jax(case):
+    arch, changes = NEW_CASES[case]
+    jcfg, cfg = _cfgs(arch, **changes)
+    jparams, params = _carry(cfg, jcfg, seed=4)
+    japi, api = jax_get_api(jcfg), get_api(cfg)
+    B, P, steps = 2, 16, 3
+    bj, bt = _new_batch(cfg, B, P + steps, seed=1)
+    w = np.array([0.4, 0.6], np.float32)
+    lj, mj = japi.loss_fn(jparams, jcfg, dict(bj, client_weights=jnp.asarray(w)))
+    lt, mt = api.loss_fn(params, cfg, dict(bt, client_weights=torch.from_numpy(w)))
+    np.testing.assert_allclose(lt.item(), float(lj), atol=1e-5)
+    assert set(mt) == set(mj)
+    if arch == MLA:
+        np.testing.assert_allclose(float(mt["aux"]), float(mj["aux"]), atol=1e-5)
+        lp, _ = api.loss_fn(params, cfg.replace(use_pallas=True), bt)
+        ljp, _ = japi.loss_fn(jparams, jcfg.replace(use_pallas=True), bj)
+        np.testing.assert_allclose(lp.item(), float(ljp), atol=1e-5)
+    pj = dict(bj, tokens=bj["tokens"][:, :P], labels=bj["labels"][:, :P])
+    pt = dict(bt, tokens=bt["tokens"][:, :P], labels=bt["labels"][:, :P])
+    gj, cj = japi.prefill_fn(jparams, jcfg, pj)
+    gt, ct = api.prefill_fn(params, cfg, pt)
+    assert set(ct) == set(cj)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=1e-4)
+    cj, ct = jax_pad_cache(cj, P, P + steps), pad_cache(ct, P, P + steps)
+    for t in range(P, P + steps):
+        gj, cj = japi.decode_fn(jparams, jcfg, bj["tokens"][:, t:t + 1], jnp.int32(t), cj)
+        gt, ct = api.decode_fn(params, cfg, bt["tokens"][:, t:t + 1], t, ct)
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=1e-4, err_msg=f"pos {t}")
+    fj, ft = _flat(jax.tree.map(np.asarray, cj)), _flat(params_to_numpy(ct))
+    assert set(ft) == set(fj)
+    for k in fj:
+        if k.endswith("positions"):
+            np.testing.assert_array_equal(ft[k], fj[k], err_msg=k)
+
+
 # ----------------------------------------------------------------- serving
 
 def _jax_serve_loop(cfg, seed, B, P, G):
@@ -232,7 +325,10 @@ def _jax_serve_loop(cfg, seed, B, P, G):
     key = jax.random.PRNGKey(seed)
     params = api.init_params(key, cfg)
     prompts = jax.random.randint(key, (B, P), 0, cfg.vocab_size)
-    logits, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+    batch = {"tokens": prompts, "labels": prompts}
+    if cfg.arch_type == "audio":
+        batch["frames"] = 0.02 * jax.random.normal(key, (B, cfg.enc_frames, cfg.d_model))
+    logits, caches = api.prefill_fn(params, cfg, batch)
     caches = jax_pad_cache(caches, P, P + G)
     tok = jnp.argmax(logits[:, -1:, :cfg.vocab_size], axis=-1)
     out = [tok]
@@ -243,7 +339,7 @@ def _jax_serve_loop(cfg, seed, B, P, G):
     return np.asarray(jnp.concatenate(out, axis=1))
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + (MLA, AUDIO))
 def test_serve_cli_matches_jax_serve_loop(arch, capsys):
     B, P, G = 2, 16, 6
     res = serve.main(["--arch", arch, "--preset", "tiny", "--device", "cpu", "--batch", str(B),
@@ -252,3 +348,15 @@ def test_serve_cli_matches_jax_serve_loop(arch, capsys):
     assert res.tokens.shape == (B, G)
     np.testing.assert_array_equal(res.tokens.numpy(),
                                   _jax_serve_loop(jax_smoke_config(arch), 2, B, P, G))
+
+
+def test_absorbed_mla_generate_matches_jax_serve_loop():
+    """The serve launcher's weights, prompts and greedy loop with
+    ``mla_absorb`` on: the JAX package's tokens."""
+    B, P, G = 2, 16, 6
+    jcfg, cfg = _cfgs(MLA, mla_absorb=True)
+    key = prng.PRNGKey(2)
+    params = get_api(cfg).init_params(key, cfg, device="cpu")
+    prompts = prng.randint(key, (B, P), 0, cfg.vocab_size)
+    res = serve.generate(params, cfg, prompts, G)
+    np.testing.assert_array_equal(res.tokens.numpy(), _jax_serve_loop(jcfg, 2, B, P, G))

@@ -208,10 +208,12 @@ def test_flash_attention_cuda_reads_transposed_views(cuda_device):
 # 16384 in f32 and twice those in 2-byte types; d 2052 just past a step;
 # d 33000 beyond 1024 threads in every dtype and d 100 (bf16, f16) and 1001
 # off the 16-byte packs take the two-pass kernel; 8193, 2047, 1025 and 257
-# rows leave a block of several rows part full
+# rows leave a block of several rows part full; d 512 is MLA's kv_norm
+# (deepseek-v2-lite's latent) at the loss (1 x 2048), the serve prefill
+# (8 x 128) and a decode step (8 rows)
 RMSNORM_CUDA_SHAPES = [(1, 576), (8193, 576), (300, 64), (257, 128), (33, 1024), (5, 100),
                        (2047, 2048), (2048, 2052), (1025, 4096), (3, 8192), (2, 16384),
-                       (3, 33000), (33, 1001)]
+                       (3, 33000), (33, 1001), (2048, 512), (1024, 512), (8, 512)]
 
 
 @pytest.mark.cuda
@@ -230,8 +232,8 @@ def test_rmsnorm_cuda_matches_plain(cuda_device, rows, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", [(8193, 576), (2047, 2048), (1025, 4096), (3, 8192),
-                                    (3, 33000)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+                                    (3, 33000), (2048, 512), (1024, 512), (8, 512)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_rmsnorm_cuda_two_calls_are_bit_equal(cuda_device, rows, d, dtype):
     """The sum of squares crosses a row's warps in a fixed order."""
     x = _to_torch(_normal((rows, d), 82), dtype).to(cuda_device)

@@ -117,8 +117,8 @@ def test_formerly_refused_feature_runs(changes):
 def test_arch_family_raises():
     """The arch family runs (tests/test_torch_train.py); an arch of a family
     the port has not ported is refused by name."""
-    spec = tapi.ScenarioSpec(tasks=[tapi.TaskSpec("deepseek-v2-lite-16b", family="arch")])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    spec = tapi.ScenarioSpec(tasks=[tapi.TaskSpec("phi-3-vision-4.2b", family="arch")])
+    with pytest.raises(NotImplementedError, match="item 10"):
         tapi.run_scenario(spec, device="cpu")
 
 

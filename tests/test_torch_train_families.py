@@ -11,6 +11,11 @@ tests/test_torch_train.py). The port's train CLI runs the example's mix,
 and a run checkpointed and resumed equals the uninterrupted one; a step
 the port writes (params and AdamW state of the three trees) resumes in the
 reference with the reference's trace and losses within 1e-5.
+
+deepseek-v2-lite-16b (MLA) and whisper-medium (encoder-decoder, its
+frames drawn in the batch) as two concurrent ``arch`` tasks on their tiny
+presets: loss gradients within 1e-5 x max(1, max|g|) of ``jax.grad``, and
+the same three kinds of whole run, held to the same gates.
 """
 import functools
 import os
@@ -27,6 +32,9 @@ import repro_torch.launch.train as ttrain
 from repro_torch.interop import params_to_numpy
 
 ARCHS = ("smollm-135m", "xlstm-1.3b", "qwen2-moe-a2.7b")
+MLA_AUDIO = ("deepseek-v2-lite-16b", "whisper-medium")
+RUNS = [dict(), dict(tau=2, backend="vmap"), dict(mode="async")]
+RUN_IDS = ["sync_fused_adamw", "sync_tau2_vmap", "async_fedavg"]
 EVENTS = ("time", "versions", "arrivals", "buffer_sizes", "staleness_mean", "dropped",
           "cost_dropouts")
 ADAM_SHARE = 1e-3           # at most this share of elements beyond 1e-4 (AdamW's first step)
@@ -41,12 +49,13 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def _spec(api, *, tau=1, backend="serial", mode="sync", rounds=2, aggregator=None):
+def _spec(api, *, tau=1, backend="serial", mode="sync", rounds=2, aggregator=None,
+          archs=ARCHS):
     return api.ScenarioSpec(
         name="concurrent-lms", seed=0, data_seed=0,
         tasks=[api.TaskSpec(a, family="arch",
                             options={"preset": "tiny", "seq": 32, "batch": 4, "tau": tau})
-               for a in ARCHS],
+               for a in archs],
         clients=api.ClientPopulationSpec(n_clients=6, participation=0.5),
         allocation=api.AllocationSpec(strategy="fedfair", alpha=3.0),
         runtime=api.RuntimeSpec(mode=mode, backend=backend, rounds=rounds, tau=tau,
@@ -59,7 +68,7 @@ def _flat(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
-def _assert_runs_match(rt, rj, max_share=0.0):
+def _assert_runs_match(rt, rj, max_share=0.0, archs=ARCHS):
     if rt.mode == "sync":
         np.testing.assert_array_equal(rt.alloc, rj.alloc)
         np.testing.assert_array_equal(rt.alloc_counts, rj.alloc_counts)
@@ -69,7 +78,7 @@ def _assert_runs_match(rt, rj, max_share=0.0):
         assert rt.assignments == rj.assignments
     np.testing.assert_allclose(rt.loss, rj.loss, atol=1e-4, rtol=0)
     np.testing.assert_array_equal(rt.acc, rj.acc)
-    assert rt.task_names == rj.task_names == list(ARCHS)
+    assert rt.task_names == rj.task_names == list(archs)
     beyond, total = 0, 0
     for pt, pj in zip(rt.params, rj.params):
         g, w = _flat(params_to_numpy(pt)), _flat(jax.tree.map(np.asarray, pj))
@@ -89,17 +98,56 @@ def _reference_run(**kw):
     return japi.run_scenario(_spec(japi, **kw))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(),
-    dict(tau=2, backend="vmap"),
-    dict(mode="async"),
-], ids=["sync_fused_adamw", "sync_tau2_vmap", "async_fedavg"])
+@pytest.mark.parametrize("kw", RUNS, ids=RUN_IDS)
 def test_mix_matches_reference(kw):
     rt = tapi.run_scenario(_spec(tapi, **kw), device="cpu")
     rj = _reference_run(**kw)
     assert rt.mode == rj.mode == kw.get("mode", "sync")
     fused_adamw = kw.get("mode", "sync") == "sync" and kw.get("tau", 1) <= 1
     _assert_runs_match(rt, rj, ADAM_SHARE if fused_adamw else 0.0)
+
+
+@pytest.mark.parametrize("arch", MLA_AUDIO)
+def test_mla_and_audio_gradients_match_jax(arch):
+    """Loss gradients of the smoke configs, whisper's on nonzero frames."""
+    from repro.configs import smoke_config as jax_smoke_config
+    from repro.models import get_api as jax_get_api
+    from repro_torch.configs import smoke_config
+    from repro_torch.interop import lm_params_from_numpy
+    from repro_torch.models import get_api
+    from repro_torch.tree import tree_map
+
+    jcfg, cfg = jax_smoke_config(arch), smoke_config(arch)
+    jparams = jax_get_api(jcfg).init_params(jax.random.PRNGKey(6), jcfg)
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    t = rng.integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32)
+    bj = {"tokens": jax.numpy.asarray(t), "labels": jax.numpy.asarray(t)}
+    bt = {"tokens": torch.from_numpy(t.astype(np.int64)),
+          "labels": torch.from_numpy(t.astype(np.int64))}
+    if arch == "whisper-medium":
+        f = (0.02 * rng.standard_normal((2, cfg.enc_frames, cfg.d_model))).astype(np.float32)
+        bj["frames"], bt["frames"] = jax.numpy.asarray(f), torch.from_numpy(f)
+    gj = jax.grad(lambda p: jax_get_api(jcfg).loss_fn(p, jcfg, bj)[0])(jparams)
+    params = tree_map(lambda x: x.requires_grad_(True), params)
+    loss, _ = get_api(cfg).loss_fn(params, cfg, bt)
+    loss.backward()
+    got = _flat(tree_map(lambda x: x.grad.numpy(), params))
+    want = _flat(jax.tree.map(np.asarray, gj))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, atol=1e-5 * max(1.0, np.abs(w).max()), rtol=0,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("kw", RUNS, ids=RUN_IDS)
+def test_mla_and_audio_runs_match_reference(kw):
+    """deepseek-v2-lite and whisper as two tasks: sync (fused AdamW; tau 2
+    on vmap) and async runs against the reference's."""
+    rt = tapi.run_scenario(_spec(tapi, archs=MLA_AUDIO, **kw), device="cpu")
+    rj = _reference_run(archs=MLA_AUDIO, **kw)
+    fused_adamw = kw.get("mode", "sync") == "sync" and kw.get("tau", 1) <= 1
+    _assert_runs_match(rt, rj, ADAM_SHARE if fused_adamw else 0.0, archs=MLA_AUDIO)
 
 
 def test_train_cli_runs_the_example_mix(capsys):
@@ -168,8 +216,9 @@ def test_port_step_of_the_mix_resumes_in_the_reference(tmp_path):
 # ------------------------------------------------------------- on the card
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("archs", [ARCHS, MLA_AUDIO], ids=["mix", "mla_audio"])
 @pytest.mark.parametrize("mode", ["sync", "async"])
-def test_mix_on_cuda_matches_cpu(mode):
+def test_mix_on_cuda_matches_cpu(mode, archs):
     """The tiny mix on the card and on the CPU: identical allocation or
     event traces, losses within 1e-3; the sync tau 2 folds launch fedavg
     once each, the async fedadam flushes fused_aggregate once each."""
@@ -179,7 +228,7 @@ def test_mix_on_cuda_matches_cpu(mode):
 
     kw = dict(tau=2, backend="vmap") if mode == "sync" else dict(
         mode="async", backend="vmap", aggregator="fedadam")
-    spec = _spec(tapi, **kw)
+    spec = _spec(tapi, archs=archs, **kw)
     if mode == "async":
         spec.runtime.aggregator_options = {"lr": 0.1}
     reset_launches()
