@@ -37,18 +37,19 @@ printed only when every phase passed:
 7. Card against CPU for async: the fedadam run with round_robin must give
    identical event traces on both devices; fedfair is compared too.
 8. The rmsnorm kernel against its plain version on the card at the dense
-   LM's norm shapes, at the MoE and xLSTM families' widths 2048 and 4096
-   and MLA's latent width 512, and at the edges of its launcher (where the threads a row step up, the
+   LM's norm shapes, at the MoE and xLSTM families' widths 2048 and 4096,
+   MLA's latent width 512 and phi-3-vision's 3072, and at the edges of its
+   launcher (where the threads a row step up, the
    two-pass kernel's widths, part-full blocks; rows x d, f32, bf16 and f16;
    atol 1e-5 / 5e-2 / 1e-2), two calls bit-equal at each, with times at
-   (8192, 576), (2048, 2048) and (2048, 4096) f32 (device, eager and host
-   per call) beside the bytes bound, the plain version and
+   (8192, 576), (2048, 2048), (2048, 4096) and (2048, 3072) f32 (device,
+   eager and host per call) beside the bytes bound, the plain version and
    ``torch.nn.functional.rms_norm``.
 9. The flash_attention kernel against its plain version on the card at
-   smollm-135m's, a qwen3-like, zamba2-7b's and qwen2-moe-a2.7b's attention
-   shape, a small one and a ragged Sq != Sk one, causal and not, f32 and
-   bf16 (atol 2e-5 / 3e-2), with times at smollm's, zamba2's and
-   qwen2-moe's shapes in both dtypes beside
+   smollm-135m's, a qwen3-like, zamba2-7b's, qwen2-moe-a2.7b's and
+   phi-3-vision's (hd 96) attention shape, a small one and a ragged Sq !=
+   Sk one, causal and not, f32 and bf16 (atol 2e-5 / 3e-2), with times at
+   smollm's, zamba2's, qwen2-moe's and phi-3's shapes in both dtypes beside
    the operations and bytes bound (f32 at the three-pass TF32 rate, with
    the CUDA cores' 67 TFLOP/s figure beside it), the plain version and
    ``scaled_dot_product_attention`` in the same run, eager and as device
@@ -227,10 +228,39 @@ printed only when every phase passed:
    flushes/s, peak memory. Card against CPU on the tiny presets of both,
    sync (round_robin, tau 2) and async (fedadam): identical allocation or
    event traces, losses within 1e-3.
-28. A JSON line describing every kernel, the card line, and the final
+28. phi-3-vision-4.2b (the vlm family) at full width and depth (32
+   layers, 3,822,259,200 f32 params drawn on the card from PRNGKey(0)):
+   serving as phase 22's behind 256 zero image embeddings (decode positions
+   after the image), exactly 65 rmsnorm launches per prefill and per
+   decode step; the loss at B=1, S=2048 (256 image embeddings, 0.02 *
+   normal, and 1,792 text tokens) with ``use_pallas`` (32 flash_attention
+   launches at hd 96 and 65 rmsnorm) and without, within 2e-4. Card
+   against CPU at full width and 2 layers, the image included: batch 2, 4
+   tokens, identical greedy tokens, prefill logits within 1e-3.
+29. phi-3-vision in training (``run_scenario``, arch family, vmap backend,
+   phase 18's settings at seq 512: 256 image slots and 256 text tokens),
+   each mode alone, cut in depth: sync tau 1 (fused AdamW) at 8 of 32
+   layers; sync tau 2 at 4 (the fedavg fold at 651.2 M params, each call
+   held against ``ref_fedavg``); async fedadam at 4, buffer 2
+   (fused_aggregate once per flush, each flush shape held). s/round,
+   trained tokens/s, flushes/s, peak memory. Card against CPU on the tiny
+   presets of phi-3 and smollm-135m, sync (round_robin, tau 2) and async
+   (fedadam): identical allocation or event traces, losses within 1e-3.
+30. The serving queue at full width: 16 requests drawn from a seed
+   (prompts of 16-128 tokens, 8-32 new ones) through 8 slots, after a
+   two-request warm-up. ``WaveBatcher`` over smollm-135m and phi-3 (a
+   vlm's waves behind zero images): every wave equals ``generate`` on its
+   left-padded batch. ``ContinuousBatcher`` over qwen1.5-0.5b and phi-3
+   (per-row decode; a vlm is fed no image, as in the JAX package): every
+   request equals a direct B=1 prefill and decode fed its tokens. A
+   flipped token fails the phase unless its margin (top logit less the
+   logit of the token served) is below the logit difference the phase
+   measured between the two paths (printed). tok/s, mean latency, mean
+   TTFT; rmsnorm the only kernel launched.
+31. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
-In phases 16-20, 24 and 27 every fedavg call of the card's runs is also held
+In phases 16-20, 24, 27 and 29 every fedavg call of the card's runs is also held
 against ``ref_fedavg`` on its own inputs as it runs (``FoldShapes``); the
 seconds and the device memory of that check are kept out of the times and
 peaks the phases report.
@@ -284,10 +314,12 @@ LM_ARCH = "smollm-135m"
 # qwen3's d_model 1024 at a ragged 4097 rows
 # qwen2-moe's and xlstm's d_model 2048 and mLSTM's gate width 4096, and
 # MLA's kv_norm over deepseek-v2-lite's latent of 512, at a decode step (8
-# rows), the serve prefill (8 x 128) and the loss (1 x 2048)
+# rows), the serve prefill (8 x 128) and the loss (1 x 2048); phi-3-vision's
+# d_model 3072 at a decode step, its serve prefill (8 x (256 + 128)) and loss
 NORM_SHAPES = ((1, 576), (8192, 576), (8193, 576), (4096 * 9, 64), (2048 * 16, 128),
                (4097, 1024), (8, 2048), (1024, 2048), (2048, 2048), (8, 4096), (1024, 4096),
-               (2048, 4096), (8, 512), (1024, 512), (2048, 512))
+               (2048, 4096), (8, 512), (1024, 512), (2048, 512), (8, 3072), (3072, 3072),
+               (2048, 3072))
 # the edges of the kernel's launcher (tests/test_torch_lm_kernels.py):
 # where the threads a row step up (d 2048, 4096, 8192, just past 2048 and
 # the most, 16384), the two-pass kernel (d 33000 beyond the registers, d
@@ -296,18 +328,20 @@ NORM_SHAPES = ((1, 576), (8192, 576), (8193, 576), (4096 * 9, 64), (2048 * 16, 1
 NORM_EDGES = ((2047, 2048), (2048, 2052), (1025, 4096), (3, 8192), (2, 16384), (3, 33000),
               (33, 1001), (5, 100), (300, 64), (257, 128))
 NORM_TIMED = (8192, 576)
-NORM_FAMILIES = ((2048, 2048), (2048, 4096))        # the families' loss shapes, timed too
+NORM_FAMILIES = ((2048, 2048), (2048, 4096), (2048, 3072))   # the families' loss shapes, timed
 # tests/test_kernels.py; f16 one f16 ulp below 16 (tests/test_torch_lm_kernels.py)
 NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-2, "float16": 1e-2}
 # (B, H, KV, Sq, Sk, hd): smollm-135m's forward at B=4 S=2048, a qwen3-like
 # head layout, the JAX sweep's small shape, a ragged Sq != Sk, zamba2-7b's
 # shared attention at B=1 S=2048 (hd 3584 / 32 = 112), qwen2-moe-a2.7b's
-# loss at B=1 S=2048 (hd 2048 / 16 = 128)
+# loss at B=1 S=2048 (hd 2048 / 16 = 128), phi-3-vision's loss at B=1
+# S=2048 (hd 3072 / 32 = 96)
 FLASH_SHAPES = ((4, 9, 3, 2048, 2048, 64), (1, 16, 8, 2048, 2048, 128), (2, 4, 2, 256, 256, 32),
                 (1, 4, 2, 200, 456, 64), (1, 32, 32, 2048, 2048, 112),
-                (1, 16, 16, 2048, 2048, 128))
+                (1, 16, 16, 2048, 2048, 128), (1, 32, 32, 2048, 2048, 96))
 FLASH_ZAMBA = FLASH_SHAPES[4]
 FLASH_MOE = FLASH_SHAPES[5]
+FLASH_VLM = FLASH_SHAPES[6]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}    # tests/test_kernels.py
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32
 LOSS_B, LOSS_S = 4, 2048
@@ -429,6 +463,35 @@ AUDIO_ASYNC_BUFFER = 2
 MLA_AUDIO_TINY = dict(archs=(MLA_ARCH, AUDIO_ARCH),
                       options=dict(preset="tiny", seq=32, batch=4, tau=2), clients=6, rounds=2,
                       arrivals=9, buffer=3)
+
+# phi-3-vision-4.2b (the vlm family; phase 28) at full width and depth,
+# weights from PRNGKey(0): serving as smollm's behind 256 zero image
+# embeddings (the vision tower is a stub, as in the JAX package); the loss
+# at B=1 S=2048 (256 image + 1,792 text tokens) over 0.02 * normal image
+# embeddings; card against CPU at full width and 2 layers
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_PARAMS = 3_822_259_200
+VLM_LOSS_B, VLM_LOSS_S = 1, 2048
+VLM_CPU_LAYERS = 2
+# phase 29: phase 18's settings at seq 512 (256 image + 256 text tokens;
+# at seq 256 the text would be empty and the loss 0), each mode alone,
+# cut in depth: AdamW's ~32 B a param holds tau 1 to 8 of 32 layers
+# (1.104e9 params, 35.3 GB); the tau 2 fold (8 rows of 651.2 M params and
+# their copies, ~47 GB) and the async flush at a buffer of 2 to 4 layers
+VLM_TRAIN = dict(seq=512, batch=8, clients=8, adamw_layers=8, fold_layers=4, async_layers=4,
+                 async_buffer=2)
+VLM_TINY = dict(archs=(VLM_ARCH, "smollm-135m"),
+                options=dict(preset="tiny", seq=32, batch=4, tau=2), clients=6, rounds=2,
+                arrivals=9, buffer=3)
+# phase 30: a correctness smoke of the serving queue at full width (not a
+# user workload): 16 requests (prompts of 16-128 tokens, 8-32 new ones,
+# drawn from the seed) through 8 slots, enough to fill waves and to
+# admit into freed slots; WaveBatcher over smollm-135m and phi-3,
+# ContinuousBatcher over qwen1.5-0.5b and phi-3 (its horizon: the
+# longest prompt and answer)
+QUEUE = dict(requests=16, prompt=(16, 128), max_new=(8, 32), slots=8, seed=30)
+QUEUE_WAVE = ("smollm-135m", VLM_ARCH)
+QUEUE_CONTINUOUS = ("qwen1.5-0.5b", VLM_ARCH)
 
 
 def fail(msg: str) -> None:
@@ -1065,7 +1128,7 @@ def phase_flash():
                 if not err <= FLASH_TOL[name]:
                     fail(f"flash_attention {where}: max |err| {err} > {FLASH_TOL[name]}")
                 del got, want
-            if (B, H, KV, Sq, Sk, hd) not in (FLASH_SHAPES[0], FLASH_ZAMBA, FLASH_MOE):
+            if (B, H, KV, Sq, Sk, hd) not in (FLASH_SHAPES[0], FLASH_ZAMBA, FLASH_MOE, FLASH_VLM):
                 continue
             bound, by = flash_bound_ms(B, H, KV, Sq, Sk, hd, True, size, peak)
             rec = timed[(B, H, KV, Sq, Sk, hd), name] = {
@@ -1457,14 +1520,16 @@ def phase_ssd():
 
 
 def _hybrid_counts(api, params, cfg, prompts, token, features=None):
-    """Launches of one prefill (with ``features``, whisper's frames, where
-    given) and of one decode step after it."""
+    """Launches of one prefill (with ``features``, whisper's frames or a
+    vlm's image embeddings, where given) and of one decode step after it
+    (after a vlm's image slots)."""
     import torch
 
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import image_offset
     from repro_torch.models import pad_cache
 
-    P = prompts.shape[1]
+    P = prompts.shape[1] + image_offset(cfg, features)
     with torch.no_grad():
         reset_launches()
         _, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts,
@@ -2724,19 +2789,22 @@ def _serve_family(label: str, arch: str, cfg, norms: int):
 def _family_loss(label: str, params, cfg, B: int, S: int, want: dict, reps: int,
                  pallas: bool, features=None):
     """The forward loss at (B, S) on the card (with ``features``, whisper's
-    frames, where given): launches of one forward (must equal ``want``),
-    ms per forward and peak memory; with ``pallas`` also the
-    ``use_pallas=False`` loss, which must agree within 2e-4."""
+    frames or a vlm's image embeddings, where given; a vlm's S counts its
+    image slots, so its text is S - n_img_tokens): launches of one forward
+    (must equal ``want``), ms per forward and peak memory; with ``pallas``
+    also the ``use_pallas=False`` loss, which must agree within 2e-4."""
     import torch
 
     from repro_torch import prng
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import image_offset
     from repro_torch.models import get_api
 
     api = get_api(cfg)
     run_cfg = cfg.replace(use_pallas=True) if pallas else cfg
     dev = torch.device("cuda")
-    tokens = prng.randint(prng.PRNGKey(1, device=dev), (B, S), 0, cfg.vocab_size)
+    text = S - image_offset(cfg, features)
+    tokens = prng.randint(prng.PRNGKey(1, device=dev), (B, text), 0, cfg.vocab_size)
     batch = {"tokens": tokens, "labels": tokens, **(features or {})}
     rec = {"B": B, "S": S, "ssm_chunk": cfg.ssm_chunk}
     with torch.no_grad():
@@ -3487,6 +3555,398 @@ def phase_mla_audio_train(line: str):
             timed + atimed)
 
 
+def _vlm_features(cfg, B: int, seed: int):
+    """Image embeddings ``0.02 * normal`` (B, n_img_tokens, d_model) on the
+    card from PRNGKey(seed)."""
+    import torch
+
+    from repro_torch import prng
+
+    key = prng.PRNGKey(seed, device=torch.device("cuda"))
+    return {"img_embeds": prng.normal(key, (B, cfg.n_img_tokens, cfg.d_model)).mul_(0.02)}
+
+
+def phase_vlm(line: str):
+    """Phase 28: phi-3-vision-4.2b at full width and depth."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_config, serve_features
+    from repro_torch.models import param_count
+    from repro_torch.tree import tree_map
+
+    print(f"== phase 28: {VLM_ARCH} (vlm) at full width and depth on the card")
+    print(f"card: {line}")
+    cfg = serve_config(get_config(VLM_ARCH), SERVE_PROMPT)
+    norms = 2 * cfg.n_layers + 1
+    params, rec = _init_family(VLM_ARCH, cfg)
+    if rec["params"] != VLM_PARAMS:
+        fail(f"phase 28: {rec['params']} params, expected {VLM_PARAMS}")
+    # the serve launcher's zero image embeddings, then the prompts
+    features = serve_features(prng.PRNGKey(0, device=torch.device("cuda")), cfg, SERVE_BATCH)
+    prompts = _serve_prompts(cfg)
+    served = _serve_with("phase 28", params, cfg, prompts, {"rmsnorm": norms}, features)
+    served.pop("tokens")
+    served["img_embeds"] = list(features["img_embeds"].shape)
+    loss = _family_loss("phase 28", params, cfg, VLM_LOSS_B, VLM_LOSS_S,
+                        {"flash_attention": cfg.n_layers, "rmsnorm": norms}, reps=3, pallas=True,
+                        features=_vlm_features(cfg, VLM_LOSS_B, 1))
+    loss["text_tokens"] = VLM_LOSS_S - cfg.n_img_tokens
+
+    # card against CPU: the first VLM_CPU_LAYERS layers, the image included
+    L = VLM_CPU_LAYERS
+    small_cfg = cfg.replace(n_layers=L)
+    small = dict(params, dense_layers=tree_map(lambda t: t[:L], params["dense_layers"]))
+    small_cpu = tree_map(lambda t: t.cpu(), small)
+    few = _vlm_features(cfg, CPU_BATCH, 2)
+    same, diff, cpu_s = _card_vs_cpu_generate(small, small_cpu, small_cfg, prompts[:CPU_BATCH],
+                                              CPU_GEN, few)
+    print(f"  {L} of {cfg.n_layers} layers ({param_count(small_cpu)} params), batch {CPU_BATCH} "
+          f"behind {cfg.n_img_tokens} image embeddings, {CPU_GEN} tokens on the host CPU "
+          f"({cpu_s:.2f} s): greedy tokens identical={same}, max |prefill logits card - cpu| "
+          f"{diff:.3g} (tol 1e-3)")
+    if not same or not diff <= 1e-3:
+        fail("phase 28: card and CPU disagree")
+    del small_cpu, small, params
+    torch.cuda.empty_cache()
+    return ({**rec, **served, "cpu_layers": L, "cpu_tokens_identical": same,
+             "cpu_prefill_logits_max_abs_diff": diff}, loss)
+
+
+def _vlm_sync(label: str, layers: int, tau: int, shapes) -> dict:
+    """One sync arch run of phi-3 alone at full width and ``layers``
+    layers, phase 18's settings at VLM_TRAIN's seq: s/round, trained
+    tokens/s (text and image slots), peak memory, launches; fedavg once per
+    non-empty fold (tau > 1) at (batch, N), never at tau 1; rmsnorm and no
+    other kernel besides."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import param_count
+
+    opts = dict(preset="full", seq=VLM_TRAIN["seq"], batch=VLM_TRAIN["batch"], tau=tau)
+    spec = arch_spec(f"vlm-tau{tau}", {VLM_ARCH: opts}, VLM_TRAIN["clients"])
+    with DepthCut({VLM_ARCH: layers}):
+        shapes.reset_peak()
+        res, launches = run_counted(spec, "cuda")
+    peak = shapes.peak_bytes()
+    n = param_count(res.params[0])
+    folds = int((res.alloc_counts[:, 0] > 0).sum()) if tau > 1 else 0
+    want = {(opts["batch"], n, "float32"): folds} if folds else {}
+    if launches.get("fedavg", 0) != folds or dict(shapes.fedavg) != want:
+        fail(f"{label}: fedavg launched {launches.get('fedavg', 0)} times at "
+             f"{dict(shapes.fedavg)} for {folds} non-empty tau>1 folds")
+    if set(launches) - {"fedavg", "rmsnorm"} or launches.get("rmsnorm", 0) <= 0:
+        fail(f"{label}: launches {launches}")
+    if not (res.alloc_counts[:, 0] > 0).any() or not np.isfinite(res.final_loss[VLM_ARCH]) \
+            or not np.isfinite(res.acc).all():
+        fail(f"{label}: loss {res.loss} or accuracy {res.acc} not finite, or never trained")
+    # rows x seq x tau, the image slots counted as positions; the text
+    # tokens (those with a loss) beside
+    tokens = _trained_tokens(spec, res)
+    text = tokens * (opts["seq"] - get_config(VLM_ARCH).n_img_tokens) // opts["seq"]
+    with DepthCut({VLM_ARCH: layers}):
+        per_step = norms_per_step(spec.tasks[0], res.params[0])
+    rec = {"layers": layers, "tau": tau, "params": n, "params_bytes": 4 * n,
+           "s_per_round": res.wall_time / spec.runtime.rounds,
+           "trained_tokens_per_s": tokens / res.wall_time, "trained_tokens": tokens,
+           "text_tokens_per_s": text / res.wall_time,
+           "wall_s": res.wall_time, "peak_bytes": peak, "launches": launches,
+           "fedavg_folds": folds, "final_loss": res.final_loss[VLM_ARCH],
+           "final_acc": float(res.acc[-1, 0]), "rmsnorm_per_training_step": per_step}
+    print(f"{VLM_ARCH} sync tau {tau} at {layers} of 32 layers ({n} params, "
+          f"{4 * n / 1e9:.2f} GB): {rec['s_per_round']:.3f} s/round, "
+          f"{rec['trained_tokens_per_s']:.1f} trained tokens/s ({tokens} in "
+          f"{res.wall_time:.3f} s; {rec['text_tokens_per_s']:.1f} text tokens/s), peak "
+          f"{peak / 2**30:.3f} GiB, final loss "
+          f"{rec['final_loss']:.4f}, acc {rec['final_acc']:.4f}; launches {launches}, fedavg = "
+          f"non-empty folds {folds}; rmsnorm launches per training step {per_step}")
+    return rec
+
+
+def phase_vlm_train(line: str):
+    """Phase 29: phi-3-vision in training."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import param_count
+
+    print(f"== phase 29: arch training of {VLM_ARCH} on the card (run_scenario, vmap backend)")
+    print(f"card: {line}")
+    torch.cuda.empty_cache()
+    with FoldShapes() as adamw_shapes:
+        adamw = _vlm_sync("phase 29 adamw", VLM_TRAIN["adamw_layers"], 1, adamw_shapes)
+    torch.cuda.empty_cache()
+    with FoldShapes() as shapes:
+        fold = _vlm_sync("phase 29 fold", VLM_TRAIN["fold_layers"], 2, shapes)
+    checked = check_run_shapes("phase 29", shapes)
+    if checked["fedavg_calls_held"] != fold["fedavg_folds"]:
+        fail(f"phase 29: {checked['fedavg_calls_held']} fedavg calls held for "
+             f"{fold['fedavg_folds']} folds")
+    torch.cuda.empty_cache()
+    timed = time_lm_shapes(shapes)
+
+    # async fedadam, tau 2, at a buffer of VLM_TRAIN["async_buffer"]
+    torch.cuda.empty_cache()
+    opts = dict(preset="full", seq=VLM_TRAIN["seq"], batch=VLM_TRAIN["batch"],
+                tau=ARCH_ASYNC["tau"])
+    buffer = VLM_TRAIN["async_buffer"]
+    aspec = arch_spec("vlm-async", {VLM_ARCH: opts}, VLM_TRAIN["clients"], mode="async",
+                      buffer=buffer, aggregator=ARCH_ASYNC["aggregator"],
+                      options=ARCH_ASYNC["options"])
+    with DepthCut({VLM_ARCH: VLM_TRAIN["async_layers"]}), FoldShapes() as ashapes:
+        ashapes.reset_peak()
+        ares, alaunch = run_counted(aspec, "cuda")
+    apeak = ashapes.peak_bytes()
+    flushes = len(ares.time)
+    an = param_count(ares.params[0])
+    if (flushes == 0 or alaunch.get("fused_aggregate", 0) != flushes
+            or set(alaunch) - {"fused_aggregate", "rmsnorm"}
+            or dict(ashapes.fused) != {(buffer, an, "fedadam"): flushes}):
+        fail(f"phase 29: async launches {alaunch} at {dict(ashapes.fused)} for {flushes} "
+             f"flushes")
+    if not (np.isfinite(ares.loss).all() and np.isfinite(ares.acc).all()):
+        fail(f"phase 29: async metric {ares.loss} or accuracy {ares.acc} not finite")
+    arec = {"layers": VLM_TRAIN["async_layers"], "flushes": flushes,
+            "flushes_per_s": flushes / ares.wall_time, "wall_s": ares.wall_time,
+            "peak_bytes": apeak, "buffer": buffer, "params": an, "launches": alaunch,
+            "acc_eval": ares.acc.tolist(), "metric": ares.loss.tolist()}
+    print(f"{VLM_ARCH} async fedadam at {arec['layers']} layers, buffer {buffer}: "
+          f"{arec['flushes_per_s']:.3f} flushes/s ({flushes} flushes of "
+          f"{aspec.runtime.total_arrivals} arrivals, {ares.wall_time:.3f} s), peak "
+          f"{apeak / 2**30:.3f} GiB, launches {alaunch}")
+    achecked = check_run_shapes("phase 29 async", ashapes)
+    del ares
+    torch.cuda.empty_cache()
+    atimed = time_lm_shapes(ashapes)
+
+    # the tiny presets of phi-3 and smollm on the card and the CPU
+    o = VLM_TINY["options"]
+    tiny = arch_spec("vlm-tiny", {a: o for a in VLM_TINY["archs"]}, VLM_TINY["clients"],
+                     strategy="round_robin", rounds=VLM_TINY["rounds"])
+    tiny_async = arch_spec("vlm-tiny-async", {a: o for a in VLM_TINY["archs"]},
+                           VLM_TINY["clients"], mode="async", strategy="round_robin",
+                           arrivals=VLM_TINY["arrivals"], buffer=VLM_TINY["buffer"],
+                           aggregator="fedadam", options=ARCH_ASYNC["options"])
+    with FoldShapes() as tiny_shapes:
+        gpu, tlaunch = run_counted(tiny, "cuda")
+        agpu, talaunch = run_counted(tiny_async, "cuda")
+    tfolds, tflushes = int((gpu.alloc_counts > 0).sum()), len(agpu.time)
+    if (tlaunch.get("fedavg", 0) != tfolds or sum(tiny_shapes.fedavg.values()) != tfolds
+            or talaunch.get("fedavg", 0) or talaunch.get("fused_aggregate", 0) != tflushes
+            or sum(tiny_shapes.fused.values()) != tflushes):
+        fail(f"phase 29: tiny runs' launches {tlaunch} / {talaunch} for {tfolds} folds and "
+             f"{tflushes} flushes")
+    cpu, _ = run_counted(tiny, "cpu")
+    acpu, _ = run_counted(tiny_async, "cpu")
+    same, gap = np.array_equal(gpu.alloc, cpu.alloc), _loss_gap(gpu, cpu)
+    asame, agap = _same_events(agpu, acpu), _loss_gap(agpu, acpu)
+    print(f"tiny {list(VLM_TINY['archs'])} card vs CPU: sync round_robin tau 2 allocation traces "
+          f"identical={same}, max |loss card - cpu| {gap:.3g}, fedavg {tlaunch.get('fedavg', 0)} "
+          f"launches for {tfolds} folds; async fedadam event traces identical={asame}, max |eval "
+          f"loss card - cpu| {agap:.3g}, fused_aggregate {talaunch.get('fused_aggregate', 0)} "
+          f"launches for {tflushes} flushes")
+    if not same or not gap <= 1e-3 or not asame or not agap <= 1e-3:
+        fail("phase 29: tiny phi-3 card vs CPU disagree")
+    tiny_checked = check_run_shapes("phase 29 tiny", tiny_shapes)
+    return ({"adamw": adamw, "fold": fold, "async": arec, "card_vs_cpu_loss_gap": gap,
+             "card_vs_cpu_async_loss_gap": agap, "tiny_sync_launches": tlaunch,
+             "tiny_async_launches": talaunch},
+            {k: max(checked[k], achecked[k], tiny_checked[k]) for k in
+             ("fedavg", "fused_aggregate")}
+            | {"fedavg_shapes": checked["fedavg_shapes"] + tiny_checked["fedavg_shapes"],
+               "fused_shapes": achecked["fused_shapes"] + tiny_checked["fused_shapes"]},
+            timed + atimed)
+
+
+def _queue_requests(module, vocab: int) -> list:
+    """QUEUE's requests, drawn from its seed, as ``module.Request``s."""
+    import numpy as np
+
+    rng = np.random.default_rng(QUEUE["seed"])
+    out = []
+    for i in range(QUEUE["requests"]):
+        P = int(rng.integers(QUEUE["prompt"][0], QUEUE["prompt"][1] + 1))
+        G = int(rng.integers(QUEUE["max_new"][0], QUEUE["max_new"][1] + 1))
+        out.append(module.Request(i, rng.integers(0, vocab, size=P, dtype=np.int32), max_new=G))
+    return out
+
+
+def _replay(api, cfg, params, prompts, fed, length: int, per_row=False):
+    """Host logits (steps, B, vocab) of the prompts' prefill and of a decode
+    step for each column of ``fed`` (B, steps - 1), fed in turn (teacher
+    forcing), on caches of ``length`` slots (text only: a vlm fed no image
+    has no image slots). With ``per_row`` every token instead goes through
+    per-row decode from an empty per-row cache, the prompt a token at a
+    time (the continuous batcher's path), and the logits of the last
+    prompt token and after are kept."""
+    import torch
+
+    from repro_torch.models import pad_cache
+
+    B, P = prompts.shape
+    V = cfg.vocab_size
+    out = []
+    with torch.no_grad():
+        if per_row:
+            caches = api.init_cache_fn(params, cfg, B, length, torch.float32, per_row=True)
+            seq = torch.cat([prompts, fed], dim=1)
+            for i in range(seq.shape[1]):
+                pos = torch.full((B,), i, dtype=torch.int32, device=prompts.device)
+                logits, caches = api.decode_fn(params, cfg, seq[:, i:i + 1], pos, caches)
+                if i >= P - 1:
+                    out.append(logits[:, 0, :V].cpu())
+            return torch.stack(out)
+        logits, caches = api.prefill_fn(params, cfg, {"tokens": prompts, "labels": prompts})
+        caches = pad_cache(caches, P, P + length)
+        out.append(logits[:, -1, :V].cpu())
+        for i in range(fed.shape[1]):
+            logits, caches = api.decode_fn(params, cfg, fed[:, i:i + 1], P + i, caches)
+            out.append(logits[:, -1, :V].cpu())
+    return torch.stack(out)
+
+
+def _flips(label: str, want_logits, got: list, gap: float) -> list:
+    """Each step where the greedy token of ``want_logits`` (steps, vocab)
+    differs from ``got``: (step, margin = top logit - logit of the token
+    got). A flip passes only where its margin is below ``gap``, the logit
+    difference the phase measured between the two paths."""
+    flips = []
+    for step, tok in enumerate(got):
+        row = want_logits[step]
+        top = int(row.argmax())
+        if top != tok:
+            margin = float(row[top] - row[tok])
+            flips.append((step, margin))
+            print(f"  {label}: token flip at step {step}: {tok} against {top}, margin "
+                  f"{margin:.3g}, measured logit difference {gap:.3g}")
+            if not margin < gap:
+                fail(f"phase 30: {label} token {tok} at step {step} against {top} (margin "
+                     f"{margin} >= {gap})")
+    return flips
+
+
+def _serve_queue(kind: str, arch: str, params, cfg, horizon: int) -> tuple:
+    """QUEUE's requests through ``kind`` (after a two-request warm-up), the
+    launch counts set to 0 just before: (requests, metrics with the
+    launches)."""
+    import repro_torch.launch.queue as queue
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import get_api
+
+    api = get_api(cfg)
+    warm = getattr(queue, kind)(api, cfg, params, slots=QUEUE["slots"], horizon=horizon)
+    for r in _queue_requests(queue, cfg.vocab_size)[:2]:
+        warm.submit(r)
+    warm.run()
+    del warm
+    b = getattr(queue, kind)(api, cfg, params, slots=QUEUE["slots"], horizon=horizon)
+    reqs = _queue_requests(queue, cfg.vocab_size)
+    for r in reqs:
+        b.submit(r)
+    reset_launches()
+    stats = b.run()
+    stats["launches"] = dict(LAUNCHES)
+    if stats["requests"] != len(reqs) or any(len(r.out) != r.max_new for r in reqs):
+        fail(f"phase 30: {kind} {arch} served {stats}")
+    if set(stats["launches"]) != {"rmsnorm"}:
+        fail(f"phase 30: {kind} {arch} launches {stats['launches']}")
+    print(f"{kind} {arch}: {stats['requests']} requests, {stats['tokens']} tokens in "
+          f"{stats['wall_s']:.3f} s: {stats['tok_per_s']:.1f} tok/s, mean latency "
+          f"{stats['mean_latency_s']:.3f} s, mean TTFT {stats['mean_ttft_s']:.3f} s; launches "
+          f"{stats['launches']}")
+    return reqs, stats
+
+
+def _check_waves(arch: str, params, cfg, reqs, horizon: int) -> dict:
+    """Every wave (QUEUE's slots in submission order) equals ``generate``
+    on its left-padded batch (a vlm behind zero image embeddings), token
+    for token up to each request's max_new: the batcher runs the same
+    prefill, ``pad_cache`` and decode calls, so any difference fails."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate, serve_features
+
+    dev = torch.device("cuda")
+    S = QUEUE["slots"]
+    feats = serve_features(prng.PRNGKey(0, device=dev), cfg, S)
+    for w0 in range(0, len(reqs), S):
+        wave = reqs[w0:w0 + S]
+        P = max(len(r.prompt) for r in wave)
+        toks = np.zeros((S, P), np.int64)
+        for i, r in enumerate(wave):
+            toks[i, P - len(r.prompt):] = r.prompt
+        ref = generate(params, cfg, torch.from_numpy(toks).to(dev), horizon, feats).tokens.cpu()
+        for i, r in enumerate(wave):
+            if ref[i, :len(r.out)].tolist() != r.out:
+                fail(f"phase 30: WaveBatcher {arch} request {r.rid} gave {r.out}, generate "
+                     f"{ref[i, :len(r.out)].tolist()}")
+    print(f"  WaveBatcher {arch}: every wave equals generate on its left-padded batch")
+    return {"identical_to_generate": True}
+
+
+def _check_continuous(arch: str, params, cfg, reqs, horizon: int) -> dict:
+    """Every request equals a direct B=1 prefill and decode: the direct
+    path's logits, fed the request's own tokens, must pick each of them;
+    a flip passes only below the logit difference measured between the
+    per-row path (every token through per-row decode) and the direct path
+    on the longest request."""
+    import torch
+
+    from repro_torch.models import get_api
+
+    api = get_api(cfg)
+    dev = torch.device("cuda")
+    direct = {}
+    for r in reqs:
+        prompt = torch.from_numpy(r.prompt.astype("int64"))[None].to(dev)
+        fed = torch.tensor([r.out[:-1]], dtype=torch.int64, device=dev)
+        direct[r.rid] = (prompt, fed, _replay(api, cfg, params, prompt, fed, len(r.out))[:, 0])
+    longest = max(reqs, key=lambda r: len(r.prompt) + len(r.out))
+    prompt, fed, want = direct[longest.rid]
+    per_row = _replay(api, cfg, params, prompt, fed, horizon, per_row=True)[:, 0]
+    gap = float((per_row - want).abs().max())
+    flips = []
+    for r in reqs:
+        flips += _flips(f"ContinuousBatcher {arch} request {r.rid}", direct[r.rid][2], r.out, gap)
+    print(f"  ContinuousBatcher {arch}: every request against a direct B=1 prefill and decode "
+          f"fed its tokens: {len(flips)} token flips; max |logits per-row path - direct path| "
+          f"{gap:.3g} on request {longest.rid} ({len(longest.prompt)} + {len(longest.out)} "
+          f"tokens)")
+    return {"flips": flips, "logit_gap": gap}
+
+
+def phase_queue(line: str):
+    """Phase 30: the serving queue at full width."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    print("== phase 30: the serving queue (launch/queue.py) at full width on the card")
+    print(f"card: {line}")
+    wave_h = QUEUE["max_new"][1]
+    cont_h = QUEUE["prompt"][1] + QUEUE["max_new"][1]
+    out = {}
+    for arch in dict.fromkeys(QUEUE_WAVE + QUEUE_CONTINUOUS):
+        cfg = get_config(arch)
+        params, rec = _init_family(arch, cfg)
+        out[arch] = {"params": rec["params"]}
+        for kind, archs, horizon, check in (
+                ("WaveBatcher", QUEUE_WAVE, wave_h, _check_waves),
+                ("ContinuousBatcher", QUEUE_CONTINUOUS, cont_h, _check_continuous)):
+            if arch not in archs:
+                continue
+            reqs, stats = _serve_queue(kind, arch, params, cfg, horizon)
+            out[arch][kind] = {**stats, "horizon": horizon,
+                               **check(arch, params, cfg, reqs, horizon)}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import os
 
@@ -3532,6 +3992,9 @@ def main() -> int:
     mla_served, mla_loss = phase_mla(line)
     audio_served, audio_loss = phase_audio(line)
     mla_audio, mla_audio_checked, mla_audio_timed = phase_mla_audio_train(line)
+    vlm_served, vlm_loss = phase_vlm(line)
+    vlm_train, vlm_checked, vlm_timed = phase_vlm_train(line)
+    queue = phase_queue(line)
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -3557,10 +4020,14 @@ def main() -> int:
         # (at its 811.9 M params) and of the tiny deepseek/whisper mix
         "launches_mla_audio_sync": mla_audio["launches"]["fedavg"],
         "launches_mla_audio_tiny_sync": mla_audio["tiny_sync_launches"]["fedavg"],
+        # phase 29: one per non-empty fold of phi-3's tau 2 run (4 layers)
+        # and of the tiny phi-3/smollm pair's
+        "launches_phi3_sync": vlm_train["fold"]["launches"]["fedavg"],
+        "launches_phi3_tiny_sync": vlm_train["tiny_sync_launches"]["fedavg"],
         "max_abs_err": max(errs["float32"], sync_checked["fedavg"], async_checked["fedavg"],
                            arch_sync_checked["fedavg"], pop_checked["fedavg"],
                            families_checked["fedavg"], tiny_checked["fedavg"],
-                           mla_audio_checked["fedavg"]),
+                           mla_audio_checked["fedavg"], vlm_checked["fedavg"]),
         "max_abs_err_bf16": errs["bfloat16"],
         # phases 16-18, 20 and 24: the (K, N) folds those runs made, each
         # held against ref_fedavg after the runs
@@ -3569,7 +4036,8 @@ def main() -> int:
                                + pop_checked["fedavg_shapes"]
                                + families_checked["fedavg_shapes"]
                                + tiny_checked["fedavg_shapes"]
-                               + mla_audio_checked["fedavg_shapes"]),
+                               + mla_audio_checked["fedavg_shapes"]
+                               + vlm_checked["fedavg_shapes"]),
         "shape": list(TIMED_MAIN),
         "dtype": "float32",
         **timed[TIMED_MAIN],
@@ -3578,6 +4046,7 @@ def main() -> int:
         "arch_sync_folds": arch_sync_timed,
         "families_sync_folds": families_timed,
         "mla_audio_folds": [r for r in mla_audio_timed if r["kernel"] == "fedavg"],
+        "phi3_folds": [r for r in vlm_timed if r["kernel"] == "fedavg"],
     }
     fused = {
         "name": "fused_aggregate",
@@ -3599,12 +4068,18 @@ def main() -> int:
         # the tiny deepseek/whisper mix's
         "launches_whisper_async": mla_audio["async"]["launches"]["fused_aggregate"],
         "launches_mla_audio_tiny_async": mla_audio["tiny_async_launches"]["fused_aggregate"],
+        # phase 29: one per flush of phi-3's async fedadam run (4 layers) and
+        # of the tiny phi-3/smollm pair's
+        "launches_phi3_async": vlm_train["async"]["launches"]["fused_aggregate"],
+        "launches_phi3_tiny_async": vlm_train["tiny_async_launches"]["fused_aggregate"],
         "max_abs_err": max(f_err, async_checked["fused_aggregate"],
                            arch_async_checked["fused_aggregate"], pop_checked["fused_aggregate"],
-                           tiny_checked["fused_aggregate"], mla_audio_checked["fused_aggregate"]),
+                           tiny_checked["fused_aggregate"], mla_audio_checked["fused_aggregate"],
+                           vlm_checked["fused_aggregate"]),
         "run_shapes_checked": (async_checked["fused_shapes"] + arch_async_checked["fused_shapes"]
                                + pop_checked["fused_shapes"] + tiny_checked["fused_shapes"]
-                               + mla_audio_checked["fused_shapes"]),
+                               + mla_audio_checked["fused_shapes"]
+                               + vlm_checked["fused_shapes"]),
         "yogi_ties": f_ties,
         "mode": "fedadam",
         "shape": list(FUSED_TIMED),
@@ -3619,6 +4094,7 @@ def main() -> int:
         "lm_scale": {"shape": [LM_K, LM_N], "reduce_only_ms": f_lm_reduce, **f_lm},
         "arch_async_flushes": arch_async_timed,
         "whisper_async_flushes": [r for r in mla_audio_timed if r["kernel"] == "fused_aggregate"],
+        "phi3_async_flushes": [r for r in vlm_timed if r["kernel"] == "fused_aggregate"],
     }
     flash = {
         "name": "flash_attention",
@@ -3628,6 +4104,8 @@ def main() -> int:
         "launches": loss["launches"]["flash_attention"],
         "launches_zamba2_loss": hloss["launches"]["flash_attention"],
         "launches_qwen2_moe_loss": moe_loss["launches"]["flash_attention"],
+        # phase 28: phi-3-vision's use_pallas loss, hd 96, one per layer
+        "launches_phi3_loss": vlm_loss["launches"]["flash_attention"],
         "max_abs_err": flash_errs["float32"],
         "max_abs_err_bf16": flash_errs["bfloat16"],
         "shape": list(FLASH_SHAPES[0]),
@@ -3639,6 +4117,8 @@ def main() -> int:
                          "bf16": flash_timed[FLASH_ZAMBA, "bfloat16"]},
         "qwen2_moe_hd128": {"shape": list(FLASH_MOE), "float32": flash_timed[FLASH_MOE, "float32"],
                             "bf16": flash_timed[FLASH_MOE, "bfloat16"]},
+        "phi3_hd96": {"shape": list(FLASH_VLM), "float32": flash_timed[FLASH_VLM, "float32"],
+                      "bf16": flash_timed[FLASH_VLM, "bfloat16"]},
     }
     rms = {
         "name": "rmsnorm",
@@ -3673,6 +4153,18 @@ def main() -> int:
         "launches_deepseek_serve_absorb": mla_served["serve_absorb"]["launches"]["rmsnorm"],
         "launches_deepseek_loss": mla_loss["launches"]["rmsnorm"],
         "launches_mla_audio_sync": mla_audio["launches"]["rmsnorm"],
+        # phases 28-30: phi-3-vision serving (per prefill and per decode
+        # step) and its loss, 65 a forward; its three training runs; the
+        # queue's timed runs
+        "launches_phi3_serve": vlm_served["launches"]["rmsnorm"],
+        "launches_phi3_loss": vlm_loss["launches"]["rmsnorm"],
+        "launches_phi3_train": {k: vlm_train[k]["launches"]["rmsnorm"]
+                                for k in ("adamw", "fold", "async")},
+        "launches_phi3_per_training_step": {k: vlm_train[k]["rmsnorm_per_training_step"]
+                                            for k in ("adamw", "fold")},
+        "launches_queue": {f"{kind} {arch}": r["launches"]["rmsnorm"]
+                           for arch, by in queue.items() for kind, r in by.items()
+                           if kind != "params"},
         **norm,
     }
     gated_rec = {
@@ -3705,6 +4197,8 @@ def main() -> int:
     print(json.dumps({"deepseek_v2_lite": mla_served, "deepseek_v2_lite_loss": mla_loss,
                       "whisper_medium": audio_served, "whisper_medium_loss": audio_loss,
                       "mla_audio_train": mla_audio}))
+    print(json.dumps({"phi3_vision": vlm_served, "phi3_vision_loss": vlm_loss,
+                      "phi3_vision_train": vlm_train, "queue": queue}))
     print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

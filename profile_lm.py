@@ -2,7 +2,7 @@
 """Where the port's LM forward spends its time, on one NVIDIA GPU.
 
     python3 profile_lm.py [--arch smollm-135m|zamba2-7b|qwen2-moe-a2.7b|xlstm-1.3b|
-                           deepseek-v2-lite-16b] [--train]
+                           deepseek-v2-lite-16b|phi-3-vision-4.2b] [--train]
 
 Runs the LM configurations of ``chip_smoke.py`` for one arch, at full
 width from PRNGKey(0): serving (batch 8, prompt 128, 32 greedy tokens
@@ -12,7 +12,10 @@ at full depth, serving with ``use_pallas`` too (chunk 64), its loss at
 B=1, S=2048; qwen2-moe-a2.7b, xlstm-1.3b and deepseek-v2-lite-16b at full
 depth (xlstm serving at chunk 64), their losses at B=1, S=2048 (xlstm's at
 chunk 256; for xlstm and deepseek ``use_pallas`` changes nothing: the JAX
-package sends none of their work to a kernel but the norms). Each runs
+package sends none of their work to a kernel but the norms);
+phi-3-vision-4.2b at full depth, serving behind 256 zero image embeddings
+and its loss at B=1, S=2048 (256 image embeddings, 0.02 * normal, and
+1,792 text tokens; 32 flash_attention launches at hd 96). Each runs
 once to warm up, then under ``torch.profiler`` with CPU and CUDA
 activities (``profile_kernels.profile_calls``: serving
 once and the loss ``LOSS_CALLS`` times, between traced calls that are
@@ -143,12 +146,12 @@ def main(argv=None) -> int:
 
     from chip_smoke import (HYBRID_ARCH, HYBRID_LOSS_B, HYBRID_LOSS_S, LM_ARCH, LOSS_B, LOSS_S,
                             MLA_ARCH, MLA_LOSS_B, MLA_LOSS_S, MOE_ARCH, MOE_LOSS_B, MOE_LOSS_S,
-                            SERVE_BATCH, SERVE_GEN, SERVE_PROMPT, XLSTM_ARCH, XLSTM_LOSS_B,
-                            XLSTM_LOSS_S, card_line)
+                            SERVE_BATCH, SERVE_GEN, SERVE_PROMPT, VLM_ARCH, VLM_LOSS_B,
+                            VLM_LOSS_S, XLSTM_ARCH, XLSTM_LOSS_B, XLSTM_LOSS_S, card_line)
 
     loss_shapes = {LM_ARCH: (LOSS_B, LOSS_S), HYBRID_ARCH: (HYBRID_LOSS_B, HYBRID_LOSS_S),
                    MOE_ARCH: (MOE_LOSS_B, MOE_LOSS_S), XLSTM_ARCH: (XLSTM_LOSS_B, XLSTM_LOSS_S),
-                   MLA_ARCH: (MLA_LOSS_B, MLA_LOSS_S)}
+                   MLA_ARCH: (MLA_LOSS_B, MLA_LOSS_S), VLM_ARCH: (VLM_LOSS_B, VLM_LOSS_S)}
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(loss_shapes), default=LM_ARCH)
     ap.add_argument("--train", action="store_true",
@@ -170,7 +173,8 @@ def main(argv=None) -> int:
         return 0
     from repro_torch import prng
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import decode, generate, prefill, serve_config
+    from repro_torch.launch.serve import (decode, generate, image_offset, prefill, serve_config,
+                                          serve_features)
     from repro_torch.models import get_api
 
     print(f"card: {card_line()}")
@@ -186,15 +190,18 @@ def main(argv=None) -> int:
     params = api.init_params(prng.PRNGKey(0), cfg, device=dev)
     prompts = prng.randint(prng.PRNGKey(0, device=dev), (SERVE_BATCH, SERVE_PROMPT), 0,
                            cfg.vocab_size)
+    # a vlm's zero image embeddings, as the serve launcher makes them
+    features = serve_features(prng.PRNGKey(0, device=dev), cfg, SERVE_BATCH)
+    off = image_offset(cfg, features)
     failed = []
 
     def serve():
         """``generate``'s work without its host clocks (which synchronise)."""
-        tok, caches = prefill(params, serve_cfg, prompts, SERVE_GEN)
-        decode(params, serve_cfg, tok, caches, SERVE_PROMPT, SERVE_GEN - 1)
+        tok, caches = prefill(params, serve_cfg, prompts, SERVE_GEN, features)
+        decode(params, serve_cfg, tok, caches, SERVE_PROMPT + off, SERVE_GEN - 1)
 
-    generate(params, serve_cfg, prompts, 2)                     # warm-up
-    gen = generate(params, serve_cfg, prompts, SERVE_GEN)      # host timings
+    generate(params, serve_cfg, prompts, 2, features)           # warm-up
+    gen = generate(params, serve_cfg, prompts, SERVE_GEN, features)  # host timings
     steps = SERVE_GEN - 1
     rec = checked(f"serve {arch} batch {SERVE_BATCH} prompt {SERVE_PROMPT} gen {SERVE_GEN}",
                   serve, failed)
@@ -202,8 +209,13 @@ def main(argv=None) -> int:
     print(f"  generate outside the profiler: prefill {rec['prefill_ms']:.2f} ms; decode "
           f"{rec['decode_ms_per_step']:.3f} ms per step (host clock)")
     pallas = cfg.replace(use_pallas=True)
-    tokens = prng.randint(prng.PRNGKey(1, device=dev), (loss_b, loss_s), 0, cfg.vocab_size)
+    # a vlm's loss_s counts its image slots: 0.02 * normal embeddings, then text
+    tokens = prng.randint(prng.PRNGKey(1, device=dev), (loss_b, loss_s - off), 0,
+                          cfg.vocab_size)
     batch = {"tokens": tokens, "labels": tokens}
+    if off:
+        batch["img_embeds"] = prng.normal(prng.PRNGKey(1, device=dev),
+                                          (loss_b, off, cfg.d_model)).mul_(0.02)
     with torch.no_grad():
         api.loss_fn(params, pallas, batch)                      # warm-up
         loss = checked(f"loss {arch} B={loss_b} S={loss_s} use_pallas",

@@ -362,8 +362,9 @@ class SyntheticFamily:
 class ArchFamily:
     """Production LM architectures (``launch.train``): per-arch train steps
     on synthetic non-iid token shards. TaskSpec options: ``preset``,
-    ``seq``, ``batch``, ``tau``, ``local_lr``, ``shards``. The arch types
-    the port does not run yet are refused by name when a task is built."""
+    ``seq``, ``batch``, ``tau``, ``local_lr``, ``shards``. Every arch of
+    the config registry runs; an arch type the JAX package does not have
+    is refused when a task is built."""
 
     def build_tasks(self, spec: ScenarioSpec, device=None):
         tasks, data = {}, {}

@@ -1,7 +1,6 @@
-"""Config registry of the port: importing this package registers the
-archs it runs (the dense ones, qwen2-moe, deepseek-v2-lite, the zamba2
-hybrid, xlstm and whisper). phi-3-vision comes with the vlm family
-(ROADMAP queue 1 item 10)."""
+"""Config registry of the port: importing this package registers every
+arch of the JAX package (the dense ones, qwen2-moe, deepseek-v2-lite, the
+zamba2 hybrid, xlstm, whisper and phi-3-vision)."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     InputShape,
@@ -12,6 +11,7 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 from repro_torch.configs import (  # noqa: F401
     deepseek_v2_lite_16b,
+    phi3_vision_4_2b,
     qwen1_5_0_5b,
     qwen1_5_110b,
     qwen2_moe_a2_7b,

@@ -2,8 +2,9 @@
 
 ``ModelConfig`` is a frozen dataclass with the JAX package's fields and
 defaults, so a config built on either side describes the same model; the
-port runs every arch type but ``vlm`` (``models.get_api`` refuses it). The registry maps ``--arch <id>`` to a config factory; ``smoke_config`` gives
-the reduced variant of the same family that the CPU tests run.
+port runs every arch type of the JAX package. The registry maps ``--arch
+<id>`` to a config factory; ``smoke_config`` gives the reduced variant of
+the same family that the CPU tests run.
 """
 
 from __future__ import annotations
@@ -131,17 +132,7 @@ def register(name: str):
     return deco
 
 
-# archs of the JAX package that come with the families the port has not
-# ported yet, with the ROADMAP queue 1 item that brings each
-UNPORTED_ARCHS = {
-    "phi-3-vision-4.2b": "item 10 (vlm)",
-}
-
-
 def get_config(name: str) -> ModelConfig:
-    if name in UNPORTED_ARCHS:
-        raise NotImplementedError(f"arch {name!r} is not ported to repro_torch yet "
-                                  f"(ROADMAP.md queue 1, {UNPORTED_ARCHS[name]})")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
@@ -157,9 +148,8 @@ def smoke_config(name: str) -> ModelConfig:
     shared expert and one first dense layer; an MLA latent of 32 with
     nope/rope/v heads of 32/16/32; an SSM state of 16 with heads of 16 and
     chunks of 8, a shared attention every 2 layers with LoRA rank 8, an
-    sLSTM every 2 layers, and 2 encoder layers over 16 frames, as the JAX
-    package reduces them. Its vlm reduction comes with that family
-    (ROADMAP queue 1 item 10)."""
+    sLSTM every 2 layers, 2 encoder layers over 16 frames and 8 image
+    tokens, as the JAX package reduces them."""
     cfg = get_config(name)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -190,4 +180,6 @@ def smoke_config(name: str) -> ModelConfig:
         kw.update(slstm_every=2)
     if cfg.n_enc_layers:
         kw.update(n_enc_layers=2, enc_frames=16)
+    if cfg.n_img_tokens:
+        kw.update(n_img_tokens=8)
     return cfg.replace(**kw)

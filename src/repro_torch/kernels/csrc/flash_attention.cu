@@ -13,8 +13,8 @@
 // probabilities are rounded to v's dtype before the PV product, whose sums
 // are f32; the running denominator l sums the unrounded probabilities; the
 // output is acc / max(l, 1e-30) in q's dtype.
-// q, k, v share one dtype (f32 or bf16); hd is 16, 32, 64, 112 (zamba2-7b's
-// 3584 / 32) or 128; Sq and Sk are any length.
+// q, k, v share one dtype (f32 or bf16); hd is 16, 32, 64, 96 (phi-3-vision's
+// 3072 / 32), 112 (zamba2-7b's 3584 / 32) or 128; Sq and Sk are any length.
 //
 // Bound on this card: operations, 4 hd flops per (query, key) pair that the
 // mask keeps. bf16 runs at the tensor cores' 989 TFLOP/s. f32 must keep f32
@@ -431,6 +431,7 @@ int launch(const Args& a, int B, int hd, bool causal, cudaStream_t s) {
     case 16: return causal ? launch_one<T, 16, true>(a, B, s) : launch_one<T, 16, false>(a, B, s);
     case 32: return causal ? launch_one<T, 32, true>(a, B, s) : launch_one<T, 32, false>(a, B, s);
     case 64: return causal ? launch_one<T, 64, true>(a, B, s) : launch_one<T, 64, false>(a, B, s);
+    case 96: return causal ? launch_one<T, 96, true>(a, B, s) : launch_one<T, 96, false>(a, B, s);
     case 112:
       return causal ? launch_one<T, 112, true>(a, B, s) : launch_one<T, 112, false>(a, B, s);
     case 128:
@@ -446,7 +447,7 @@ extern "C" {
 // q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o (B, H, Sq, hd), each given by
 // its base pointer and element strides of batch, head and sequence (the last
 // axis contiguous; every row 16-byte aligned). dtype 0 = float32,
-// 1 = bfloat16; hd in {16, 32, 64, 112, 128}; scale is hd^-0.5 rounded to
+// 1 = bfloat16; hd in {16, 32, 64, 96, 112, 128}; scale is hd^-0.5 rounded to
 // f32 by the caller.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            long long q_sb, long long q_sh, long long q_ss,

@@ -26,7 +26,7 @@ from repro_torch.kernels.rmsnorm import NO_BACKWARD
 
 # dtype codes of csrc/flash_attention.cu::flash_attention_launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int]
 

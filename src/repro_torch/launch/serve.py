@@ -6,7 +6,10 @@ greedy sampling, as the JAX package's ``launch/serve.py`` does. The model is
 drawn from ``--seed`` through ``repro_torch.prng`` (the JAX package's model
 for the same seed) and the prompts from the same key, as there; for an
 audio model (whisper) also the stub frame embeddings, ``0.02 * normal``
-(B, enc_frames, d_model) from that key.
+(B, enc_frames, d_model) from that key, and for a vlm (phi-3-vision)
+image embeddings of zeros (B, n_img_tokens, d_model) ahead of the prompt,
+whose positions shift the caches and the decode positions by
+``n_img_tokens``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --preset tiny --device cpu
@@ -41,11 +44,22 @@ class Generation:
 def serve_features(key, cfg, batch: int) -> dict:
     """The model inputs besides the prompts that ``main`` makes from its
     key: an audio model's stub frames ``0.02 * normal(key, (B, enc_frames,
-    d_model))``, as the JAX package's serve launcher draws them; none for
-    the other families."""
+    d_model))`` and a vlm's image embeddings, zeros (B, n_img_tokens,
+    d_model) in f32, as the JAX package's serve launcher makes them; none
+    for the other families."""
+    if cfg.arch_type == "vlm":
+        return {"img_embeds": torch.zeros(batch, cfg.n_img_tokens, cfg.d_model,
+                                          device=key.device)}
     if cfg.arch_type != "audio":
         return {}
     return {"frames": prng.normal(key, (batch, cfg.enc_frames, cfg.d_model)).mul_(0.02)}
+
+
+def image_offset(cfg, features) -> int:
+    """Positions ahead of the prompt: ``cfg.n_img_tokens`` where
+    ``features`` hold image embeddings (which ``embed_inputs`` then puts
+    ahead of the text), else 0."""
+    return cfg.n_img_tokens if cfg.n_img_tokens and "img_embeds" in (features or {}) else 0
 
 
 def serve_config(cfg, prompt_len: int):
@@ -63,14 +77,15 @@ def _clock(device: torch.device) -> float:
 @torch.no_grad()
 def prefill(params, cfg, prompts: torch.Tensor, gen: int, features=None):
     """Prefill ``prompts`` (B, P), with ``features`` (the model inputs
-    besides the tokens: whisper's ``frames``) where given, and grow the
-    caches to P + ``gen`` slots. Returns the first greedy token (B, 1) and
-    the caches."""
+    besides the tokens: whisper's ``frames``, a vlm's ``img_embeds``) where
+    given, and grow the caches from P + off to P + off + ``gen`` slots (off
+    = ``image_offset(cfg, features)``). Returns the first greedy token (B, 1)
+    and the caches."""
     api = get_api(cfg)
-    P = prompts.shape[1]
+    P, off = prompts.shape[1], image_offset(cfg, features)
     logits, caches = api.prefill_fn(params, cfg,
                                     {"tokens": prompts, "labels": prompts, **(features or {})})
-    caches = pad_cache(caches, P, P + gen)
+    caches = pad_cache(caches, P + off, P + off + gen)
     return torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1), caches
 
 
@@ -90,13 +105,14 @@ def decode(params, cfg, tok: torch.Tensor, caches, start: int, steps: int) -> li
 
 def generate(params, cfg, prompts: torch.Tensor, gen: int, features=None) -> Generation:
     """Prefill ``prompts`` (B, P) (with ``features``, as ``prefill`` takes
-    them) and decode ``gen`` greedy tokens in all, on the device the params
-    and prompts lie on."""
+    them) and decode ``gen`` greedy tokens in all, the first at position
+    P + ``image_offset(cfg, features)``, on the device the params and
+    prompts lie on."""
     P = prompts.shape[1]
     t0 = _clock(prompts.device)
     tok, caches = prefill(params, cfg, prompts, gen, features)
     t1 = _clock(prompts.device)
-    out = [tok] + decode(params, cfg, tok, caches, P, gen - 1)
+    out = [tok] + decode(params, cfg, tok, caches, P + image_offset(cfg, features), gen - 1)
     t2 = _clock(prompts.device)
     return Generation(torch.cat(out, dim=1), t1 - t0, t2 - t1)
 

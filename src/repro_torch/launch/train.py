@@ -61,16 +61,32 @@ def make_dataset(key, cfg, n_clients, shards_per_client, seq, seed=0):
 
 
 def arch_features(cfg, toks):
-    """Model-input dict from token rows, on any leading batch shape: an
-    audio model's frames are zeros (B..., enc_frames, d_model), as in the
-    reference. The vlm family (image embeddings) is refused by name until
-    it is ported."""
+    """Model-input dict from token rows, on any leading batch shape, as in
+    the reference: a vlm's image embeddings are zeros (B..., n_img_tokens,
+    d_model) and its tokens and labels ``toks[..., :seq - n_img_tokens]``
+    (see ``_image_inputs``); an audio model's frames are zeros (B...,
+    enc_frames, d_model)."""
     check_ported(cfg)
     batch = {"tokens": toks, "labels": toks}
+    if cfg.arch_type == "vlm":
+        batch.update(_image_inputs(cfg, toks))
     if cfg.arch_type == "audio":
         batch["frames"] = torch.zeros(*toks.shape[:-1], cfg.enc_frames, cfg.d_model,
                                       device=toks.device)
     return batch
+
+
+def _image_inputs(cfg, toks) -> dict:
+    """A vlm's zero image embeddings and its text, sliced as the reference
+    slices it: ``toks[..., :seq - n_img_tokens]``. That is seq -
+    n_img_tokens tokens for seq > n_img_tokens, and none (a loss of 0) at
+    seq == n_img_tokens or seq <= n_img_tokens / 2. In between the slice
+    end is negative and keeps 2 * seq - n_img_tokens tokens, so the model
+    sees 2 * seq positions, more than seq."""
+    text = toks[..., :toks.shape[-1] - cfg.n_img_tokens]
+    return {"img_embeds": torch.zeros(*toks.shape[:-1], cfg.n_img_tokens, cfg.d_model,
+                                      device=toks.device),
+            "tokens": text, "labels": text}
 
 
 def _tokens(toks: np.ndarray, device) -> torch.Tensor:
@@ -211,9 +227,10 @@ def assemble_batch(task, data, client_ids, weights, rng):
     """The task's batch for one round: ``batch`` rows tiled over the
     selected clients, one random shard each (numpy draws in the
     reference's order), with the p_k weights per row normalised into
-    ``client_weights``; an audio model's frames ``0.02 * standard_normal``
-    (B, enc_frames, d_model) in f32, drawn after the shards from the same
-    generator, as in the reference."""
+    ``client_weights``; a vlm's zero image embeddings and text, as
+    ``arch_features`` makes them; an audio model's frames ``0.02 *
+    standard_normal`` (B, enc_frames, d_model) in f32, drawn after the
+    shards from the same generator, as in the reference."""
     cfg = task["cfg"]
     B, seq = task["batch"], task["seq"]
     reps = int(np.ceil(B / max(len(client_ids), 1)))
@@ -226,6 +243,8 @@ def assemble_batch(task, data, client_ids, weights, rng):
     batch = {"tokens": toks, "labels": toks}
     batch["client_weights"] = torch.from_numpy(
         np.asarray(w_rows, np.float32)).to(task["device"])
+    if cfg.arch_type == "vlm":
+        batch.update(_image_inputs(cfg, toks))
     if cfg.arch_type == "audio":
         frames = rng.standard_normal((B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
         batch["frames"] = torch.from_numpy(frames * np.float32(0.02)).to(task["device"])

@@ -11,14 +11,17 @@ The cache is a dict ``{"k", "v", "positions"}`` of length W. Slots roll
 (slot = pos % W), so W == cfg.sliding_window gives the window by
 overwrite. Keys are stored RoPE'd at their absolute positions.
 ``attn_decode`` writes the new slot into the cache it is given, in place.
+A per-row cache (``init_cache(per_row=True)``, positions (B, W)) lets
+each row decode at its own position (continuous batching,
+``launch/queue.py``); its attention is ``_sdpa_decode_perrow``.
 
 ``attn_train`` runs the ``flash_attention`` kernel when ``cfg.use_pallas``
 is set and S % 128 == 0, the JAX package's gate; otherwise, and in prefill
 and decode, the model's own chunked softmax attention ``_sdpa_chunked``.
 MLA (q/k heads of nope + rope width, a compressed latent cache
 ``{"c_kv", "k_rope", "positions"}``) and cross-attention (no mask, no
-RoPE) always take ``_sdpa_chunked``, as in the JAX package. Per-row
-(continuous-batching) decode is ROADMAP queue 1 item 13.
+RoPE) always take ``_sdpa_chunked``, as in the JAX package. An MLA cache
+has no per-row form, as there.
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, dtype_of, normal, rms_norm
 
 Q_CHUNK = 512
-PER_ROW_DECODE = ("per-row (continuous-batching) decode is not ported yet "
-                  "(launch/queue.py, ROADMAP queue 1 item 13)")
+PER_ROW_MLA = "per-row decode: GQA caches only"
 
 
 def _bias(y, p, name):
@@ -155,26 +157,56 @@ def attn_prefill(p, cfg, x, positions, lora=None):
 
 
 def init_cache(cfg, batch, length, dtype, device, per_row=False):
-    """An empty cache of ``length`` slots (positions -1 = empty)."""
-    if per_row:
-        raise NotImplementedError(PER_ROW_DECODE)
+    """An empty cache of ``length`` slots (positions -1 = empty); with
+    ``per_row`` the positions are (batch, length), one row per batch row."""
     shape = (batch, length, cfg.n_kv_heads, cfg.hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "positions": torch.full((length,), -1, dtype=torch.int32, device=device),
+        "positions": torch.full((batch, length) if per_row else (length,), -1,
+                                dtype=torch.int32, device=device),
     }
 
 
+def _sdpa_decode_perrow(q, k, v, q_pos, k_pos, scale, window=0):
+    """Per-row decode attention: q (B, 1, H, hd), k/v (B, W, KV, hd), q_pos
+    (B,), k_pos (B, W). f32 scores and PV sums; slot j of row b is kept
+    where 0 <= k_pos[b, j] <= q_pos[b] (and inside the window), else its
+    score is -1e30; the probabilities are rounded to v's dtype."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    qr = q.reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qr.to(torch.float32), k.to(torch.float32)) * scale
+    mask = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window:
+        mask = mask & (k_pos > q_pos[:, None] - window)
+    s = s.masked_fill(~mask[:, None, None, None, :], -1e30)
+    p_attn = torch.softmax(s, dim=-1).to(v.dtype).to(torch.float32)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p_attn, v.to(torch.float32))
+    return o.to(q.dtype).reshape(B, 1, H, v.shape[-1])
+
+
 def attn_decode(p, cfg, x, pos, cache, lora=None):
-    """x: (B, 1, d); pos: the absolute position (int) shared by every row.
-    Writes slot ``pos % W`` of ``cache`` in place and returns it."""
-    if cache["positions"].ndim == 2:
-        raise NotImplementedError(PER_ROW_DECODE)
+    """x: (B, 1, d); pos: the absolute position (int) shared by every row,
+    or a (B,) int tensor of each row's own for a per-row cache. Writes slot
+    ``pos % W`` (of each row) of ``cache`` in place and returns it."""
     B = x.shape[0]
     W = cache["k"].shape[1]
-    pos = int(pos)
     q, k, v = _project_qkv(p, cfg, x, lora)
+    if cache["positions"].ndim == 2:
+        # per row: the slots are written by index on the device, no host read
+        posv = torch.as_tensor(pos, device=x.device).to(torch.int32).reshape(B, 1)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
+        rows = torch.arange(B, device=x.device)
+        slots = (posv[:, 0] % W).long()
+        cache["k"][rows, slots] = k[:, 0]
+        cache["v"][rows, slots] = v[:, 0]
+        cache["positions"][rows, slots] = posv[:, 0]
+        o = _sdpa_decode_perrow(q, cache["k"], cache["v"], posv[:, 0], cache["positions"],
+                                cfg.hd ** -0.5, window=cfg.sliding_window)
+        return _bias(o.reshape(B, 1, -1) @ p["wo"], p, "bo"), cache
+    pos = int(pos)
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
@@ -281,9 +313,10 @@ def mla_prefill(p, cfg, x, positions):
 
 
 def init_mla_cache(cfg, batch, length, dtype, device, per_row=False):
-    """An empty compressed cache of ``length`` slots (positions -1 = empty)."""
+    """An empty compressed cache of ``length`` slots (positions -1 = empty);
+    ``per_row`` is refused, as in the JAX package."""
     if per_row:
-        raise NotImplementedError(PER_ROW_DECODE)
+        raise NotImplementedError(PER_ROW_MLA)
     return {
         "c_kv": torch.zeros(batch, length, cfg.kv_lora_rank, dtype=dtype, device=device),
         "k_rope": torch.zeros(batch, length, cfg.qk_rope_head_dim, dtype=dtype, device=device),
@@ -306,7 +339,7 @@ def mla_decode(p, cfg, x, pos, cache, absorb=False):
     decode touches only the (r + dr)-wide latents; its four products in
     f32, each cast back as the JAX package casts it."""
     if cache["positions"].ndim == 2:
-        raise NotImplementedError(PER_ROW_DECODE)
+        raise NotImplementedError(PER_ROW_MLA)
     B = x.shape[0]
     W = cache["c_kv"].shape[1]
     pos = int(pos)

@@ -1,5 +1,5 @@
-"""Unified model API: the dense, MoE and MLA LMs, the zamba2 hybrid, the
-xLSTM LM and the whisper encoder-decoder expose the JAX package's five
+"""Unified model API: the dense, MoE, MLA and vlm LMs, the zamba2 hybrid,
+the xLSTM LM and the whisper encoder-decoder expose the JAX package's five
 functions.
 
     init_params(key, cfg, device=None)          -> params
@@ -8,8 +8,10 @@ functions.
     init_cache_fn(params, cfg, B, length, dt)   -> caches
     decode_fn(params, cfg, token, pos, caches)  -> (logits, caches)
 
-batch is a dict: tokens/labels (+ frames for audio, client_weights for
-MMFL p_k aggregation). ``decode_fn`` writes into the caches it is given.
+batch is a dict: tokens/labels (+ frames for audio, img_embeds for vlm,
+client_weights for MMFL p_k aggregation). ``decode_fn`` writes into the
+caches it is given; ``init_cache_fn(..., per_row=True)`` gives a dense or
+vlm LM caches whose rows decode at their own positions.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ _LM_API = ModelApi(transformer.init_lm, transformer.lm_loss, transformer.lm_pref
 _APIS = {
     "dense": _LM_API,
     "moe": _LM_API,
+    "vlm": _LM_API,
     "hybrid": ModelApi(hybrid.init_hybrid, hybrid.hybrid_loss, hybrid.hybrid_prefill,
                        hybrid.init_hybrid_cache, hybrid.hybrid_decode),
     "ssm": ModelApi(xlstm_lm.init_xlstm_lm, xlstm_lm.xlstm_loss, xlstm_lm.xlstm_prefill,
@@ -47,7 +50,7 @@ _APIS = {
 
 
 def get_api(cfg) -> ModelApi:
-    """The API of ``cfg``'s arch type; every one but ``vlm`` is ported."""
+    """The API of ``cfg``'s arch type (every arch type of the JAX package)."""
     transformer.check_ported(cfg)
     return _APIS[cfg.arch_type]
 

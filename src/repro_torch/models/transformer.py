@@ -9,9 +9,10 @@ load-balance losses in layer order as the scan does. Its sharding
 constraints have no counterpart on one GPU (multi-GPU is ROADMAP queue 1
 item 14). With ``cfg.use_mla`` (deepseek-v2-lite) every layer's attention
 is MLA (``attention.mla_*``; decode absorbed under ``cfg.mla_absorb``).
-The vlm family is refused by name; the hybrid (``hybrid.py``), xLSTM
-(``xlstm_lm.py``) and encoder-decoder (``encdec.py``) families have their
-own assemblies.
+The vlm family (phi-3-vision) is this dense LM with ``n_img_tokens``
+image embeddings ahead of the text, which carry no loss. The hybrid
+(``hybrid.py``), xLSTM (``xlstm_lm.py``) and encoder-decoder
+(``encdec.py``) families have their own assemblies.
 """
 
 from __future__ import annotations
@@ -27,25 +28,18 @@ from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embe
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map, unstack
 
-PORTED_ARCHS = ("dense", "moe", "hybrid", "ssm", "audio")
+PORTED_ARCHS = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 # weight of the MoE load-balance loss in ``lm_loss`` (the JAX package's default)
 AUX_WEIGHT = 0.01
-# arch types of the JAX package that the port does not run yet, with the
-# ROADMAP queue 1 item that brings each
-UNPORTED_ARCHS = {
-    "vlm": "the vlm family (phi3-vision) is ROADMAP queue 1 item 10",
-}
 STACKS = ("dense", "moe")
 
 
 def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run."""
+    """Raise ``NotImplementedError`` for an arch type the JAX package does
+    not have."""
     if cfg.arch_type not in PORTED_ARCHS:
-        why = UNPORTED_ARCHS.get(cfg.arch_type, "it is not an arch type of the JAX package")
-        raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported: {why}")
-    if cfg.n_img_tokens:
-        raise NotImplementedError(f"{cfg.name}: image tokens (vlm) are not ported yet "
-                                  "(ROADMAP queue 1 item 10)")
+        raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported: it is not an "
+                                  "arch type of the JAX package")
 
 
 # ----------------------------------------------------------------- init
@@ -153,10 +147,13 @@ def lm_logits(params, cfg, x):
 # ----------------------------------------------------------------- entry
 
 def embed_inputs(params, cfg, batch):
-    """tokens -> (B, S, d) activations."""
-    if "img_embeds" in batch:
-        raise NotImplementedError("image inputs are not ported yet (ROADMAP queue 1 item 10)")
-    return embed(params["emb"], batch["tokens"])
+    """tokens -> (B, S, d) activations; with ``cfg.n_img_tokens`` and
+    ``batch["img_embeds"]`` (B, n_img, d) the image embeddings, cast to the
+    activations' dtype, go ahead of the text."""
+    x = embed(params["emb"], batch["tokens"])
+    if cfg.n_img_tokens and "img_embeds" in batch:
+        x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 def _positions(B, S, device):
@@ -166,13 +163,17 @@ def _positions(B, S, device):
 def lm_loss(params, cfg, batch):
     """Mean next-token CE over labels >= 0 (weighted by
     ``batch["client_weights"]`` per row where given), plus ``AUX_WEIGHT``
-    times the MoE load-balance loss for an MoE config. Returns (loss,
+    times the MoE load-balance loss for an MoE config. Labels shorter than
+    the sequence (a vlm's text after its image embeddings) are padded on
+    the left with -1, so the image positions carry no loss. Returns (loss,
     {"aux": aux}); aux is 0.0 without MoE layers."""
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     x, aux, _ = lm_backbone(params, cfg, x, _positions(B, S, x.device), "train")
     logits = lm_logits(params, cfg, x)
     labels = batch["labels"]
+    if labels.shape[1] < S:
+        labels = torch.cat([labels.new_full((B, S - labels.shape[1]), -1), labels], dim=1)
     mask = (labels >= 0).to(torch.float32)
     if "client_weights" in batch:
         mask = mask * batch["client_weights"][:, None]
@@ -192,7 +193,9 @@ def lm_prefill(params, cfg, batch):
 
 def init_lm_cache(params, cfg, batch_size, length, dtype, per_row=False):
     """Empty caches for every layer of each stack, stacked on axis 0: the
-    compressed MLA caches with ``cfg.use_mla``, else GQA K/V caches."""
+    compressed MLA caches with ``cfg.use_mla``, else GQA K/V caches, whose
+    positions are (B, length) with ``per_row`` (each row decodes at its own
+    position; MLA caches refuse it)."""
     init_cache = attn.init_mla_cache if cfg.use_mla else attn.init_cache
     caches = {}
     for kind in STACKS:
@@ -205,9 +208,11 @@ def init_lm_cache(params, cfg, batch_size, length, dtype, per_row=False):
 
 
 def lm_decode(params, cfg, token, pos, caches):
-    """token: (B, 1) ints; pos: the absolute position (int). Writes the new
-    slot into ``caches`` in place (it consumes the caches it is given) and
-    returns (logits (B, 1, V), caches)."""
+    """token: (B, 1) ints; pos: the absolute position (int) shared by every
+    row, or each row's own as a (B,) int tensor for a per-row cache
+    (``init_lm_cache(per_row=True)``). Writes the new slot into ``caches``
+    in place (it consumes the caches it is given) and returns (logits
+    (B, 1, V), caches)."""
     x = embed(params["emb"], token)
     x, _, caches = lm_backbone(params, cfg, x, None, "decode", caches=caches, pos=pos)
     return lm_logits(params, cfg, x), caches

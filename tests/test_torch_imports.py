@@ -95,3 +95,11 @@ FAMILIES_SLICE = ["configs/qwen2_moe_a2_7b.py", "configs/xlstm_1_3b.py", "models
 @pytest.mark.parametrize("rel", FAMILIES_SLICE)
 def test_families_slice_modules_are_checked(rel):
     assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
+VLM_QUEUE_SLICE = ["configs/phi3_vision_4_2b.py", "launch/queue.py"]
+
+
+@pytest.mark.parametrize("rel", VLM_QUEUE_SLICE)
+def test_vlm_queue_slice_modules_are_checked(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES

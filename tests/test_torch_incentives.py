@@ -245,13 +245,24 @@ def test_remaining_refusals_still_raise(mode, changes, item, tmp_path):
 
 
 def test_arch_family_with_an_auction_still_raises():
-    """The arch family runs with an auction and a policy
-    (tests/test_torch_train.py); with an arch of an unported family it is
-    still refused, by name."""
-    spec = tapi.ScenarioSpec(tasks=[tapi.TaskSpec("phi-3-vision-4.2b", family="arch")],
-                             auction=tapi.AuctionSpec(), policy=tapi.PolicySpec("thompson"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tapi.run_scenario(spec, device="cpu")
+    """The arch family runs with an auction and a policy, phi-3-vision's
+    too (once refused naming ROADMAP item 10): the same spec through both
+    packages gives the same auction, allocation trace and accuracies, and
+    losses within 1e-4."""
+    def build(api):
+        return api.ScenarioSpec(
+            tasks=[api.TaskSpec(a, family="arch",
+                                options={"preset": "tiny", "seq": 24, "batch": 2})
+                   for a in ("phi-3-vision-4.2b", "smollm-135m")],
+            clients=api.ClientPopulationSpec(n_clients=6, participation=0.5),
+            auction=api.AuctionSpec(), policy=api.PolicySpec("thompson"),
+            runtime=api.RuntimeSpec(rounds=2, tau=1))
+
+    rt, rj = _both(build)
+    assert rt.auction is not None and rt.auction == rj.auction
+    np.testing.assert_array_equal(rt.alloc, rj.alloc)
+    np.testing.assert_array_equal(rt.acc, rj.acc)
+    np.testing.assert_allclose(rt.loss, rj.loss, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("auction,err,match", [

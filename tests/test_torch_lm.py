@@ -58,7 +58,8 @@ def _tokens(cfg, B, S, seed=0):
 
 def test_port_registers_the_dense_archs():
     assert list_archs() == tuple(sorted(DENSE + ("zamba2-7b", "qwen2-moe-a2.7b", "xlstm-1.3b",
-                                                 "deepseek-v2-lite-16b", "whisper-medium")))
+                                                 "deepseek-v2-lite-16b", "whisper-medium",
+                                                 "phi-3-vision-4.2b")))
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -257,11 +258,23 @@ def test_serve_without_device_raises_without_cuda(monkeypatch):
     (dict(arch_type="vlm"), "item 10"), (dict(n_img_tokens=8), "item 10"),
 ])
 def test_unported_configs_are_refused_by_name(change, item):
+    """The vlm family is ported (tests/test_torch_vlm.py): these configs,
+    once refused naming ROADMAP ``item``, now build and give the JAX
+    package's loss (1e-5) with image embeddings ahead of the text, and an
+    arch type the JAX package does not have is still refused."""
     cfg = smoke_config("smollm-135m").replace(**change)
-    with pytest.raises(NotImplementedError, match=item):
-        get_api(cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        init_lm(prng.PRNGKey(0), cfg, device="cpu")
+    jcfg = jax_smoke_config("smollm-135m").replace(**change)
+    jparams, params = _carry(cfg)
+    tj, tt = _tokens(cfg, 2, 10, seed=9)
+    img = np.random.default_rng(9).standard_normal((2, 8, cfg.d_model)).astype(np.float32)
+    lj, _ = jax_get_api(jcfg).loss_fn(jparams, jcfg, {"tokens": tj, "labels": tj,
+                                                      "img_embeds": jnp.asarray(img)})
+    lt, _ = get_api(cfg).loss_fn(params, cfg, {"tokens": tt, "labels": tt,
+                                               "img_embeds": torch.from_numpy(img)})
+    np.testing.assert_allclose(lt.item(), float(lj), atol=1e-5)
+    assert init_lm(prng.PRNGKey(0), cfg, device="cpu").keys() == params.keys()
+    with pytest.raises(NotImplementedError, match="not an arch type of the JAX package"):
+        get_api(cfg.replace(arch_type="diffusion"))
 
 
 @pytest.mark.parametrize("change", [
@@ -285,19 +298,26 @@ def test_formerly_refused_config_runs(change):
 
 
 def test_unported_inputs_are_refused_by_name():
-    """Image inputs (the vlm family) and per-row decode are refused by
-    name; audio frames, which a decoder-only LM does not read, change
-    nothing, as in the reference (the audio family is models/encdec.py)."""
+    """Image inputs and per-row caches, once refused by name, are ported:
+    a config without image tokens ignores ``img_embeds`` and audio frames,
+    which it does not read, as in the reference (the audio family is
+    models/encdec.py); a per-row cache builds with (B, W) positions and
+    decodes each row at its own position (tests/test_torch_queue.py holds
+    it against the reference)."""
     cfg = smoke_config("smollm-135m")
     params = init_lm(prng.PRNGKey(0), cfg, device="cpu")
     api = get_api(cfg)
     tokens = torch.zeros(1, 4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens,
-                                  "img_embeds": torch.zeros(1, 2, cfg.d_model)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        api.init_cache_fn(params, cfg, 1, 8, torch.float32, per_row=True)
+    imaged, _ = api.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens,
+                                          "img_embeds": torch.zeros(1, 2, cfg.d_model)})
+    caches = api.init_cache_fn(params, cfg, 2, 8, torch.float32, per_row=True)
+    assert tuple(caches["dense"]["positions"].shape) == (cfg.n_layers, 2, 8)
+    _, caches = api.decode_fn(params, cfg, torch.zeros(2, 1, dtype=torch.int64),
+                              torch.tensor([0, 5]), caches)
+    assert caches["dense"]["positions"][:, 0, 0].eq(0).all()
+    assert caches["dense"]["positions"][:, 1, 5].eq(5).all()
     plain, _ = api.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens})
+    assert torch.equal(plain, imaged)
     framed, _ = api.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens,
                                           "frames": torch.zeros(1, 16, cfg.d_model)})
     assert torch.equal(plain, framed)

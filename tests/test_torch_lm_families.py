@@ -16,8 +16,9 @@ within 1e-6, the loss with client weights within 1e-5 (and deepseek's
 ``use_pallas`` loss, which sends MLA to no kernel on either side), prefill
 and three decode steps within 1e-4, and the serve CLI's greedy tokens
 (whisper's frames drawn from the serve key). Their full-width trees are
-the JAX package's, with 15,706,484,224 and 811,864,064 params.
-phi-3-vision stays refused by name with its ROADMAP item.
+the JAX package's, with 15,706,484,224 and 811,864,064 params, and
+phi-3-vision's (the vlm family, tests/test_torch_vlm.py) with
+3,822,259,200.
 """
 import dataclasses
 
@@ -40,9 +41,9 @@ from repro_torch.models import active_param_count, get_api, pad_cache, param_cou
 from repro_torch.tree import tree_map
 
 FAMILIES = ("qwen2-moe-a2.7b", "xlstm-1.3b")
-MLA, AUDIO = "deepseek-v2-lite-16b", "whisper-medium"
+MLA, AUDIO, VLM = "deepseek-v2-lite-16b", "whisper-medium", "phi-3-vision-4.2b"
 # full-width param counts from the JAX package's init shapes
-FULL_PARAMS = {MLA: 15_706_484_224, AUDIO: 811_864_064}
+FULL_PARAMS = {MLA: 15_706_484_224, AUDIO: 811_864_064, VLM: 3_822_259_200}
 # (arch, config changes) of the MLA and audio cases: deepseek decodes with
 # the latent expanded and absorbed
 NEW_CASES = {"mla_expand": (MLA, dict()), "mla_absorb": (MLA, dict(mla_absorb=True)),
@@ -92,7 +93,7 @@ def test_configs_match_jax(arch):
     assert dataclasses.asdict(smoke_config(arch)) == dataclasses.asdict(jax_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", FAMILIES + (MLA, AUDIO))
+@pytest.mark.parametrize("arch", FAMILIES + (MLA, AUDIO, VLM))
 def test_full_width_tree_and_counts_match_jax(arch):
     """From shapes alone: the port's tree on the meta device against
     ``jax.eval_shape`` of the JAX init; param and active param counts."""
@@ -119,8 +120,11 @@ def test_active_param_count_matches_jax_on_smoke_trees(variant):
 
 @pytest.mark.parametrize("arch", ["phi-3-vision-4.2b"])
 def test_remaining_families_are_refused_by_name(arch):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_config(arch)
+    """Once refused naming ROADMAP item 10, phi-3-vision is ported: its
+    config is the reference's, field for field, and it has an API."""
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
+    assert dataclasses.asdict(smoke_config(arch)) == dataclasses.asdict(jax_smoke_config(arch))
+    assert get_api(get_config(arch)) is get_api(get_config("smollm-135m"))
 
 
 # ----------------------------------------------------------------- interop

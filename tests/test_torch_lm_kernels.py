@@ -63,6 +63,7 @@ def _np32(x):
     (1, 9, 3, 128, 128, 64, 64),    # smollm's heads: H/KV = 3
     (1, 4, 2, 64, 192, 32, 64),     # Sq < Sk: causal is top-left aligned
     (1, 2, 1, 192, 64, 16, 64),     # Sq > Sk
+    (1, 2, 2, 128, 128, 96, 64),    # phi-3-vision's head dim
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_pallas(B, H, KV, Sq, Sk, hd, blk, causal):
@@ -210,10 +211,12 @@ def test_flash_attention_cuda_reads_transposed_views(cuda_device):
 # off the 16-byte packs take the two-pass kernel; 8193, 2047, 1025 and 257
 # rows leave a block of several rows part full; d 512 is MLA's kv_norm
 # (deepseek-v2-lite's latent) at the loss (1 x 2048), the serve prefill
-# (8 x 128) and a decode step (8 rows)
+# (8 x 128) and a decode step (8 rows); d 3072 is phi-3-vision's d_model
+# at a decode step and the loss
 RMSNORM_CUDA_SHAPES = [(1, 576), (8193, 576), (300, 64), (257, 128), (33, 1024), (5, 100),
                        (2047, 2048), (2048, 2052), (1025, 4096), (3, 8192), (2, 16384),
-                       (3, 33000), (33, 1001), (2048, 512), (1024, 512), (8, 512)]
+                       (3, 33000), (33, 1001), (2048, 512), (1024, 512), (8, 512),
+                       (8, 3072), (2048, 3072)]
 
 
 @pytest.mark.cuda
@@ -264,6 +267,11 @@ def test_cuda_kernels_refuse_autograd(cuda_device):
     (1, 2, 1, 70, 200, 112),    # Sq < Sk at zamba2's head dim
     (1, 4, 2, 1, 77, 64),       # one query row
     (8, 32, 8, 128, 128, 64),   # a large batch of heads
+    (1, 2, 1, 1, 1, 96),        # phi-3-vision's head dim: one query, one key
+    (1, 2, 2, 63, 63, 96),      # one short of the f32 q tile
+    (1, 2, 1, 65, 65, 96),      # one past it
+    (2, 3, 3, 129, 129, 96),    # one past the bf16 q tile
+    (1, 4, 2, 200, 456, 96),    # Sq < Sk, neither a multiple of a tile
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

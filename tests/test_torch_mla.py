@@ -9,8 +9,8 @@ the training and prefill forwards and the prefill cache agree within
 1e-5, and three decode steps against the grown cache within 1e-5 with
 ``absorb`` False and True, each held against the reference's own setting;
 the two settings agree within the reference's 2e-3. ``pad_cache`` grows the
-compressed caches as the reference does; per-row decode is refused naming
-ROADMAP item 13. The ``cuda`` case runs on a card:
+compressed caches as the reference does; per-row decode is refused with
+the reference's reason (GQA caches only). The ``cuda`` case runs on a card:
 
     python -m pytest -q -m cuda tests/test_torch_mla.py
 """
@@ -189,12 +189,12 @@ def test_pad_cache_grows_mla_caches_as_jax():
 def test_per_row_mla_decode_is_refused_naming_item_13():
     cfg = smoke_config(ARCH)
     params = get_api(cfg).init_params(prng.PRNGKey(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="per-row decode: GQA caches only"):
         get_api(cfg).init_cache_fn(params, cfg, B, 8, torch.float32, per_row=True)
     _, _, _, tp, x = _setup(0)
     cache = tattn.init_mla_cache(cfg, B, 8, torch.float32, "cpu")
     cache["positions"] = cache["positions"].expand(B, 8)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="per-row decode: GQA caches only"):
         tattn.mla_decode(tp, cfg, torch.from_numpy(x[:, :1]), 0, cache)
 
 

@@ -115,11 +115,21 @@ def test_formerly_refused_feature_runs(changes):
 
 
 def test_arch_family_raises():
-    """The arch family runs (tests/test_torch_train.py); an arch of a family
-    the port has not ported is refused by name."""
-    spec = tapi.ScenarioSpec(tasks=[tapi.TaskSpec("phi-3-vision-4.2b", family="arch")])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tapi.run_scenario(spec, device="cpu")
+    """The arch family runs (tests/test_torch_train.py), phi-3-vision too
+    (once refused naming ROADMAP item 10): its run gives the reference's
+    allocation trace and accuracies, and losses within 1e-4."""
+    def spec(api):
+        return api.ScenarioSpec(
+            tasks=[api.TaskSpec("phi-3-vision-4.2b", family="arch",
+                                options={"preset": "tiny", "seq": 24, "batch": 2})],
+            clients=api.ClientPopulationSpec(n_clients=4, participation=0.5),
+            runtime=api.RuntimeSpec(rounds=2, tau=1))
+
+    rt = tapi.run_scenario(spec(tapi), device="cpu")
+    rj = japi.run_scenario(spec(japi))
+    np.testing.assert_array_equal(rt.alloc, rj.alloc)
+    np.testing.assert_array_equal(rt.acc, rj.acc)
+    np.testing.assert_allclose(rt.loss, rj.loss, atol=1e-4, rtol=0)
 
 
 def test_legacy_policy_spec_runs():
