@@ -257,7 +257,32 @@ printed only when every phase passed:
    logit of the token served) is below the logit difference the phase
    measured between the two paths (printed). tok/s, mean latency, mean
    TTFT; rmsnorm the only kernel launched.
-31. A JSON line describing every kernel, the card line, and the final
+31. Multi-GPU paths on the one card. (a) The ``sharded`` cohort backend
+   (``run_scenario``, ``backend="sharded"``) on phase 3's quickstart spec
+   and exp13's fedadam async spec: on the default cohort mesh (this
+   host's cards; with one card ``vmap``'s path) bit-equal to the ``vmap``
+   run, and on meshes that repeat the card (``(cuda:0, cuda:0)``,
+   ``(cuda:0,) * 3``: each cohort split into parts, one ``local_fn`` a
+   part) with identical traces, each cohort bit-equal to ``vmap`` run on
+   its parts and measured against ``vmap`` on the whole cohort beside
+   ``serial`` (``CohortCheck``), the sync run within 1e-6 of ``vmap``'s
+   and the async fedadam run, which carries each flush's rounding into
+   the next, by phase 7's rule (final accuracy within 0.01); fedavg once
+   per non-empty fold and fused_aggregate once per flush, as on
+   ``vmap``, each held against its plain version at the shapes the runs
+   made; rounds/s and flushes/s beside ``vmap``'s (not a multi-GPU
+   figure).
+   (b) qwen3-0.6b at full width and depth (596.2 M f32 params), B=8,
+   S=256, on DTensors of a (1, 1) ('data', 'model') mesh of a 1-rank NCCL
+   group (``sharding.partition``: the params laid out by
+   ``tree_param_specs``, the activations and logits constrained) against
+   the same params as plain tensors: the loss with and without
+   ``use_pallas`` (113 rmsnorm launches a forward, 28 flash under
+   ``use_pallas``, on both sides; within 1e-6 relative), one AdamW step
+   (``server_opt``): gradients within 1e-6 x max(1, max|g|), params by
+   the first-step rule of ``tests/test_torch_train.py``, every param's
+   placements kept; step time on DTensors against plain, peak memory.
+32. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 In phases 16-20, 24, 27 and 29 every fedavg call of the card's runs is also held
@@ -492,6 +517,12 @@ VLM_TINY = dict(archs=(VLM_ARCH, "smollm-135m"),
 QUEUE = dict(requests=16, prompt=(16, 128), max_new=(8, 32), slots=8, seed=30)
 QUEUE_WAVE = ("smollm-135m", VLM_ARCH)
 QUEUE_CONTINUOUS = ("qwen1.5-0.5b", VLM_ARCH)
+# phase 31: the sharded backend over forced meshes that repeat the one card
+# (a device named twice runs two parts of each cohort), and the dense LM
+# step on DTensors of a 1-rank NCCL group's (1, 1) ('data', 'model') mesh
+SHARDED_MESHES = (("cuda:0", "cuda:0"), ("cuda:0",) * 3)
+DTENSOR_LM = dict(arch="qwen3-0.6b", B=8, S=256, reps=3)
+ADAM_ILL, ADAM_SHARE = 1e-6, 1e-3      # tests/test_torch_train.py's first-step rule
 
 
 def fail(msg: str) -> None:
@@ -3947,6 +3978,334 @@ def phase_queue(line: str):
     return out
 
 
+class CohortCheck:
+    """Every cohort the forced-mesh backends run is held twice, from the
+    same params and inputs. (1) Bit for bit against ``vmap`` run on each
+    part alone (the parts split here by ``numpy.array_split``, the
+    results joined in cohort order): the backend's split, device moves
+    and gather. (2) Against ``vmap`` on the whole cohort, beside
+    ``serial``'s distance from it: a batched product rounds by its batch
+    count on the card (cuBLAS picks its kernel by it), so neither a part
+    nor ``serial``'s one-client calls are bit-equal to their rows of the
+    whole cohort; both distances are recorded (``worst``,
+    ``serial_vs_vmap``: the largest max |diff| / max(1, max |leaf|)
+    seen). Its seconds go to ``FoldShapes.held_s``, which
+    ``run_counted`` takes off the run's time; the synthetic tasks' local
+    updates launch no kernel."""
+
+    worst = 0.0
+    serial_vs_vmap = 0.0
+    cohorts = 0
+
+
+def _cohort_gap(a, b) -> float:
+    """max over leaves of max |a - b| / max(1, max |b|)."""
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+               for x, y in zip(tree_leaves((a.updates, a.losses)),
+                               tree_leaves((b.updates, b.losses))))
+
+
+def _forced_backend(mesh) -> str:
+    """Register a ``sharded`` backend over ``mesh`` (a tuple of devices, a
+    constructor argument only) whose cohorts ``CohortCheck`` holds;
+    returns its registry key."""
+    from repro_torch.api import (BACKENDS, ClientBatch, SerialBackend, ShardedBackend,
+                                 VmapBackend)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    name = "sharded-" + "-".join(d.replace(":", "") for d in mesh)
+    if name in BACKENDS:
+        return name
+
+    class Forced(ShardedBackend):
+        def __init__(self, device=None):
+            super().__init__(device, mesh=mesh)
+
+        def run_cohort(self, task_state, client_batch, rng=None):
+            import numpy as np
+            import torch
+
+            got = super().run_cohort(task_state, client_batch, rng)
+            t0 = time.perf_counter()
+            vmap = VmapBackend(self.device)
+            parts = []
+            for rows in np.array_split(np.arange(len(client_batch)), len(mesh)):
+                if len(rows) == 0:
+                    continue
+                lo, hi = int(rows[0]), int(rows[-1]) + 1
+                keys = None if client_batch.keys is None else client_batch.keys[lo:hi]
+                parts.append(vmap.run_cohort(task_state, ClientBatch(
+                    client_batch.client_ids[lo:hi], keys,
+                    tuple(tree_map(lambda t: t[lo:hi], d) for d in client_batch.data))))
+            whole = vmap.run_cohort(task_state, client_batch, rng)
+            one = SerialBackend(self.device).run_cohort(task_state, client_batch, rng)
+            joined = tree_map(lambda *ls: torch.cat(ls), *((p.updates, p.losses) for p in parts))
+            if len(client_batch) > 1 and not all(torch.equal(x, y) for x, y in zip(
+                    tree_leaves((got.updates, got.losses)), tree_leaves(joined))):
+                fail(f"{name}: a cohort of {len(client_batch)} differs from vmap run on its "
+                     "parts in turn")
+            CohortCheck.worst = max(CohortCheck.worst, _cohort_gap(got, whole))
+            CohortCheck.serial_vs_vmap = max(CohortCheck.serial_vs_vmap, _cohort_gap(one, whole))
+            CohortCheck.cohorts += 1
+            torch.cuda.synchronize()
+            FoldShapes.held_s += time.perf_counter() - t0
+            return got
+
+    BACKENDS.add(name, Forced)
+    return name
+
+
+def _backend(spec, name: str):
+    import copy
+
+    spec = copy.deepcopy(spec)
+    spec.runtime.backend = name
+    return spec
+
+
+def _run_gap(a, b) -> float:
+    """max |difference| of two runs' curves and final params (0 where
+    bit-equal); fails unless their allocation or event traces are
+    identical."""
+    import numpy as np
+
+    from repro_torch.tree import tree_leaves
+
+    if a.mode == "async":
+        if not _same_events(a, b):
+            fail(f"{b.spec.runtime.backend}: event trace unlike {a.spec.runtime.backend}'s")
+    elif not (np.array_equal(a.alloc, b.alloc) and np.array_equal(a.alloc_counts,
+                                                                  b.alloc_counts)):
+        fail(f"{b.spec.runtime.backend}: allocation trace unlike {a.spec.runtime.backend}'s")
+    gap = max(float(np.abs(a.loss - b.loss).max()), float(np.abs(a.acc - b.acc).max()))
+    return max([gap] + [float((x - y).abs().max())
+                        for x, y in zip(tree_leaves(a.params), tree_leaves(b.params))])
+
+
+def phase_sharded(line: str):
+    """Phase 31 (a): the ``sharded`` backend on the quickstart sync spec and
+    exp13's fedadam async spec, on the default cohort mesh (this host's
+    cards) and on meshes that repeat the one card, against ``vmap``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_cohort_mesh
+
+    print("== phase 31 (a): the sharded cohort backend (run_scenario, backend='sharded')")
+    print(f"card: {line}")
+    default = make_cohort_mesh(device="cuda")
+    print(f"default cohort mesh: {[str(d) for d in default]} "
+          f"(torch.cuda.device_count() = {torch.cuda.device_count()})")
+    out = {"default_mesh": [str(d) for d in default]}
+    for kind, spec, kernel in (
+            ("sync", quickstart_spec("fedfair"), "fedavg"),
+            ("async", exp13_spec("fedadam", SERVER_OPTIONS["fedadam"]), "fused_aggregate")):
+        runs = {}
+        for label, backend in [("vmap", "vmap"), ("sharded", "sharded")] + [
+                (f"sharded x{len(m)}", _forced_backend(m)) for m in SHARDED_MESHES]:
+            CohortCheck.worst, CohortCheck.serial_vs_vmap, CohortCheck.cohorts = 0.0, 0.0, 0
+            with FoldShapes() as shapes:
+                if kind == "sync":
+                    res, launches = run_sync_counted(f"{kind} {label}", _backend(spec, backend))
+                else:
+                    res, launches = run_async_counted(f"{kind} {label}", _backend(spec, backend),
+                                                      kernel)
+            checked = check_run_shapes(f"{kind} {label}", shapes)
+            n = spec.runtime.rounds if kind == "sync" else len(res.time)
+            runs[label] = res
+            rec = {"wall_s": res.wall_time, f"{'rounds' if kind == 'sync' else 'flushes'}_per_s":
+                   n / res.wall_time, "launches": launches, "max_abs_err": checked[kernel]}
+            if label != "vmap":
+                if launches != out[kind]["vmap"]["launches"]:
+                    fail(f"{kind} {label}: launches {launches}, vmap's "
+                         f"{out[kind]['vmap']['launches']}")
+                gap = _run_gap(runs["vmap"], res)
+                rec["max_diff_vs_vmap"] = gap
+                final = float(np.abs(runs["vmap"].acc[-1] - res.acc[-1]).max())
+                if label == "sharded" and gap != 0.0:
+                    fail(f"{kind} sharded on the default mesh: not bit-equal to vmap ({gap})")
+                if label != "sharded":
+                    rec["cohorts_held"] = CohortCheck.cohorts
+                    rec["cohort_max_diff_vs_vmap"] = CohortCheck.worst
+                    rec["cohort_serial_max_diff_vs_vmap"] = CohortCheck.serial_vs_vmap
+                    # sync folds average the cohort once a round; the async
+                    # fedadam run feeds each flush's rounding into the next
+                    # 200 (a cohort's bmm rounds by its batch count on the
+                    # card): there the run is held to phase 7's card/CPU rule
+                    if not (gap <= 1e-6 if kind == "sync" else final <= 0.01):
+                        fail(f"{kind} {label}: max |diff| {gap} against vmap, final accuracy "
+                             f"{final} apart")
+                print(f"{kind} {label}: traces identical to vmap's; "
+                      + ("bit-equal" if gap == 0.0 else f"curves and params within {gap:.3g}")
+                      + (f"; each of its {CohortCheck.cohorts} cohorts bit-equal to vmap run "
+                         f"on its parts, and within {CohortCheck.worst:.3g} x max(1, "
+                         f"max|leaf|) of vmap on the whole cohort (serial: "
+                         f"{CohortCheck.serial_vs_vmap:.3g})"
+                         if label != "sharded" else ""))
+            out.setdefault(kind, {})[label] = rec
+        rate = "rounds_per_s" if kind == "sync" else "flushes_per_s"
+        print(f"{kind}: " + ", ".join(f"{k} {r[rate]:.2f} {rate.replace('_per_s', '')}/s"
+                                      for k, r in out[kind].items())
+              + " (one card; the forced meshes run their parts in turn on it)")
+    return out
+
+
+def phase_dtensor_lm(line: str):
+    """Phase 31 (b): qwen3-0.6b at full width and depth on DTensors of a
+    (1, 1) ('data', 'model') mesh of a 1-rank NCCL group, against the
+    same params as plain tensors: the loss with and without use_pallas
+    and one AdamW step, with the kernels' launches per forward."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import loss_and_grads, server_opt
+    from repro_torch.models import get_api
+    from repro_torch.sharding import partition as part
+    from repro_torch.tree import tree_leaves, tree_map
+
+    print("== phase 31 (b): the dense LM step on DTensors (1-rank NCCL group, (1, 1) mesh)")
+    print(f"card: {line}")
+    arch, B, S, reps = (DTENSOR_LM[k] for k in ("arch", "B", "S", "reps"))
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    norms_per_forward = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device_type="cuda")
+        params, rec = _init_family(arch, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+        batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+        opt = server_opt()
+        out = {"arch": arch, "params": rec["params"], "B": B, "S": S,
+               "mesh": [list(mesh.shape), list(mesh.mesh_dim_names)]}
+
+        def run(p, b, c):
+            """(loss, launches) of one forward without autograd."""
+            reset_launches()
+            with torch.no_grad():
+                loss = api.loss_fn(p, c, b)[0]
+            torch.cuda.synchronize()
+            return loss, dict(LAUNCHES)
+
+        def step(p, b, state):
+            loss, grads = loss_and_grads(api, cfg, p, b)
+            new, _ = opt.update(p, grads, state)
+            return loss, grads, new
+
+        def timed(fn, *args):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = fn(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                del got
+            return statistics.median(times) * 1e3, torch.cuda.max_memory_allocated()
+
+        pcfg = cfg.replace(use_pallas=True)
+        plain = {}
+        for name, c in (("loss", cfg), ("loss_use_pallas", pcfg)):
+            plain[name] = run(params, batch, c)
+        state = opt.init(params)
+        reset_launches()
+        want_loss, want_grads, want_new = step(params, batch, state)
+        torch.cuda.synchronize()
+        plain_step_launches = dict(LAUNCHES)
+        plain_ms, plain_peak = timed(step, params, batch, state)
+        del state
+
+        with part.use_mesh(mesh):
+            dp = part.dp_axes(mesh)
+            part.set_sharding_ctx(activation=(mesh, part.P(dp, None, "model")),
+                                  logits=(mesh, part.P(dp, None, "model")))
+            dparams = part.distribute_tree(params, part.tree_param_specs(params, cfg), mesh)
+            dbatch = {k: distribute_tensor(v, mesh, part.placements(
+                mesh, part.batch_spec(mesh, B, v.ndim))) for k, v in batch.items()}
+            got = {}
+            for name, c in (("loss", cfg), ("loss_use_pallas", pcfg)):
+                got[name] = run(dparams, dbatch, c)
+            dstate = opt.init(dparams)
+            reset_launches()
+            loss, grads, new = step(dparams, dbatch, dstate)
+            torch.cuda.synchronize()
+            step_launches = dict(LAUNCHES)
+            d_ms, d_peak = timed(step, dparams, dbatch, dstate)
+            kept = all(list(n.placements) == list(p.placements)
+                       for n, p in zip(tree_leaves(new), tree_leaves(dparams)))
+            loss_v = float(loss.full_tensor())
+            grads = tree_map(lambda t: t.full_tensor(), grads)
+            new = tree_map(lambda t: t.full_tensor(), new)
+            got = {k: (float(v.full_tensor()), n) for k, (v, n) in got.items()}
+        plain = {k: (float(v), n) for k, (v, n) in plain.items()}
+
+        for name in plain:
+            (lw, nw), (lg, ng) = plain[name], got[name]
+            want_n = {"rmsnorm": norms_per_forward}
+            if name == "loss_use_pallas":
+                want_n["flash_attention"] = cfg.n_layers
+            if nw != want_n or ng != want_n:
+                fail(f"dtensor {name}: launches plain {nw}, DTensor {ng}, expected {want_n}")
+            if not abs(lg - lw) <= 1e-6 * abs(lw):
+                fail(f"dtensor {name}: DTensor loss {lg} against plain {lw} (1e-6 relative)")
+            out[name] = {"plain": lw, "dtensor": lg, "launches": ng}
+            print(f"{name}: DTensor {lg:.7f}, plain {lw:.7f}, launches per forward {ng} on "
+                  "both")
+        if not kept:
+            fail("dtensor step: a param left the step with other placements than it had")
+        if not abs(loss_v - float(want_loss)) <= 1e-6 * abs(float(want_loss)):
+            fail(f"dtensor step: loss {loss_v} against plain {float(want_loss)}")
+        g_err = 0.0
+        n_ill = total = 0
+        p_err = 0.0
+        for gd, gw, nd, nw in zip(tree_leaves(grads), tree_leaves(want_grads),
+                                  tree_leaves(new), tree_leaves(want_new)):
+            tol = 1e-6 * max(1.0, float(gw.abs().max()))
+            e = float((gd - gw).abs().max())
+            g_err = max(g_err, e / tol * 1e-6)
+            if not e <= tol:
+                fail(f"dtensor step: gradient max |diff| {e} over {tol}")
+            d = (nd.float() - nw.float()).abs()
+            ill = gw.abs() < ADAM_ILL
+            if bool((d[~ill] > 1e-5).any()):
+                fail(f"dtensor step: params max |diff| {float(d[~ill].max())} where |g| >= "
+                     f"{ADAM_ILL}")
+            n_ill += int((d > 1e-5).sum())
+            total += d.numel()
+            p_err = max(p_err, float(d.max()))
+        if n_ill > ADAM_SHARE * total:
+            fail(f"dtensor step: {n_ill} of {total} params beyond 1e-5")
+        if step_launches.get("rmsnorm") != norms_per_forward or (
+                plain_step_launches.get("rmsnorm") != norms_per_forward):
+            fail(f"dtensor step: rmsnorm launches DTensor {step_launches}, plain "
+                 f"{plain_step_launches}, expected {norms_per_forward} (the forward)")
+        out["step"] = {"loss_plain": float(want_loss), "loss_dtensor": loss_v,
+                       "grad_max_diff_over_scale": g_err, "params_max_diff": p_err,
+                       "params_beyond_1e-5": n_ill, "placements_kept": kept,
+                       "launches": step_launches, "ms_dtensor": d_ms, "ms_plain": plain_ms,
+                       "peak_bytes_dtensor": d_peak, "peak_bytes_plain": plain_peak}
+        print(f"AdamW step (server_opt): loss DTensor {loss_v:.7f}, plain {float(want_loss):.7f}; "
+              f"grads within {g_err:.3g} x max(1, max|g|); params max |diff| {p_err:.3g} "
+              f"({n_ill} of {total} beyond 1e-5, all where |g| < {ADAM_ILL}); placements kept; "
+              f"rmsnorm launches {step_launches.get('rmsnorm')} (the forward)")
+        print(f"step time (median of {reps}): DTensor {d_ms:.1f} ms, plain {plain_ms:.1f} ms "
+              f"({d_ms / plain_ms:.2f}x); peak memory DTensor {d_peak / 2**30:.2f} GiB, plain "
+              f"{plain_peak / 2**30:.2f} GiB")
+        del params, dparams, grads, new, want_grads, want_new
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import os
 
@@ -3995,6 +4354,8 @@ def main() -> int:
     vlm_served, vlm_loss = phase_vlm(line)
     vlm_train, vlm_checked, vlm_timed = phase_vlm_train(line)
     queue = phase_queue(line)
+    sharded = phase_sharded(line)
+    dtensor = phase_dtensor_lm(line)
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -4024,7 +4385,12 @@ def main() -> int:
         # and of the tiny phi-3/smollm pair's
         "launches_phi3_sync": vlm_train["fold"]["launches"]["fedavg"],
         "launches_phi3_tiny_sync": vlm_train["tiny_sync_launches"]["fedavg"],
-        "max_abs_err": max(errs["float32"], sync_checked["fedavg"], async_checked["fedavg"],
+        # phase 31 (a): the quickstart sync run on each cohort mesh, one
+        # per non-empty fold as on vmap
+        "launches_sharded_sync": {k: r["launches"]["fedavg"]
+                                  for k, r in sharded["sync"].items()},
+        "max_abs_err": max(errs["float32"], sharded["sync"]["sharded x3"]["max_abs_err"],
+                           sync_checked["fedavg"], async_checked["fedavg"],
                            arch_sync_checked["fedavg"], pop_checked["fedavg"],
                            families_checked["fedavg"], tiny_checked["fedavg"],
                            mla_audio_checked["fedavg"], vlm_checked["fedavg"]),
@@ -4072,7 +4438,11 @@ def main() -> int:
         # of the tiny phi-3/smollm pair's
         "launches_phi3_async": vlm_train["async"]["launches"]["fused_aggregate"],
         "launches_phi3_tiny_async": vlm_train["tiny_async_launches"]["fused_aggregate"],
-        "max_abs_err": max(f_err, async_checked["fused_aggregate"],
+        # phase 31 (a): exp13's fedadam run on each cohort mesh, one per flush
+        "launches_sharded_async": {k: r["launches"]["fused_aggregate"]
+                                   for k, r in sharded["async"].items()},
+        "max_abs_err": max(f_err, sharded["async"]["sharded x3"]["max_abs_err"],
+                           async_checked["fused_aggregate"],
                            arch_async_checked["fused_aggregate"], pop_checked["fused_aggregate"],
                            tiny_checked["fused_aggregate"], mla_audio_checked["fused_aggregate"],
                            vlm_checked["fused_aggregate"]),
@@ -4106,6 +4476,8 @@ def main() -> int:
         "launches_qwen2_moe_loss": moe_loss["launches"]["flash_attention"],
         # phase 28: phi-3-vision's use_pallas loss, hd 96, one per layer
         "launches_phi3_loss": vlm_loss["launches"]["flash_attention"],
+        # phase 31 (b): qwen3-0.6b's use_pallas loss on DTensors, one per layer
+        "launches_dtensor_loss": dtensor["loss_use_pallas"]["launches"]["flash_attention"],
         "max_abs_err": flash_errs["float32"],
         "max_abs_err_bf16": flash_errs["bfloat16"],
         "shape": list(FLASH_SHAPES[0]),
@@ -4162,6 +4534,10 @@ def main() -> int:
                                 for k in ("adamw", "fold", "async")},
         "launches_phi3_per_training_step": {k: vlm_train[k]["rmsnorm_per_training_step"]
                                             for k in ("adamw", "fold")},
+        # phase 31 (b): qwen3-0.6b on DTensors, per forward (28 x 4 + 1)
+        # and in the forward of one AdamW step
+        "launches_dtensor_loss": dtensor["loss"]["launches"]["rmsnorm"],
+        "launches_dtensor_step": dtensor["step"]["launches"]["rmsnorm"],
         "launches_queue": {f"{kind} {arch}": r["launches"]["rmsnorm"]
                            for arch, by in queue.items() for kind, r in by.items()
                            if kind != "params"},
@@ -4199,6 +4575,7 @@ def main() -> int:
                       "mla_audio_train": mla_audio}))
     print(json.dumps({"phi3_vision": vlm_served, "phi3_vision_loss": vlm_loss,
                       "phi3_vision_train": vlm_train, "queue": queue}))
+    print(json.dumps({"sharded": sharded, "dtensor_lm": dtensor}))
     print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

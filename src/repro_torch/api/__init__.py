@@ -13,7 +13,7 @@ the four dense configs and zamba2-7b), with the recruitment auctions and their
 incentive mechanisms, the stateful policies, every aggregator and every
 cost model, client populations (``vectorized``, with lazily made shards)
 and mid-run checkpoints with resume; ``sweep_scenarios`` runs a grid of
-spec overrides. The ``sharded`` backend raises ``NotImplementedError``.
+spec overrides, on the ``serial``, ``vmap`` and ``sharded`` backends.
 The numpy-only axes (arrival processes, buffer controllers, cost models,
 policies, incentives, auctions and populations) are imported here and
 register themselves; the
@@ -114,8 +114,8 @@ _LAZY = {
                                    "aggregator_from_config", "get_aggregator"),
     "repro_torch.api.sweep": ("apply_override", "sweep_scenarios"),
     "repro_torch.api.backend": ("ClientBatch", "CohortResult", "CohortTask",
-                                "ExecutionBackend", "SerialBackend", "VmapBackend",
-                                "get_backend"),
+                                "ExecutionBackend", "SerialBackend", "ShardedBackend",
+                                "VmapBackend", "get_backend"),
 }
 _LAZY_MODULE = {name: mod for mod, names in _LAZY.items() for name in names}
 

@@ -16,8 +16,11 @@ rule. It must derive all randomness from its keys (the engines key by
 ``fold_in(round_key, client_id)``), so every backend computes the same
 per-client result:
 
-- ``serial`` — reference: one call per client, in cohort order.
-- ``vmap``   — the whole cohort in one call.
+- ``serial``  — reference: one call per client, in cohort order.
+- ``vmap``    — the whole cohort in one call.
+- ``sharded`` — the cohort split over a ``launch/mesh.py`` cohort mesh of
+  devices (pure data parallelism over clients), one call per part, the
+  parts gathered to the primary device; ``vmap`` on a one-device mesh.
 
 ``aggregate(stacked_updates, weights, normalizer=None)`` computes
 ``sum_k (w_k / max(normalizer, 1e-12)) * update_k`` per leaf
@@ -34,6 +37,7 @@ each cohort's inputs there.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Protocol, Tuple, runtime_checkable
 
@@ -169,6 +173,62 @@ class VmapBackend(_Backend):
             part.reshape(leaf.shape[1:]).to(leaf.dtype) for part, leaf in zip(parts, leaves)])
 
 
+@register_backend("sharded")
+class ShardedBackend(VmapBackend):
+    """The vmap step with the cohort axis split across a device mesh
+    (``launch/mesh.py``): pure data parallelism over clients. ``mesh`` is
+    a tuple of devices (repeats allowed: a device named twice runs two
+    parts); by default every card of this process (``(cpu,)`` on the CPU).
+    With one device in the mesh, or fewer than two clients, it is ``vmap``.
+
+    Otherwise the cohort's data splits into ``len(mesh)`` contiguous parts
+    (``torch.tensor_split``; empty parts are skipped), each moved straight
+    to its device with a copy of the params made once per device and call;
+    every part's ``local_fn`` is queued before any result is read, and the
+    updates and losses are gathered to the primary device in cohort order.
+    The keys stay where the engine put them, as under ``vmap``. Unlike the
+    JAX package, the cohort is not padded: the port runs cohorts at their
+    own size, and padding changes no kept result. The fold is ``vmap``'s:
+    the ``fedavg`` kernel on the primary device.
+    """
+
+    name = "sharded"
+
+    def __init__(self, device=None, mesh=None):
+        super().__init__(device)
+        self._mesh = None if mesh is None else tuple(torch.device(d) for d in mesh)
+
+    def _cohort_mesh(self):
+        if self._mesh is None:
+            from repro_torch.launch.mesh import make_cohort_mesh
+
+            self._mesh = make_cohort_mesh(device=self.device)
+        return self._mesh
+
+    def run_cohort(self, task_state, client_batch, rng=None):
+        mesh = self._cohort_mesh()
+        if len(mesh) <= 1 or len(client_batch) < 2:
+            return super().run_cohort(task_state, client_batch, rng)
+        params_on = {}
+        parts = []
+        for dev, rows in zip(mesh, torch.tensor_split(torch.arange(len(client_batch)),
+                                                      len(mesh))):
+            if len(rows) == 0:
+                continue
+            lo, hi = int(rows[0]), int(rows[-1]) + 1
+            if dev not in params_on:
+                params_on[dev] = tree_map(lambda t: t.to(dev), task_state.params)
+            keys = None if client_batch.keys is None else client_batch.keys[lo:hi]
+            data = tuple(tree_map(lambda t: t[lo:hi].to(dev), d) for d in client_batch.data)
+            on_dev = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with on_dev:
+                parts.append(task_state.local_fn(params_on[dev], keys, *data))
+        updates = tree_map(lambda *ls: torch.cat([leaf.to(self.device) for leaf in ls]),
+                           *(u for u, _ in parts))
+        losses = torch.cat([loss.to(self.device) for _, loss in parts])
+        return CohortResult(updates, losses)
+
+
 __all__ = [
     "BACKENDS",
     "ClientBatch",
@@ -176,6 +236,7 @@ __all__ = [
     "CohortTask",
     "ExecutionBackend",
     "SerialBackend",
+    "ShardedBackend",
     "VmapBackend",
     "get_backend",
     "register_backend",

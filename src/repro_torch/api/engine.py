@@ -9,8 +9,8 @@ incentive mechanism
 round loop or the async FedAST engine, and returns the same
 ``RunResult`` as the reference. Client populations and mid-run
 checkpoints with resume run in every engine, in the reference's
-checkpoint layout. The ``sharded`` backend raises ``NotImplementedError``
-naming the ROADMAP item that brings it; no spec feature is ignored.
+checkpoint layout. Every backend runs (``serial``, ``vmap`` and
+``sharded``); no spec feature is ignored.
 
     result = run_scenario(ScenarioSpec(tasks=[TaskSpec("synth-mnist")]))
     result.fairness["min_acc"], result.to_json()
@@ -687,17 +687,6 @@ class ArchSyncEngine:
         )
 
 
-def _unported(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP.md queue 1, {item})")
-
-
-def _require_ported(spec: ScenarioSpec) -> None:
-    """Refuse every spec feature the port has not ported."""
-    if spec.runtime.backend == "sharded":
-        raise _unported("the 'sharded' backend", "item 14: multi-GPU")
-
-
 def _require_named_options(spec: ScenarioSpec) -> None:
     """Options make sense only once an entry is named; silently ignoring
     them would hide typos."""
@@ -725,15 +714,14 @@ def run_scenario(spec: ScenarioSpec, verbose: bool = False, device=None) -> RunR
     passes ``device="cpu"``).
 
     Resolves every registry key up front, so typos fail fast with the
-    valid names, refuses features the port has not ported, runs the
-    optional recruitment auction (round 0 of its incentive mechanism) to
-    produce the eligibility matrix, then drives the sync or async runtime.
+    valid names, runs the optional recruitment auction (round 0 of its
+    incentive mechanism) to produce the eligibility matrix, then drives
+    the sync or async runtime.
     """
     dev = resolve_device(device)
     # snapshot: the RunResult's provenance record must not change if the
     # caller mutates the spec after the run
     spec = copy.deepcopy(spec)
-    _require_ported(spec)
     family = TASK_FAMILIES.get(spec.family)()
     ALLOCATORS.get(spec.allocation.strategy)
     if spec.policy is not None:

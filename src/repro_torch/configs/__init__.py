@@ -21,3 +21,17 @@ from repro_torch.configs import (  # noqa: F401
     xlstm_1_3b,
     zamba2_7b,
 )
+
+# the JAX package's assigned archs, in its order
+ASSIGNED_ARCHS = (
+    "zamba2-7b",
+    "phi-3-vision-4.2b",
+    "qwen3-0.6b",
+    "deepseek-v2-lite-16b",
+    "qwen2-moe-a2.7b",
+    "smollm-135m",
+    "xlstm-1.3b",
+    "whisper-medium",
+    "qwen1.5-0.5b",
+    "qwen1.5-110b",
+)

@@ -19,6 +19,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
@@ -33,8 +34,14 @@ def params_from_numpy(tree: Any, device=None) -> Any:
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """Tensor pytree -> the same tree of numpy arrays on the host."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """Tensor pytree -> the same tree of numpy arrays on the host; a
+    DTensor leaf is gathered whole first (``full_tensor``)."""
+    def host(t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        return t.detach().cpu().numpy()
+
+    return tree_map(host, tree)
 
 
 def _tensor(a) -> torch.Tensor:

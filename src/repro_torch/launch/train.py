@@ -358,7 +358,8 @@ def _parser() -> argparse.ArgumentParser:
                     help=">1: true FedAvg with tau local steps per client")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="serial",
-                    help="cohort execution backend (serial | vmap | registered BACKENDS key)")
+                    help="cohort execution backend (serial | vmap | sharded | registered "
+                         "BACKENDS key)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="full-state checkpoints for both engines, in the JAX package's "
                          "layout: every N rounds (sync) or N flushes (async)")

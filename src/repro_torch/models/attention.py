@@ -18,6 +18,8 @@ each row decode at its own position (continuous batching,
 ``attn_train`` runs the ``flash_attention`` kernel when ``cfg.use_pallas``
 is set and S % 128 == 0, the JAX package's gate; otherwise, and in prefill
 and decode, the model's own chunked softmax attention ``_sdpa_chunked``.
+On DTensors either runs on the local shards
+(``sharding.partition.on_local_shards``).
 MLA (q/k heads of nope + rope width, a compressed latent cache
 ``{"c_kv", "k_rope", "positions"}``) and cross-attention (no mask, no
 RoPE) always take ``_sdpa_chunked``, as in the JAX package. An MLA cache
@@ -27,10 +29,12 @@ has no per-row form, as there.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import prng
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, dtype_of, normal, rms_norm
+from repro_torch.sharding.partition import on_local_shards
 
 Q_CHUNK = 512
 PER_ROW_MLA = "per-row decode: GQA caches only"
@@ -132,17 +136,27 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, scale, causal=True, window=0, chunk=Q_C
     return torch.cat(outs, dim=1).reshape(B, Sq, H, dv)
 
 
+def _train_attention(q, k, v, pos, scale, flash: bool):
+    """Causal attention of a training forward, (B, S, H, hd) in and out:
+    the ``flash_attention`` kernel (on (B, H, S, hd) views) or the chunked
+    softmax."""
+    if flash:
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=True).transpose(1, 2)
+    return _sdpa_chunked(q, k, v, pos, pos, scale, causal=True, window=0)
+
+
 def attn_train(p, cfg, x, positions, lora=None):
     q, k, v = _project_qkv(p, cfg, x, lora)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     B, S = x.shape[:2]
-    if cfg.use_pallas and S % 128 == 0:
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                            causal=True).transpose(1, 2)
+    kw = dict(pos=positions[0], scale=cfg.hd ** -0.5, flash=cfg.use_pallas and S % 128 == 0)
+    if isinstance(q, DTensor):
+        # on the local shards, whole along the sequence and the head dim
+        o = on_local_shards(_train_attention, (q, k, v), ((1, 3),) * 3, **kw)
     else:
-        o = _sdpa_chunked(q, k, v, positions[0], positions[0], cfg.hd ** -0.5,
-                          causal=True, window=0)
+        o = _train_attention(q, k, v, **kw)
     return _bias(o.reshape(B, S, -1) @ p["wo"], p, "bo")
 
 

@@ -29,6 +29,7 @@ from repro_torch.models.attention import _bias, _sdpa_chunked
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, gelu_mlp, init_embedding,
                                        init_gelu_mlp, layer_norm, normal, sinusoidal_positions,
                                        stacked_init)
+from repro_torch.sharding.partition import constrain, dense_only
 from repro_torch.tree import tree_map, unstack
 
 
@@ -113,7 +114,7 @@ def _remat(cfg) -> bool:
 def _enc_layer(p_l, cfg, x):
     a, _ = _self_attn_norope(p_l["attn"], cfg, _ln(x, p_l["ln1"], cfg), causal=False)
     x = x + a
-    return x + gelu_mlp(p_l["mlp"], _ln(x, p_l["ln2"], cfg))
+    return constrain(x + gelu_mlp(p_l["mlp"], _ln(x, p_l["ln2"], cfg)), "activation")
 
 
 def encode(params, cfg, frames):
@@ -138,7 +139,7 @@ def _dec_layer(p_l, cfg, x, enc_or_kv, mode, self_c=None, pos=None):
     x = x + a
     kv = enc_or_kv if mode == "decode" else attn.cross_kv(p_l["cross_attn"], cfg, enc_or_kv)
     x = x + attn.cross_attn(p_l["cross_attn"], cfg, _ln(x, p_l["ln_x"], cfg), kv)
-    x = x + gelu_mlp(p_l["mlp"], _ln(x, p_l["ln2"], cfg))
+    x = constrain(x + gelu_mlp(p_l["mlp"], _ln(x, p_l["ln2"], cfg)), "activation")
     return x, new_self, kv
 
 
@@ -175,13 +176,14 @@ def _embed_text(params, cfg, tokens):
     return x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)
 
 
+@dense_only("the encoder-decoder family")
 def encdec_loss(params, cfg, batch):
     """Mean next-token CE over labels in [0, vocab_size) (weighted by
     ``batch["client_weights"]`` per row where given), of the decoder on
     the encoded ``batch["frames"]``. Returns (loss, {})."""
     enc = encode(params, cfg, batch["frames"])
     x, _ = _decoder(params, cfg, _embed_text(params, cfg, batch["tokens"]), enc, "train")
-    logits = x @ params["head"]
+    logits = constrain(x @ params["head"], "logits")
     labels = batch["labels"]
     mask = ((labels >= 0) & (labels < cfg.vocab_size)).to(torch.float32)
     if "client_weights" in batch:
@@ -189,11 +191,12 @@ def encdec_loss(params, cfg, batch):
     return cross_entropy(logits, torch.clamp(labels, min=0), mask), {}
 
 
+@dense_only("the encoder-decoder family")
 def encdec_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the caches."""
     enc = encode(params, cfg, batch["frames"])
     x, caches = _decoder(params, cfg, _embed_text(params, cfg, batch["tokens"]), enc, "prefill")
-    return x[:, -1:, :] @ params["head"], caches
+    return constrain(x[:, -1:, :] @ params["head"], "logits"), caches
 
 
 def init_encdec_cache(params, cfg, batch_size, length, dtype):
@@ -219,6 +222,7 @@ def decode_positions(pos: int, d: int, device) -> torch.Tensor:
     return torch.where(idx % 2 == 0, torch.sin(ang), torch.cos(ang))
 
 
+@dense_only("the encoder-decoder family")
 def encdec_decode(params, cfg, token, pos, caches):
     """token: (B, 1) ints; pos: the absolute position (int). Writes the new
     self-attention slot into ``caches`` in place and returns (logits (B, 1,
@@ -227,4 +231,4 @@ def encdec_decode(params, cfg, token, pos, caches):
     x = embed(params["emb"], token)
     x = x + decode_positions(pos, cfg.d_model, x.device).to(x.dtype)
     x, caches = _decoder(params, cfg, x, None, "decode", caches=caches, pos=pos)
-    return x @ params["head"], caches
+    return constrain(x @ params["head"], "logits"), caches

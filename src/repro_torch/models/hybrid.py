@@ -28,6 +28,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embedding,
                                        init_swiglu, normal, rms_norm, stacked_init, swiglu)
+from repro_torch.sharding.partition import constrain, dense_only
 from repro_torch.tree import tree_map, unstack
 
 
@@ -80,7 +81,7 @@ def _mamba_layer(p_l, cfg, x, mode, cache=None):
         m, new_c = ssm.mamba2_forward(p_l["mamba"], cfg, h, return_state=True)
     else:
         m, new_c = ssm.mamba2_forward(p_l["mamba"], cfg, h), None
-    return x + m, new_c
+    return constrain(x + m, "activation"), new_c
 
 
 def _shared_apply(params, cfg, x, positions, slot, mode, cache=None, pos=None):
@@ -96,7 +97,7 @@ def _shared_apply(params, cfg, x, positions, slot, mode, cache=None, pos=None):
         a, new_cache = attn.attn_decode(sp["attn"], cfg, h, pos, cache, lora=lora)
     x = x + a
     x = x + swiglu(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps))
-    return x, new_cache
+    return constrain(x, "activation"), new_cache
 
 
 def _split_layers(cfg):
@@ -150,6 +151,7 @@ def _positions(B, S, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+@dense_only("the hybrid family")
 def hybrid_loss(params, cfg, batch):
     """Mean next-token CE over labels >= 0 (weighted by
     ``batch["client_weights"]`` per row where given). Returns (loss, {})."""
@@ -157,7 +159,7 @@ def hybrid_loss(params, cfg, batch):
     B, S = tokens.shape
     x = embed(params["emb"], tokens)
     x, _ = _backbone(params, cfg, x, _positions(B, S, x.device), "train")
-    logits = x @ params["head"]
+    logits = constrain(x @ params["head"], "logits")
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     if "client_weights" in batch:
@@ -165,13 +167,14 @@ def hybrid_loss(params, cfg, batch):
     return cross_entropy(logits, torch.clamp(labels, min=0), mask), {}
 
 
+@dense_only("the hybrid family")
 def hybrid_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the filled caches."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed(params["emb"], tokens)
     x, caches = _backbone(params, cfg, x, _positions(B, S, x.device), "prefill")
-    return x[:, -1:, :] @ params["head"], caches
+    return constrain(x[:, -1:, :] @ params["head"], "logits"), caches
 
 
 def init_hybrid_cache(params, cfg, batch_size, length, dtype):
@@ -186,9 +189,10 @@ def init_hybrid_cache(params, cfg, batch_size, length, dtype):
             "shared": {k: t.expand(n_slots, *t.shape).clone() for k, t in one.items()}}
 
 
+@dense_only("the hybrid family")
 def hybrid_decode(params, cfg, token, pos, caches):
     """token: (B, 1) ints; pos: the absolute position (int). Writes the new
     state into ``caches`` in place and returns (logits (B, 1, V), caches)."""
     x = embed(params["emb"], token)
     x, caches = _backbone(params, cfg, x, None, "decode", caches=caches, pos=pos)
-    return x @ params["head"], caches
+    return constrain(x @ params["head"], "logits"), caches

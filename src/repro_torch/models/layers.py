@@ -18,9 +18,11 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import prng
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_trainable
+from repro_torch.sharding.partition import on_local_shards
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -38,7 +40,14 @@ def rms_norm(x, scale, eps=1e-6):
     """Row-wise RMSNorm over the last axis: the ``rmsnorm`` kernel on a CUDA
     tensor, its plain version on a CPU one. Where autograd records the
     call (training), through ``rmsnorm_trainable``: the same forward and a
-    plain analytic backward."""
+    plain analytic backward. DTensors go to it as their local shards, with
+    the last axis whole (``sharding.partition.on_local_shards``)."""
+    if isinstance(x, DTensor) or isinstance(scale, DTensor):
+        return on_local_shards(_rms_norm, (x, scale), ((-1,), (0,)), eps=eps)
+    return _rms_norm(x, scale, eps)
+
+
+def _rms_norm(x, scale, eps=1e-6):
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return rmsnorm_trainable(x, scale, eps)
     return rmsnorm(x, scale, eps)
@@ -140,7 +149,17 @@ def init_embedding(key, vocab, d_model, dtype):
     return {"tok": normal(key, (vocab, d_model), 0.02, dtype)}
 
 
+def _lookup(tokens, table):
+    return table[tokens]
+
+
 def embed(p, tokens):
+    if isinstance(p["tok"], DTensor):
+        # on the local shards: the tokens keep their batch split, the
+        # table is gathered whole (its gradient a pending sum over the
+        # split); DTensor's own gather and embedding rules for a sharded
+        # index do not run on every torch this targets
+        return on_local_shards(_lookup, (tokens, p["tok"]), ((), (0, 1)))
     return p["tok"][tokens]
 
 
@@ -157,7 +176,14 @@ def cross_entropy(logits, labels, mask=None):
     """Mean CE over valid positions; logits (..., V) cast to f32, labels int."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # the gold logit as a masked sum, which a vocab-sharded DTensor
+        # reduces across its shards (a gather along a sharded axis does
+        # not run); exact, as every other term is 0
+        hit = torch.arange(logits.shape[-1], device=logits.device) == labels.long()[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
         mask = torch.ones_like(nll)

@@ -6,10 +6,14 @@ config after its ``first_dense_layers``), so ``interop.lm_params_from_numpy``
 carries a JAX tree across by key. Where the JAX package ``lax.scan``s over
 a stack, the port loops over it in Python, summing the MoE layers'
 load-balance losses in layer order as the scan does. Its sharding
-constraints have no counterpart on one GPU (multi-GPU is ROADMAP queue 1
-item 14). With ``cfg.use_mla`` (deepseek-v2-lite) every layer's attention
-is MLA (``attention.mla_*``; decode absorbed under ``cfg.mla_absorb``).
-The vlm family (phi-3-vision) is this dense LM with ``n_img_tokens``
+constraints sit where the JAX package's do
+(``sharding.partition.constrain`` after each block and on the logits):
+with no sharding context, or on plain tensors, they return their input.
+On DTensor params (a ``sharding.partition.use_mesh`` run) the dense and
+vlm configs run sharded; MoE and MLA configs raise. With
+``cfg.use_mla`` (deepseek-v2-lite) every layer's attention is MLA
+(``attention.mla_*``; decode absorbed under ``cfg.mla_absorb``). The vlm
+family (phi-3-vision) is this dense LM with ``n_img_tokens``
 image embeddings ahead of the text, which carry no loss. The hybrid
 (``hybrid.py``), xLSTM (``xlstm_lm.py``) and encoder-decoder
 (``encdec.py``) families have their own assemblies.
@@ -26,6 +30,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embedding,
                                        init_swiglu, normal, rms_norm, stacked_init, swiglu)
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.sharding.partition import UNSHARDED_FAMILIES, constrain, is_sharded_tree
 from repro_torch.tree import tree_map, unstack
 
 PORTED_ARCHS = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
@@ -40,6 +45,13 @@ def check_ported(cfg) -> None:
     if cfg.arch_type not in PORTED_ARCHS:
         raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported: it is not an "
                                   "arch type of the JAX package")
+
+
+def _check_sharded(params, cfg) -> None:
+    """DTensor params of an MoE or MLA config raise ``NotImplementedError``
+    rather than run half-sharded."""
+    if (cfg.is_moe or cfg.use_mla) and is_sharded_tree(params):
+        raise NotImplementedError(UNSHARDED_FAMILIES.format(what=f"{cfg.name} (MoE or MLA)"))
 
 
 # ----------------------------------------------------------------- init
@@ -103,7 +115,7 @@ def _block_apply(p, cfg, x, positions, kind, mode, cache=None, pos=None):
         f, aux = moe_ffn(p["ffn"], cfg, h, groups=cfg.moe_groups)
     else:
         f, aux = swiglu(p["ffn"], h), 0.0
-    return x + f, new_cache, aux
+    return constrain(x + f, "activation"), new_cache, aux
 
 
 def lm_backbone(params, cfg, x, positions, mode, caches=None, pos=None):
@@ -141,7 +153,7 @@ def lm_backbone(params, cfg, x, positions, mode, caches=None, pos=None):
 
 def lm_logits(params, cfg, x):
     head = params.get("head")
-    return x @ (head if head is not None else params["emb"]["tok"].T)
+    return constrain(x @ (head if head is not None else params["emb"]["tok"].T), "logits")
 
 
 # ----------------------------------------------------------------- entry
@@ -167,6 +179,7 @@ def lm_loss(params, cfg, batch):
     the sequence (a vlm's text after its image embeddings) are padded on
     the left with -1, so the image positions carry no loss. Returns (loss,
     {"aux": aux}); aux is 0.0 without MoE layers."""
+    _check_sharded(params, cfg)
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     x, aux, _ = lm_backbone(params, cfg, x, _positions(B, S, x.device), "train")
@@ -185,6 +198,7 @@ def lm_loss(params, cfg, batch):
 
 def lm_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the filled caches."""
+    _check_sharded(params, cfg)
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     x, _, caches = lm_backbone(params, cfg, x, _positions(B, S, x.device), "prefill")
@@ -213,6 +227,7 @@ def lm_decode(params, cfg, token, pos, caches):
     (``init_lm_cache(per_row=True)``). Writes the new slot into ``caches``
     in place (it consumes the caches it is given) and returns (logits
     (B, 1, V), caches)."""
+    _check_sharded(params, cfg)
     x = embed(params["emb"], token)
     x, _, caches = lm_backbone(params, cfg, x, None, "decode", caches=caches, pos=pos)
     return lm_logits(params, cfg, x), caches

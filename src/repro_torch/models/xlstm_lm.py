@@ -22,6 +22,7 @@ from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embe
 from repro_torch.models.xlstm import (init_mlstm, init_mlstm_cache, init_slstm,
                                       init_slstm_state, mlstm_decode, mlstm_forward,
                                       slstm_decode, slstm_forward)
+from repro_torch.sharding.partition import constrain, dense_only
 from repro_torch.tree import tree_map, unstack
 
 
@@ -66,7 +67,7 @@ def _mlstm_block(p_l, cfg, x, mode, cache=None):
         m, c = mlstm_forward(p_l["cell"], cfg, h, return_state=True)
     else:
         m, c = mlstm_forward(p_l["cell"], cfg, h), None
-    return x + m, c
+    return constrain(x + m, "activation"), c
 
 
 def _slstm_block(p_l, cfg, x, mode, state=None):
@@ -77,7 +78,7 @@ def _slstm_block(p_l, cfg, x, mode, state=None):
         m, st = slstm_forward(p_l["cell"], cfg, h, return_state=True)
     else:
         m, st = slstm_forward(p_l["cell"], cfg, h), None
-    return x + m, st
+    return constrain(x + m, "activation"), st
 
 
 def _backbone(params, cfg, x, mode, caches=None):
@@ -119,12 +120,13 @@ def _backbone(params, cfg, x, mode, caches=None):
     return x, caches
 
 
+@dense_only("the xLSTM family")
 def xlstm_loss(params, cfg, batch):
     """Mean next-token CE over labels >= 0 (weighted by
     ``batch["client_weights"]`` per row where given). Returns (loss, {})."""
     x = embed(params["emb"], batch["tokens"])
     x, _ = _backbone(params, cfg, x, "train")
-    logits = x @ params["head"]
+    logits = constrain(x @ params["head"], "logits")
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     if "client_weights" in batch:
@@ -132,11 +134,12 @@ def xlstm_loss(params, cfg, batch):
     return cross_entropy(logits, torch.clamp(labels, min=0), mask), {}
 
 
+@dense_only("the xLSTM family")
 def xlstm_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the filled caches."""
     x = embed(params["emb"], batch["tokens"])
     x, caches = _backbone(params, cfg, x, "prefill")
-    return x[:, -1:, :] @ params["head"], caches
+    return constrain(x[:, -1:, :] @ params["head"], "logits"), caches
 
 
 def init_xlstm_cache(params, cfg, batch_size, length, dtype):
@@ -155,6 +158,7 @@ def init_xlstm_cache(params, cfg, batch_size, length, dtype):
     return {"mlstm": mc, "slstm": sc}
 
 
+@dense_only("the xLSTM family")
 def xlstm_decode(params, cfg, token, pos, caches):
     """token: (B, 1) ints; pos is unused (the state carries the position).
     Writes the new state into ``caches`` in place and returns (logits
@@ -162,4 +166,4 @@ def xlstm_decode(params, cfg, token, pos, caches):
     del pos
     x = embed(params["emb"], token)
     x, caches = _backbone(params, cfg, x, "decode", caches=caches)
-    return x @ params["head"], caches
+    return constrain(x @ params["head"], "logits"), caches

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import tree_leaves_sorted, tree_map
 
@@ -40,8 +41,20 @@ def clip_by_global_norm(grads, max_norm):
     return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), gn
 
 
+def _as_param(g, p):
+    """``g`` laid out as its param: a DTensor gradient whose placements
+    differ from the param's (a stacked leaf's gradient comes back split
+    along the layer axis, a replicated one as a pending sum) is
+    redistributed to them, so the step and its state keep each param's
+    layout."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _zeros_f32(p):
-    return torch.zeros(p.shape, dtype=F32, device=p.device)
+    # zeros_like: a DTensor param gets moments of its own layout
+    return torch.zeros_like(p, dtype=F32, memory_format=torch.contiguous_format)
 
 
 def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01, max_grad_norm=0.0):
@@ -62,7 +75,7 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01, max_grad_norm=0
         bc2 = 1.0 - b2 ** c
 
         def upd(p, g, mu, nu):
-            g32 = g.to(F32)
+            g32 = _as_param(g, p).to(F32)
             mu = b1 * mu + (1 - b1) * g32
             nu = b2 * nu + (1 - b2) * g32.square()
             step = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)

@@ -233,6 +233,10 @@ def _draw(values, key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     goes one leading key at a time, a single key's draw too large for one
     call by ranges of its counter. The values do not depend on the split."""
     shape = tuple(int(s) for s in shape)
+    if key.device.type == "meta":
+        # no values to draw: a meta init (shapes and dtypes only) skips the
+        # threefry graph, which the meta device walks op by op on the host
+        return torch.empty(*key.shape[:-1], *shape, dtype=torch.float32, device="meta")
     n = math.prod(shape)
     if key.ndim >= 2 and key[..., 0].numel() * n > MAX_BATCHED_DRAW:
         out = torch.empty(*key.shape[:-1], *shape, dtype=torch.float32, device=key.device)

@@ -63,6 +63,15 @@ def test_train_slice_modules_are_checked(rel):
     assert ROOT / "src" / "repro_torch" / rel in FILES
 
 
+MESH_SLICE = ["launch/mesh.py", "sharding/__init__.py", "sharding/partition.py",
+              "api/backend.py"]
+
+
+@pytest.mark.parametrize("rel", MESH_SLICE)
+def test_mesh_slice_modules_are_checked(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
 def test_importing_every_port_module_loads_no_jax():
     """Import every module of the port in a fresh interpreter, then look at
     what was loaded: neither jax nor the JAX package."""

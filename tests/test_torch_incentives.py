@@ -226,22 +226,30 @@ def _with(spec, **changes):
 @pytest.mark.parametrize("changes,item", [
     (dict(clients__population="vectorized"), None),
     (dict(runtime__checkpoint_dir="ckpt"), None),
-    (dict(runtime__backend="sharded"), "item 14"),
+    (dict(runtime__backend="sharded"), "vmap"),
 ], ids=["population", "checkpoint", "sharded"])
 def test_remaining_refusals_still_raise(mode, changes, item, tmp_path):
-    """Only the sharded backend is still refused; a population and
-    checkpoints now run with an auction in both modes."""
+    """Nothing is refused any more: a population, checkpoints and the
+    sharded backend (once refused naming ROADMAP item 14) run with an
+    auction in both modes; the sharded run equals the same spec on
+    ``item``'s backend within 1e-6, with the same auction and traces."""
     if "runtime__checkpoint_dir" in changes:
         changes = dict(runtime__checkpoint_dir=str(tmp_path / "ckpt"),
                        runtime__checkpoint_every=1)
-    spec = _with(_async(tapi, arrivals=4, auction=dict(mechanism="gmmfair", **EXP5)),
-                 runtime__mode=mode, **changes)
+
+    def spec_with(**extra):
+        return _with(_async(tapi, arrivals=4, auction=dict(mechanism="gmmfair", **EXP5)),
+                     runtime__mode=mode, **extra)
+
+    res = tapi.run_scenario(spec_with(**changes), device="cpu")
+    assert res.auction is not None and np.isfinite(res.acc).all()
     if item is None:
-        res = tapi.run_scenario(spec, device="cpu")
-        assert res.auction is not None and np.isfinite(res.acc).all()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.run_scenario(spec, device="cpu")
+    want = tapi.run_scenario(spec_with(runtime__backend=item), device="cpu")
+    assert res.auction == want.auction
+    np.testing.assert_array_equal(res.alloc, want.alloc)
+    np.testing.assert_allclose(res.acc, want.acc, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(res.loss, want.loss, atol=1e-6, rtol=0)
 
 
 def test_arch_family_with_an_auction_still_raises():

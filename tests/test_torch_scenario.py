@@ -82,20 +82,25 @@ def _with(spec, **changes):
     (dict(runtime__mode="async", clients__population="vectorized"), None),
     (dict(clients__population="vectorized"), None),
     (dict(runtime__checkpoint_dir="ckpt"), None),
-    (dict(runtime__backend="sharded"), "item 14"),
+    (dict(runtime__backend="sharded"), "vmap"),
 ], ids=["async", "population", "checkpoint", "sharded"])
 def test_unported_feature_raises(changes, item, tmp_path):
-    """Only the sharded backend is still refused; populations (both modes)
-    and checkpoints run."""
+    """No spec feature is refused any more: populations (both modes),
+    checkpoints and the sharded backend run (once refused naming ROADMAP
+    item 14); the sharded run equals the same spec on ``item``'s backend
+    within 1e-6, with identical allocation traces."""
     if "runtime__checkpoint_dir" in changes:
         changes = dict(runtime__checkpoint_dir=str(tmp_path / "ckpt"),
                        runtime__checkpoint_every=1)
     spec = _with(_spec(tapi, rounds=1), **changes)
+    res = tapi.run_scenario(spec, device="cpu")
+    assert np.isfinite(res.acc).all()
     if item is None:
-        assert np.isfinite(tapi.run_scenario(spec, device="cpu").acc).all()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.run_scenario(spec, device="cpu")
+    want = tapi.run_scenario(_with(_spec(tapi, rounds=1), runtime__backend=item), device="cpu")
+    np.testing.assert_array_equal(res.alloc, want.alloc)
+    np.testing.assert_allclose(res.acc, want.acc, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(res.loss, want.loss, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("changes", [

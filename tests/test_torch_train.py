@@ -312,17 +312,15 @@ def test_train_cli_needs_cuda_without_device(monkeypatch):
 @pytest.mark.parametrize("flags,item", [
     (["--population", "vectorized"], None),
     (["--checkpoint-dir", "ckpt"], None),
-    (["--backend", "sharded"], "item 14"),
+    (["--backend", "sharded"], "vmap"),
 ], ids=["population", "checkpoint", "sharded"])
 def test_train_cli_refusals_name_their_items(mode, flags, item, tmp_path):
-    """Only --backend sharded is still refused; --population and
-    --checkpoint-dir (then --resume) reach run_scenario and run."""
+    """Nothing is refused any more: --population, --checkpoint-dir (then
+    --resume) and --backend sharded (once refused naming ROADMAP item 14)
+    reach run_scenario and run; the sharded run equals ``--backend
+    item``'s within 1e-6."""
     argv = ["--archs", "smollm-135m", "--clients", "2", "--rounds", "1", "--seq", "8",
             "--batch", "2", "--device", "cpu"] + mode
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            ttrain.main(argv + flags)
-        return
     # one intra-op thread: the suite's worker processes share the CPU
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -334,6 +332,10 @@ def test_train_cli_refusals_name_their_items(mode, flags, item, tmp_path):
             np.testing.assert_array_equal(res.loss, first.loss)
         else:
             res = ttrain.main(argv + flags)
+        if item is not None:
+            want = ttrain.main(argv + ["--backend", item])
+            np.testing.assert_array_equal(res.alloc, want.alloc)
+            np.testing.assert_allclose(res.loss, want.loss, atol=1e-6, rtol=0)
     finally:
         torch.set_num_threads(threads)
     assert res.mode == ("async" if mode else "sync") and int(res.arrivals.sum()) >= 1
