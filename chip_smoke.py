@@ -282,7 +282,22 @@ printed only when every phase passed:
    (``server_opt``): gradients within 1e-6 x max(1, max|g|), params by
    the first-step rule of ``tests/test_torch_train.py``, every param's
    placements kept; step time on DTensors against plain, peak memory.
-32. A JSON line describing every kernel, the card line, and the final
+32. Every family on DTensors, and the dry-run. (a) zamba2-7b (one group
+   of 6 Mamba2 layers and its shared slot), qwen2-moe-a2.7b and
+   deepseek-v2-lite-16b (2 layers; MLA expanded, and absorbed with its
+   cache split by sequence), xlstm-1.3b (7 mLSTM + 1 sLSTM) and
+   whisper-medium (2 + 2 layers) at full width, f32, and qwen3-0.6b at
+   full depth, on DTensors of a (1, 1) mesh of a 1-rank NCCL group
+   against the same params as plain tensors: the loss at B=4, S=256 with
+   and without ``use_pallas`` (within 1e-6 relative; the same launches a
+   forward on both sides, zamba2's ``ssd_scan`` and ``gated_rmsnorm`` on
+   the local shards), a prefill of 8 x 128 and 8 greedy tokens with caches
+   laid out by ``partition.cache_spec`` (identical tokens and MoE routing,
+   logits within 1e-4). (b) ``python -m repro_torch.launch.dryrun`` of
+   qwen3-0.6b x train_4k and deepseek-v2-lite-16b x decode_32k on the
+   host, each in its own process on a fake group of 256 ranks, with a
+   timeout: each record ``ok``, on meta tensors only.
+33. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 In phases 16-20, 24, 27 and 29 every fedavg call of the card's runs is also held
@@ -4306,6 +4321,214 @@ def phase_dtensor_lm(line: str):
         dist.destroy_process_group()
 
 
+# phase 32: every family on DTensors of a (1, 1) mesh, and the dry-run on the host
+DTENSOR_FAMILIES = (
+    # (label, arch, config cut in depth, decode settings)
+    ("zamba2-7b", "zamba2-7b", dict(n_layers=6), ({},)),     # one group of 6 + its shared slot
+    ("qwen2-moe-a2.7b", "qwen2-moe-a2.7b", dict(n_layers=2), ({},)),
+    ("deepseek-v2-lite-16b", "deepseek-v2-lite-16b", dict(n_layers=2),
+     ({"mla_absorb": False}, {"mla_absorb": True, "mla_cache_shard": "seq"})),
+    ("xlstm-1.3b", "xlstm-1.3b", dict(n_layers=8), ({},)),    # 7 mLSTM + 1 sLSTM
+    ("whisper-medium", "whisper-medium", dict(n_layers=2, n_enc_layers=2), ({},)),
+    ("qwen3-0.6b", "qwen3-0.6b", {}, ({},)),                 # dense decode, full depth
+)
+DTENSOR_FAMILY_LOSS = dict(B=4, S=256)                       # S % 128: flash under use_pallas
+DTENSOR_FAMILY_GEN = 8
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"))
+DRYRUN_TIMEOUT = 400
+
+
+def _dtensor_family(label: str, arch: str, cut: dict, decodes, mesh) -> dict:
+    """One family at full width, f32, cut in depth: its loss with and
+    without use_pallas (launches per forward), then a prefill of B 8 x 128
+    and 8 greedy tokens, on plain tensors and on DTensors of ``mesh`` (the
+    caches laid out by ``partition.cache_spec``), from the same params."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    import repro_torch.models.moe as moe_mod
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_features
+    from repro_torch.models import get_api, pad_cache
+    from repro_torch.sharding import partition as part
+
+    cfg = get_config(arch).replace(**cut)
+    api = get_api(cfg)
+    params, rec = _init_family(label, cfg)
+    B, S, G = DTENSOR_FAMILY_LOSS["B"], DTENSOR_FAMILY_LOSS["S"], DTENSOR_FAMILY_GEN
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous(),
+             **serve_features(prng.PRNGKey(32, device=torch.device("cuda")), cfg, B)}
+    prompts = _serve_prompts(cfg)
+    pbatch = {"tokens": prompts, "labels": prompts,
+              **serve_features(prng.PRNGKey(0, device=torch.device("cuda")), cfg, SERVE_BATCH)}
+    routes = []
+    orig_route = moe_mod.moe_route
+
+    def route(p, c, xf):
+        out = orig_route(p, c, xf)
+        routes.append((out[1].cpu(), torch.where(out[2] > 0, out[3], -1).cpu()))
+        return out
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def loss(p, b, c):
+        """(loss, launches, ms) of one forward without autograd."""
+        with torch.no_grad():
+            api.loss_fn(p, c, b)                              # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            value = float(full(api.loss_fn(p, c, b)[0]))
+            ms = (time.perf_counter() - t0) * 1e3
+        return value, dict(LAUNCHES), ms
+
+    def generate(p, c, b, sharded):
+        routes.clear()
+        with torch.no_grad():
+            reset_launches()
+            logits, caches = api.prefill_fn(p, c, b)
+            caches = pad_cache(caches, SERVE_PROMPT, SERVE_PROMPT + G)
+            if sharded:
+                caches = part.distribute_caches(caches, mesh, SERVE_BATCH)
+            logs, out = [full(logits)[:, -1].float().cpu()], []
+            tok = torch.argmax(logits[:, -1:, :c.vocab_size], dim=-1)
+            for i in range(G):
+                out.append(full(tok).cpu())
+                logits, caches = api.decode_fn(p, c, tok, SERVE_PROMPT + i, caches)
+                logs.append(full(logits)[:, -1].float().cpu())
+                tok = torch.argmax(logits[:, -1:, :c.vocab_size], dim=-1)
+            torch.cuda.synchronize()
+        return torch.cat(out, 1), torch.stack(logs), list(routes), dict(LAUNCHES)
+
+    moe_mod.moe_route = route
+    try:
+        pcfg = cfg.replace(use_pallas=True)
+        plain = {name: loss(params, batch, c) for name, c in (("loss", cfg),
+                                                               ("loss_use_pallas", pcfg))}
+        plain_gen = [generate(params, cfg.replace(**d), pbatch, False) for d in decodes]
+        with part.use_mesh(mesh):
+            dp = part.dp_axes(mesh)
+            part.set_sharding_ctx(activation=(mesh, part.P(dp, None, "model")),
+                                  logits=(mesh, part.P(dp, None, "model")))
+            dparams = part.distribute_tree(params, part.tree_param_specs(params, cfg), mesh)
+
+            def on_mesh(b, n):
+                return {k: distribute_tensor(v, mesh, part.placements(
+                    mesh, part.batch_spec(mesh, n, v.ndim))) for k, v in b.items()}
+
+            got = {name: loss(dparams, on_mesh(batch, B), c)
+                   for name, c in (("loss", cfg), ("loss_use_pallas", pcfg))}
+            got_gen = []
+            for d in decodes:
+                part.set_sharding_ctx(mla_cache_shard=d.get("mla_cache_shard", "latent"))
+                got_gen.append(generate(dparams, cfg.replace(**d), on_mesh(pbatch, SERVE_BATCH),
+                                        True))
+            del dparams
+    finally:
+        moe_mod.moe_route = orig_route
+    for name in plain:
+        (lw, nw, msw), (lg, ng, msg) = plain[name], got[name]
+        if nw != ng or (name == "loss_use_pallas" and arch == "zamba2-7b" and not (
+                ng.get("ssd_scan") == ng.get("gated_rmsnorm") == cfg.n_layers)):
+            fail(f"{label} {name}: launches plain {nw}, DTensor {ng}")
+        if not abs(lg - lw) <= 1e-6 * abs(lw):
+            fail(f"{label} {name}: DTensor loss {lg} against plain {lw} (1e-6 relative)")
+        rec[name] = {"plain": lw, "dtensor": lg, "launches": ng, "ms_plain": msw,
+                     "ms_dtensor": msg}
+        print(f"{label} {name} (B {B}, S {S}): DTensor {lg:.7f}, plain {lw:.7f}; launches per "
+              f"forward {ng} on both; {msg:.1f} ms against {msw:.1f} ms plain")
+    rec["decode"] = []
+    for d, (ptok, plog, proute, pl), (dtok, dlog, droute, dl) in zip(decodes, plain_gen, got_gen):
+        gap = float((plog - dlog).abs().max())
+        same_routes = len(proute) == len(droute) and all(
+            torch.equal(a, b) for pr, dr in zip(proute, droute) for a, b in zip(pr, dr))
+        if not torch.equal(ptok, dtok) or gap > 1e-4 or not same_routes or pl != dl:
+            fail(f"{label} {d}: tokens equal {torch.equal(ptok, dtok)}, logits gap {gap}, "
+                 f"routing equal {same_routes} ({len(droute)} calls), launches {pl} / {dl}")
+        rec["decode"].append({"settings": d, "logits_max_diff": gap, "moe_calls": len(droute),
+                              "launches": dl})
+        print(f"{label} prefill {SERVE_BATCH} x {SERVE_PROMPT} and {G} greedy tokens {d}: "
+              f"identical tokens, logits within {gap:.3g}, routing identical over "
+              f"{len(droute)} MoE calls, launches {dl} on both")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dryrun_cells() -> dict:
+    """The dry-run of ``DRYRUN_CELLS`` on the host, each in its own process
+    (its own fake group of 256 ranks), at once, with a timeout."""
+    import os
+    import subprocess
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    tmp = tempfile.mkdtemp()
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(tmp, f"{arch}_{shape}.json")
+        procs[arch, shape] = (out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--out", out], env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True))
+    recs = {}
+    t0 = time.perf_counter()
+    for (arch, shape), (out, proc) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for _, other in procs.values():
+                other.kill()
+            fail(f"dry-run {arch} x {shape}: over {DRYRUN_TIMEOUT} s")
+        if proc.returncode != 0 or not os.path.exists(out):
+            fail(f"dry-run {arch} x {shape}: exit {proc.returncode}: {err[-2000:]}")
+        rec = json.loads(Path(out).read_text())
+        if not rec.get("ok") or rec.get("devices") != ["meta"]:
+            fail(f"dry-run {arch} x {shape}: {rec.get('error')} devices {rec.get('devices')}")
+        keep = ("mesh", "n_devices", "lower_s", "memory", "flops", "bytes", "collectives",
+                "roofline", "params_total", "params_active", "model_flops_per_device",
+                "useful_flop_ratio", "kernels")
+        recs[f"{arch} x {shape}"] = {k: rec[k] for k in keep}
+        print(f"dry-run {arch} x {shape} on a fake {rec['mesh']} group: ok in {rec['lower_s']} s; "
+              f"flops/device {rec['flops']:.4e}, collectives {rec['collectives']['total_bytes']:.4e} "
+              f"B, peak {rec['memory']['peak_bytes'] / 2**30:.2f} GiB, bottleneck "
+              f"{rec['roofline']['bottleneck']}")
+    return recs
+
+
+def phase_dtensor_families(line: str) -> dict:
+    """Phase 32: (a) each non-dense family at full width, f32, cut in depth,
+    and qwen3-0.6b's decode, on DTensors of a (1, 1) ('data', 'model')
+    mesh of a 1-rank NCCL group against the same params as plain tensors;
+    (b) the dry-run of two cells on the host."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    print("== phase 32: every family on DTensors (1-rank NCCL group, (1, 1) mesh); the dry-run")
+    print(f"card: {line}")
+    out = {"families": {}}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for label, arch, cut, decodes in DTENSOR_FAMILIES:
+            out["families"][label] = _dtensor_family(label, arch, cut, decodes, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["families_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["dryrun"] = _dryrun_cells()
+    out["dryrun_s"] = time.perf_counter() - t1
+    print(f"phase 32: (a) {out['families_s']:.1f} s, (b) {out['dryrun_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import os
 
@@ -4356,6 +4579,8 @@ def main() -> int:
     queue = phase_queue(line)
     sharded = phase_sharded(line)
     dtensor = phase_dtensor_lm(line)
+    families32 = phase_dtensor_families(line)
+    fam32 = families32["families"]
     fedavg = {
         "name": "fedavg",
         "route": "cuda",
@@ -4478,6 +4703,9 @@ def main() -> int:
         "launches_phi3_loss": vlm_loss["launches"]["flash_attention"],
         # phase 31 (b): qwen3-0.6b's use_pallas loss on DTensors, one per layer
         "launches_dtensor_loss": dtensor["loss_use_pallas"]["launches"]["flash_attention"],
+        # phase 32 (a): the use_pallas loss on DTensors of a (1, 1) mesh, per forward
+        "launches_dtensor_families": {k: r["loss_use_pallas"]["launches"].get(
+            "flash_attention", 0) for k, r in fam32.items()},
         "max_abs_err": flash_errs["float32"],
         "max_abs_err_bf16": flash_errs["bfloat16"],
         "shape": list(FLASH_SHAPES[0]),
@@ -4538,6 +4766,9 @@ def main() -> int:
         # and in the forward of one AdamW step
         "launches_dtensor_loss": dtensor["loss"]["launches"]["rmsnorm"],
         "launches_dtensor_step": dtensor["step"]["launches"]["rmsnorm"],
+        # phase 32 (a): each family's loss on DTensors, per forward
+        "launches_dtensor_families": {k: r["loss"]["launches"].get("rmsnorm", 0)
+                                      for k, r in fam32.items()},
         "launches_queue": {f"{kind} {arch}": r["launches"]["rmsnorm"]
                            for arch, by in queue.items() for kind, r in by.items()
                            if kind != "params"},
@@ -4550,6 +4781,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/rmsnorm.py:63",
         "launches": hserved["launches"]["gated_rmsnorm"],
         "launches_loss": hloss["launches"]["gated_rmsnorm"],
+        # phase 32 (a): zamba2's use_pallas loss on DTensors, on the local shards
+        "launches_dtensor_loss": fam32["zamba2-7b"]["loss_use_pallas"]["launches"]["gated_rmsnorm"],
         **gated,
     }
     ssd = {
@@ -4559,6 +4792,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssm_scan.py:64",
         "launches": hserved["launches"]["ssd_scan"],
         "launches_loss": hloss["launches"]["ssd_scan"],
+        "launches_dtensor_loss": fam32["zamba2-7b"]["loss_use_pallas"]["launches"]["ssd_scan"],
         "max_abs_err": ssd_err,
         **ssd_timed["loss"],
         "serve_prefill": ssd_timed["serve"],
@@ -4576,6 +4810,7 @@ def main() -> int:
     print(json.dumps({"phi3_vision": vlm_served, "phi3_vision_loss": vlm_loss,
                       "phi3_vision_train": vlm_train, "queue": queue}))
     print(json.dumps({"sharded": sharded, "dtensor_lm": dtensor}))
+    print(json.dumps({"dtensor_families": families32}))
     print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,9 @@ scan (``csrc/ssd_scan.cu``, replacing ``ssd_scan_pallas``). ``ref`` holds
 the plain PyTorch versions; every wrapper launches through
 ``build.launch``, which counts launches per kernel in ``build.LAUNCHES``;
 ``build.device_launches`` counts the device kernels of one call and
-``build.graph_kernels`` names them.
+``build.graph_kernels`` names them. On meta tensors (the dry-run) each
+wrapper returns its kernel's output shapes through ``shapes``, whose
+operators carry the kernel's own flops and bytes.
 """
 
 from repro_torch.kernels.build import (KERNELS, LAUNCHES, device_launches,  # noqa: F401

@@ -6,7 +6,8 @@ contract: q (B, H, Sq, hd), k and v (B, KV, Sk, hd) -> (B, H, Sq, hd) in
 q's dtype; head h reads kv head ``h // (H // KV)``; scale ``hd^-0.5``;
 causal is top-left aligned (query i sees keys 0..i). On a CUDA tensor it
 launches the hand-written kernel of ``csrc/flash_attention.cu`` (or
-raises); on a CPU tensor it takes the plain version, ``ref.ref_attention``.
+raises); on a CPU tensor it takes the plain version, ``ref.ref_attention``;
+on a meta tensor its shape rule, ``shapes.flash_attention``.
 The kernel reads its inputs through their strides, so the model's
 transposed (B, S, H, hd) views go in without a copy (a view whose rows do
 not start on 16 bytes is copied first), and the output has q's memory
@@ -20,6 +21,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import shapes
 from repro_torch.kernels.build import launch
 from repro_torch.kernels.ref import ref_attention
 from repro_torch.kernels.rmsnorm import NO_BACKWARD
@@ -60,10 +62,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
     if q.device.type == "cpu":
         return ref_attention(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError(f"flash_attention: the CUDA kernel {NO_BACKWARD}")
+    if q.device.type == "meta":
+        return shapes.flash_attention(q, k, v, causal)
     if q.dtype not in _DTYPE_CODE or hd not in HEAD_DIMS:
         raise TypeError(f"flash_attention: the CUDA kernel takes float32/bfloat16 and hd in "
                         f"{HEAD_DIMS}, got {q.dtype} and hd={hd}")

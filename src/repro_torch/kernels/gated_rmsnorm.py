@@ -5,7 +5,8 @@
 f32, ``g = x * z * sigmoid(z)``, then ``g * rsqrt(mean(g^2) + eps) * w``
 over the last axis, cast back to x's dtype. On a CUDA tensor it launches
 the hand-written kernel of ``csrc/gated_rmsnorm.cu`` (or raises); on a CPU
-tensor it takes the plain version, ``ref.ref_gated_rmsnorm``. x and z may
+tensor it takes the plain version, ``ref.ref_gated_rmsnorm``; on a meta
+tensor its shape rule, ``shapes.gated_rmsnorm``. x and z may
 be row-strided views (Mamba2's z is a column slice of its input
 projection); the output is contiguous. The kernel has no backward yet, so
 on CUDA a call that autograd would record raises instead.
@@ -17,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import shapes
 from repro_torch.kernels.build import launch
 from repro_torch.kernels.ref import ref_gated_rmsnorm
 from repro_torch.kernels.rmsnorm import NO_BACKWARD
@@ -50,10 +52,12 @@ def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"gated_rmsnorm: x, z, w on {x.device}, {z.device}, {w.device}")
     if x.device.type == "cpu":
         return ref_gated_rmsnorm(x, z, w, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"gated_rmsnorm: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or z.requires_grad or w.requires_grad):
         raise NotImplementedError(f"gated_rmsnorm: the CUDA kernel {NO_BACKWARD}")
+    if x.device.type == "meta":
+        return shapes.gated_rmsnorm(x, z, w, eps)
     if x.dtype not in _DTYPE_CODE or z.dtype != x.dtype:
         raise TypeError(f"gated_rmsnorm: the CUDA kernel takes x and z of one dtype among "
                         f"float32/bfloat16/float16, got {x.dtype}, {z.dtype}")

@@ -5,7 +5,8 @@
 ``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in f32, cast back to
 x's dtype. On a CUDA tensor it launches the hand-written kernel of
 ``csrc/rmsnorm.cu`` (or raises); on a CPU tensor it takes the plain
-version, ``ref.ref_rmsnorm``. The kernel has no backward, so on CUDA a
+version, ``ref.ref_rmsnorm``; on a meta tensor its shape rule,
+``shapes.rmsnorm``. The kernel has no backward, so on CUDA (and meta) a
 call of ``rmsnorm`` that autograd would record raises instead.
 
 ``rmsnorm_trainable`` is the form that training differentiates: a
@@ -22,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import shapes
 from repro_torch.kernels.build import launch
 from repro_torch.kernels.ref import ref_rmsnorm, ref_rmsnorm_backward
 
@@ -51,10 +53,12 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
         raise ValueError(f"rmsnorm: x is on {x.device} but w on {w.device}")
     if dev.type == "cpu":
         return ref_rmsnorm(x, w, eps)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise NotImplementedError(f"rmsnorm: the CUDA kernel {NO_BACKWARD}")
+    if dev.type == "meta":
+        return shapes.rmsnorm(x, w, eps)
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
         raise TypeError(f"rmsnorm: the CUDA kernel takes float32/bfloat16/float16 x, got {x.dtype}")

@@ -18,7 +18,8 @@ of at most 64 over at least two (batch, head) pairs per SM, two: chunk
 scores, then one block per (batch, head) walking its chunks; ``path``
 forces one of the two; one call counts once in ``LAUNCHES``) on scratch
 it allocates, or raises; on a CPU tensor it
-takes the plain version, ``ref.ref_ssd``, the sequential recurrence. The
+takes the plain version, ``ref.ref_ssd``, the sequential recurrence; on
+a meta tensor its shape rule, ``shapes.ssd_scan``. The
 kernels read their inputs through their strides, so Mamba2's B and C (one
 group shared by all heads) go in as stride-0 head views and x as a
 transposed (B, L, H, P) view, without copies; y takes x's memory layout.
@@ -33,6 +34,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import shapes
 from repro_torch.kernels.build import launch, load
 from repro_torch.kernels.ref import ref_ssd
 from repro_torch.kernels.rmsnorm import NO_BACKWARD
@@ -104,10 +106,13 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         y, h = ref_ssd(x, a, b, c, return_state=True)
         y = y[:, :, :L]
         return (y, h) if return_state else y
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
         raise NotImplementedError(f"ssd_scan: the CUDA kernel {NO_BACKWARD}")
+    if x.device.type == "meta":
+        y, h = shapes.ssd_scan(x, a, b, c, chunk)
+        return (y[:, :, :L], h) if return_state else y[:, :, :L]
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"ssd_scan: the CUDA kernel takes float32/bfloat16, got {x.dtype}")
     x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))

@@ -29,12 +29,12 @@ has no per-row form, as there.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import prng
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, dtype_of, normal, rms_norm
-from repro_torch.sharding.partition import on_local_shards
+from repro_torch.sharding.partition import merge_heads, on_local_shards, split_heads, write_slot
 
 Q_CHUNK = 512
 PER_ROW_MLA = "per-row decode: GQA caches only"
@@ -94,11 +94,10 @@ def init_attention_lora(key, cfg, n_slots, rank):
 
 
 def _project_qkv(p, cfg, x, lora=None):
-    B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _bias(x @ _maybe_lora(p["wq"], lora, "q"), p, "bq").reshape(B, S, H, hd)
-    k = _bias(x @ _maybe_lora(p["wk"], lora, "k"), p, "bk").reshape(B, S, KV, hd)
-    v = _bias(x @ _maybe_lora(p["wv"], lora, "v"), p, "bv").reshape(B, S, KV, hd)
+    q = split_heads(_bias(x @ _maybe_lora(p["wq"], lora, "q"), p, "bq"), H, hd)
+    k = split_heads(_bias(x @ _maybe_lora(p["wk"], lora, "k"), p, "bk"), KV, hd)
+    v = split_heads(_bias(x @ _maybe_lora(p["wv"], lora, "v"), p, "bv"), KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -136,6 +135,33 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, scale, causal=True, window=0, chunk=Q_C
     return torch.cat(outs, dim=1).reshape(B, Sq, H, dv)
 
 
+def _follow_heads(q, t):
+    """K or V (B, S, KV, hd) of DTensor ``q`` (B, S, H, hd) whose heads are
+    split where t's are not (KV does not divide the axis, H does: qwen3's
+    8 kv heads on a 16-way model axis): each kv head repeated for its
+    H // KV query heads and split as q is (a local slice), so each rank
+    attends its own heads. Otherwise t as it is."""
+    if not isinstance(q, DTensor) or not isinstance(t, DTensor) or t.shape[2] == q.shape[2]:
+        return t
+    on = [j for j, p in enumerate(q.placements) if p == Shard(2)]
+    if not on or any(isinstance(t.placements[j], Shard) for j in on):
+        return t
+    B, S, KV, hd = t.shape
+    t = t[:, :, :, None, :].expand(B, S, KV, q.shape[2] // KV, hd).reshape(B, S, -1, hd)
+    return t.redistribute(t.device_mesh, [Shard(2) if j in on else p
+                                          for j, p in enumerate(t.placements)])
+
+
+def attend(q, k, v, q_pos, k_pos, scale, causal=True, window=0):
+    """``_sdpa_chunked``; on DTensors on the local shards, whole along the
+    sequence and the head dim (the positions whole), K and V following
+    q's head split (``_follow_heads``)."""
+    k, v = _follow_heads(q, k), _follow_heads(q, v)
+    return on_local_shards(_sdpa_chunked, (q, k, v, q_pos, k_pos),
+                           ((1, 3), (1, 3), (1, 3), (0,), (-1,)), scale=scale,
+                           causal=causal, window=window)
+
+
 def _train_attention(q, k, v, pos, scale, flash: bool):
     """Causal attention of a training forward, (B, S, H, hd) in and out:
     the ``flash_attention`` kernel (on (B, H, S, hd) views) or the chunked
@@ -150,23 +176,20 @@ def attn_train(p, cfg, x, positions, lora=None):
     q, k, v = _project_qkv(p, cfg, x, lora)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    B, S = x.shape[:2]
+    S = x.shape[1]
     kw = dict(pos=positions[0], scale=cfg.hd ** -0.5, flash=cfg.use_pallas and S % 128 == 0)
-    if isinstance(q, DTensor):
-        # on the local shards, whole along the sequence and the head dim
-        o = on_local_shards(_train_attention, (q, k, v), ((1, 3),) * 3, **kw)
-    else:
-        o = _train_attention(q, k, v, **kw)
-    return _bias(o.reshape(B, S, -1) @ p["wo"], p, "bo")
+    # on DTensors on the local shards, whole along the sequence and the head dim
+    k, v = _follow_heads(q, k), _follow_heads(q, v)
+    o = on_local_shards(_train_attention, (q, k, v), ((1, 3),) * 3, **kw)
+    return _bias(merge_heads(o) @ p["wo"], p, "bo")
 
 
 def attn_prefill(p, cfg, x, positions, lora=None):
     q, k, v = _project_qkv(p, cfg, x, lora)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = _sdpa_chunked(q, k, v, positions[0], positions[0], cfg.hd ** -0.5)
-    B, S = x.shape[:2]
-    y = _bias(o.reshape(B, S, -1) @ p["wo"], p, "bo")
+    o = attend(q, k, v, positions[0], positions[0], cfg.hd ** -0.5)
+    y = _bias(merge_heads(o) @ p["wo"], p, "bo")
     return y, {"k": k, "v": v, "positions": positions[0]}
 
 
@@ -225,35 +248,34 @@ def attn_decode(p, cfg, x, pos, cache, lora=None):
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
     slot = pos % W
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    cache["positions"][slot].fill_(pos)       # a fill kernel: no host copy
-    o = _sdpa_chunked(q, cache["k"], cache["v"], posv[0], cache["positions"], cfg.hd ** -0.5,
-                      causal=True, window=cfg.sliding_window)
-    return _bias(o.reshape(B, 1, -1) @ p["wo"], p, "bo"), cache
+    write_slot(cache["k"], 1, slot, k[:, 0])
+    write_slot(cache["v"], 1, slot, v[:, 0])
+    write_slot(cache["positions"], 0, slot, pos)   # a fill kernel: no host copy
+    o = attend(q, cache["k"], cache["v"], posv[0], cache["positions"], cfg.hd ** -0.5,
+               causal=True, window=cfg.sliding_window)
+    return _bias(merge_heads(o) @ p["wo"], p, "bo"), cache
 
 
 # ---------------------------------------------------------------- cross-attn
 
 def cross_kv(p, cfg, enc):
     """Encoder K/V, once per sequence (whisper serving)."""
-    B, T, _ = enc.shape
     KV, hd = cfg.n_kv_heads, cfg.hd
-    k = _bias(enc @ p["wk"], p, "bk").reshape(B, T, KV, hd)
-    v = _bias(enc @ p["wv"], p, "bv").reshape(B, T, KV, hd)
+    k = split_heads(_bias(enc @ p["wk"], p, "bk"), KV, hd)
+    v = split_heads(_bias(enc @ p["wv"], p, "bv"), KV, hd)
     return k, v
 
 
 def cross_attn(p, cfg, x, kv):
     """No mask, no RoPE: the decoder attends to every encoder frame."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     H, hd = cfg.n_heads, cfg.hd
     k, v = kv
-    q = _bias(x @ p["wq"], p, "bq").reshape(B, S, H, hd)
+    q = split_heads(_bias(x @ p["wq"], p, "bq"), H, hd)
     q_pos = torch.zeros(S, dtype=torch.int32, device=x.device)
     k_pos = torch.zeros(k.shape[1], dtype=torch.int32, device=x.device)
-    o = _sdpa_chunked(q, k, v, q_pos, k_pos, hd ** -0.5, causal=False)
-    return _bias(o.reshape(B, S, -1) @ p["wo"], p, "bo")
+    o = attend(q, k, v, q_pos, k_pos, hd ** -0.5, causal=False)
+    return _bias(merge_heads(o) @ p["wo"], p, "bo")
 
 
 # ======================================================================= MLA
@@ -277,9 +299,8 @@ def init_mla(key, cfg):
 
 
 def _mla_q(p, cfg, x, positions):
-    B, S, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, dn + dr)
+    q = split_heads(x @ p["wq"], cfg.n_heads, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -292,15 +313,22 @@ def _mla_compress(p, cfg, x, positions):
 
 
 def _mla_expand(p, cfg, c_kv):
-    B, S, _ = c_kv.shape
     dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
-    kv = (c_kv @ p["wkv_b"]).reshape(B, S, cfg.n_heads, dn + dv)
+    kv = split_heads(c_kv @ p["wkv_b"], cfg.n_heads, dn + dv)
     return kv[..., :dn], kv[..., dn:]                      # k_nope, v
 
 
 def _mla_sdpa(cfg, qn, qr, kn, kr, v, q_pos, k_pos, window=0):
-    """Scores qn.kn + qr.kr (kr shared across heads), scale (dn + dr)^-0.5."""
+    """Scores qn.kn + qr.kr (kr shared across heads), scale (dn + dr)^-0.5.
+    On DTensors on the local shards, the heads kept split where they are
+    (kr read whole by every head)."""
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    return on_local_shards(_mla_scores, (qn, qr, kn, kr, v, q_pos, k_pos),
+                           ((1, 3), (1, 3), (1, 3), (1, 2), (1, 3), (0,), (-1,)),
+                           shared=(3,), scale=scale, window=window)
+
+
+def _mla_scores(qn, qr, kn, kr, v, q_pos, k_pos, scale, window=0):
     q = torch.cat([qn, qr], dim=-1)
     kr_b = kr[:, :, None, :].expand(*kn.shape[:3], kr.shape[-1])
     k = torch.cat([kn, kr_b], dim=-1)
@@ -308,22 +336,20 @@ def _mla_sdpa(cfg, qn, qr, kn, kr, v, q_pos, k_pos, window=0):
 
 
 def mla_train(p, cfg, x, positions):
-    B, S, _ = x.shape
     qn, qr = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_compress(p, cfg, x, positions)
     kn, v = _mla_expand(p, cfg, c_kv)
     o = _mla_sdpa(cfg, qn, qr, kn, k_rope, v, positions[0], positions[0])
-    return o.reshape(B, S, -1) @ p["wo"]
+    return merge_heads(o) @ p["wo"]
 
 
 def mla_prefill(p, cfg, x, positions):
-    B, S, _ = x.shape
     qn, qr = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_compress(p, cfg, x, positions)
     kn, v = _mla_expand(p, cfg, c_kv)
     o = _mla_sdpa(cfg, qn, qr, kn, k_rope, v, positions[0], positions[0])
     cache = {"c_kv": c_kv, "k_rope": k_rope, "positions": positions[0]}
-    return o.reshape(B, S, -1) @ p["wo"], cache
+    return merge_heads(o) @ p["wo"], cache
 
 
 def init_mla_cache(cfg, batch, length, dtype, device, per_row=False):
@@ -361,9 +387,9 @@ def mla_decode(p, cfg, x, pos, cache, absorb=False):
     qn, qr = _mla_q(p, cfg, x, posv)
     c_new, kr_new = _mla_compress(p, cfg, x, posv)
     slot = pos % W
-    cache["c_kv"][:, slot] = c_new[:, 0]
-    cache["k_rope"][:, slot] = kr_new[:, 0]
-    cache["positions"][slot].fill_(pos)       # a fill kernel: no host copy
+    write_slot(cache["c_kv"], 1, slot, c_new[:, 0])
+    write_slot(cache["k_rope"], 1, slot, kr_new[:, 0])
+    write_slot(cache["positions"], 0, slot, pos)   # a fill kernel: no host copy
     c_kv, k_rope, cpos = cache["c_kv"], cache["k_rope"], cache["positions"]
     H, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     if not absorb:
@@ -371,7 +397,7 @@ def mla_decode(p, cfg, x, pos, cache, absorb=False):
         o = _mla_sdpa(cfg, qn, qr, kn, k_rope, v, posv[0], cpos, window=cfg.sliding_window)
     else:
         scale = (dn + cfg.qk_rope_head_dim) ** -0.5
-        wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, dn + dv)
+        wkv_b = split_heads(p["wkv_b"], H, dn + dv)
         w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]      # (r, H, dn), (r, H, dv)
         q_lat = _einsum_f32("bqhd,rhd->bqhr", qn, w_uk).to(qn.dtype)
         s = (_einsum_f32("bqhr,bsr->bhqs", q_lat, c_kv)
@@ -383,4 +409,4 @@ def mla_decode(p, cfg, x, pos, cache, absorb=False):
         pa = torch.softmax(s, dim=-1).to(c_kv.dtype)
         o_lat = _einsum_f32("bhqs,bsr->bqhr", pa, c_kv).to(c_kv.dtype)
         o = _einsum_f32("bqhr,rhd->bqhd", o_lat, w_uv).to(x.dtype)
-    return o.reshape(B, 1, -1) @ p["wo"], cache
+    return merge_heads(o) @ p["wo"], cache

@@ -25,11 +25,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.attention import _bias, _sdpa_chunked
+from repro_torch.models.attention import _bias
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, gelu_mlp, init_embedding,
                                        init_gelu_mlp, layer_norm, normal, sinusoidal_positions,
                                        stacked_init)
-from repro_torch.sharding.partition import constrain, dense_only
+from repro_torch.sharding.partition import (constrain, gather_seq, merge_heads, split_heads,
+                                            write_slot)
 from repro_torch.tree import tree_map, unstack
 
 
@@ -87,24 +88,24 @@ def _self_attn_norope(p, cfg, h, causal, cache=None, pos=None, window=0):
     """Whisper's self-attention, no RoPE: full sequence (train, prefill;
     returns the filled cache) or one decode step (writes slot ``pos % W``
     of ``cache`` in place and returns it)."""
-    B, S, _ = h.shape
+    S = h.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _bias(h @ p["wq"], p, "bq").reshape(B, S, H, hd)
-    k = _bias(h @ p["wk"], p, "bk").reshape(B, S, KV, hd)
-    v = _bias(h @ p["wv"], p, "bv").reshape(B, S, KV, hd)
+    q = split_heads(_bias(h @ p["wq"], p, "bq"), H, hd)
+    k = split_heads(_bias(h @ p["wk"], p, "bk"), KV, hd)
+    v = split_heads(_bias(h @ p["wv"], p, "bv"), KV, hd)
     if cache is None:
         pos_ix = torch.arange(S, dtype=torch.int32, device=h.device)
-        o = _sdpa_chunked(q, k, v, pos_ix, pos_ix, hd ** -0.5, causal=causal, window=window)
+        o = attn.attend(q, k, v, pos_ix, pos_ix, hd ** -0.5, causal=causal, window=window)
         cache = {"k": k, "v": v, "positions": pos_ix}
     else:
         slot = pos % cache["k"].shape[1]
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        cache["positions"][slot].fill_(pos)   # a fill kernel: no host copy
+        write_slot(cache["k"], 1, slot, k[:, 0])
+        write_slot(cache["v"], 1, slot, v[:, 0])
+        write_slot(cache["positions"], 0, slot, pos)   # a fill kernel: no host copy
         qpos = torch.full((S,), pos, dtype=torch.int32, device=h.device)
-        o = _sdpa_chunked(q, cache["k"], cache["v"], qpos, cache["positions"], hd ** -0.5,
-                          causal=True, window=window)
-    return _bias(o.reshape(B, S, -1) @ p["wo"], p, "bo"), cache
+        o = attn.attend(q, cache["k"], cache["v"], qpos, cache["positions"], hd ** -0.5,
+                        causal=True, window=window)
+    return _bias(merge_heads(o) @ p["wo"], p, "bo"), cache
 
 
 def _remat(cfg) -> bool:
@@ -112,6 +113,7 @@ def _remat(cfg) -> bool:
 
 
 def _enc_layer(p_l, cfg, x):
+    x = gather_seq(x)
     a, _ = _self_attn_norope(p_l["attn"], cfg, _ln(x, p_l["ln1"], cfg), causal=False)
     x = x + a
     return constrain(x + gelu_mlp(p_l["mlp"], _ln(x, p_l["ln2"], cfg)), "activation")
@@ -133,6 +135,7 @@ def encode(params, cfg, frames):
 
 def _dec_layer(p_l, cfg, x, enc_or_kv, mode, self_c=None, pos=None):
     """One decoder layer; returns (x, self cache, cross K/V)."""
+    x = gather_seq(x)
     a, new_self = _self_attn_norope(p_l["self_attn"], cfg, _ln(x, p_l["ln1"], cfg), causal=True,
                                     cache=self_c, pos=pos,
                                     window=cfg.sliding_window if mode == "decode" else 0)
@@ -176,7 +179,6 @@ def _embed_text(params, cfg, tokens):
     return x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)
 
 
-@dense_only("the encoder-decoder family")
 def encdec_loss(params, cfg, batch):
     """Mean next-token CE over labels in [0, vocab_size) (weighted by
     ``batch["client_weights"]`` per row where given), of the decoder on
@@ -191,7 +193,6 @@ def encdec_loss(params, cfg, batch):
     return cross_entropy(logits, torch.clamp(labels, min=0), mask), {}
 
 
-@dense_only("the encoder-decoder family")
 def encdec_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the caches."""
     enc = encode(params, cfg, batch["frames"])
@@ -222,7 +223,6 @@ def decode_positions(pos: int, d: int, device) -> torch.Tensor:
     return torch.where(idx % 2 == 0, torch.sin(ang), torch.cos(ang))
 
 
-@dense_only("the encoder-decoder family")
 def encdec_decode(params, cfg, token, pos, caches):
     """token: (B, 1) ints; pos: the absolute position (int). Writes the new
     self-attention slot into ``caches`` in place and returns (logits (B, 1,

@@ -28,7 +28,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embedding,
                                        init_swiglu, normal, rms_norm, stacked_init, swiglu)
-from repro_torch.sharding.partition import constrain, dense_only
+from repro_torch.sharding.partition import constrain, gather_seq
 from repro_torch.tree import tree_map, unstack
 
 
@@ -74,6 +74,7 @@ def _lora_slot(params, slot):
 
 
 def _mamba_layer(p_l, cfg, x, mode, cache=None):
+    x = gather_seq(x)
     h = rms_norm(x, p_l["ln"], cfg.norm_eps)
     if mode == "decode":
         m, new_c = ssm.mamba2_decode(p_l["mamba"], cfg, h, cache)
@@ -87,6 +88,7 @@ def _mamba_layer(p_l, cfg, x, mode, cache=None):
 def _shared_apply(params, cfg, x, positions, slot, mode, cache=None, pos=None):
     sp = params["shared"]
     lora = _lora_slot(params, slot)
+    x = gather_seq(x)
     h = rms_norm(x, sp["ln1"], cfg.norm_eps)
     new_cache = None
     if mode == "train":
@@ -151,7 +153,6 @@ def _positions(B, S, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-@dense_only("the hybrid family")
 def hybrid_loss(params, cfg, batch):
     """Mean next-token CE over labels >= 0 (weighted by
     ``batch["client_weights"]`` per row where given). Returns (loss, {})."""
@@ -167,7 +168,6 @@ def hybrid_loss(params, cfg, batch):
     return cross_entropy(logits, torch.clamp(labels, min=0), mask), {}
 
 
-@dense_only("the hybrid family")
 def hybrid_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the filled caches."""
     tokens = batch["tokens"]
@@ -189,7 +189,6 @@ def init_hybrid_cache(params, cfg, batch_size, length, dtype):
             "shared": {k: t.expand(n_slots, *t.shape).clone() for k, t in one.items()}}
 
 
-@dense_only("the hybrid family")
 def hybrid_decode(params, cfg, token, pos, caches):
     """token: (B, 1) ints; pos: the absolute position (int). Writes the new
     state into ``caches`` in place and returns (logits (B, 1, V), caches)."""

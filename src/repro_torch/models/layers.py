@@ -18,11 +18,11 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch import prng
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_trainable
-from repro_torch.sharding.partition import on_local_shards
+from repro_torch.sharding.partition import gather_seq, on_local_shards
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -41,10 +41,10 @@ def rms_norm(x, scale, eps=1e-6):
     tensor, its plain version on a CPU one. Where autograd records the
     call (training), through ``rmsnorm_trainable``: the same forward and a
     plain analytic backward. DTensors go to it as their local shards, with
-    the last axis whole (``sharding.partition.on_local_shards``)."""
-    if isinstance(x, DTensor) or isinstance(scale, DTensor):
-        return on_local_shards(_rms_norm, (x, scale), ((-1,), (0,)), eps=eps)
-    return _rms_norm(x, scale, eps)
+    the last axis whole (``sharding.partition.on_local_shards``), and the
+    result has its sequence whole (``gather_seq``): a norm's output feeds
+    the projections."""
+    return gather_seq(on_local_shards(_rms_norm, (x, scale), ((-1,), (0,)), eps=eps))
 
 
 def _rms_norm(x, scale, eps=1e-6):
@@ -55,12 +55,13 @@ def _rms_norm(x, scale, eps=1e-6):
 
 def layer_norm(x, scale, bias, eps=1e-5):
     """LayerNorm over the last axis in f32, with the two-pass variance the
-    JAX package takes (``jnp.var``); no kernel on either side."""
+    JAX package takes (``jnp.var``); no kernel on either side. On a DTensor
+    the result has its sequence whole, as ``rms_norm``'s."""
     x32 = x.to(torch.float32)
     centered = x32 - torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(centered * centered, dim=-1, keepdim=True)
     y = centered * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    return gather_seq((y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype))
 
 
 def linear(x, w, b=None):
@@ -154,13 +155,11 @@ def _lookup(tokens, table):
 
 
 def embed(p, tokens):
-    if isinstance(p["tok"], DTensor):
-        # on the local shards: the tokens keep their batch split, the
-        # table is gathered whole (its gradient a pending sum over the
-        # split); DTensor's own gather and embedding rules for a sharded
-        # index do not run on every torch this targets
-        return on_local_shards(_lookup, (tokens, p["tok"]), ((), (0, 1)))
-    return p["tok"][tokens]
+    # on DTensors on the local shards: the tokens keep their batch split,
+    # the table is gathered whole (its gradient a pending sum over the
+    # split); DTensor's own gather and embedding rules for a sharded
+    # index do not run on every torch this targets
+    return on_local_shards(_lookup, (tokens, p["tok"]), ((), (0, 1)))
 
 
 def unembed(p, x, head=None):
@@ -172,17 +171,30 @@ def stacked_init(init_fn, key, n):
     return init_fn(prng.split(key, n))
 
 
+def _vocab_ids(logits):
+    """0..V-1 as a DTensor split as the last dim of ``logits`` is, each
+    rank making its own part: compared with the labels it gives a hit mask
+    laid out as the logits, so the masked sum moves no logit."""
+    last = logits.ndim - 1
+    pl = [Shard(0) if p == Shard(last) else Replicate() for p in logits.placements]
+    return distribute_tensor(torch.arange(logits.shape[-1], device=logits.device),
+                             logits.device_mesh, pl, src_data_rank=None)
+
+
 def cross_entropy(logits, labels, mask=None):
     """Mean CE over valid positions; logits (..., V) cast to f32, labels int."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
     if isinstance(logits, DTensor):
-        # the gold logit as a masked sum, which a vocab-sharded DTensor
-        # reduces across its shards (a gather along a sharded axis does
-        # not run); exact, as every other term is 0
-        hit = torch.arange(logits.shape[-1], device=logits.device) == labels.long()[..., None]
+        # logsumexp as a max and a sum over the vocab, each reduced across
+        # its shards (DTensor's own logsumexp gathers the whole vocab); the
+        # gold logit as a masked sum, likewise (a gather along a sharded
+        # axis does not run), exact, as every other term is 0
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        logz = (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True)))[..., 0]
+        hit = _vocab_ids(logits) == labels.long()[..., None]
         gold = torch.where(hit, logits, 0.0).sum(-1)
     else:
+        logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:

@@ -17,7 +17,9 @@ one call collide and each token's sum runs in expert order, as the JAX
 package's scatter-add does.
 
 The capacity depends on the token count of one call, so a caller keeps
-the JAX package's calls: one per cohort row where it ``vmap``s rows.
+the JAX package's calls: one per cohort row where it ``vmap``s rows. On
+DTensors the routing, dispatch and combine run per group on the local
+shards (``moe_ffn``), so the routing is the plain path's.
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import prng
 from repro_torch.models.layers import dtype_of, normal
+from repro_torch.sharding.partition import on_local_shards
 
 F32 = torch.float32
 
@@ -91,35 +95,59 @@ def moe_route(p, cfg, xf):
     return probs, topi, w_sel, idx
 
 
-def moe_ffn(p, cfg, x, groups: int = 1):
-    """x: (B, S, d) -> (y, aux_loss). ``groups`` must divide B*S."""
-    Bsz, S, d = x.shape
+def _dispatch(xf, router, gate, up, down, *, cfg):
+    """Route, dispatch, run the experts and combine, on (G, n, d) tokens.
+    Returns (out (G, n, d), each group's share of first choices (G, E),
+    each group's mean router probabilities (G, E))."""
+    G, n, d = xf.shape
     E = cfg.padded_experts
-    G = groups
-    n = Bsz * S // G
-    xf = x.reshape(G, n, d)
-    probs, topi, w_sel, idx = moe_route(p, cfg, xf)
+    probs, topi, w_sel, idx = moe_route({"router": router}, cfg, xf)
     C = idx.shape[-1]
     xs = torch.gather(xf, 1, idx.reshape(G, E * C, 1).expand(G, E * C, d))
     xs = xs.reshape(G, E, C, d)
-    h = (F.silu(torch.einsum("gecd,edf->gecf", xs, p["gate"]))
-         * torch.einsum("gecd,edf->gecf", xs, p["up"]))
-    ye = torch.einsum("gecf,efd->gecd", h, p["down"])
+    h = F.silu(torch.einsum("gecd,edf->gecf", xs, gate)) * torch.einsum("gecd,edf->gecf", xs, up)
+    ye = torch.einsum("gecf,efd->gecd", h, down)
     ye = ye * w_sel[..., None].to(ye.dtype)
 
     # one expert at a time: its C tokens are distinct, so no add collides
-    out = torch.zeros(G * n, d, dtype=ye.dtype, device=x.device)
-    rows = idx + (torch.arange(G, device=x.device) * n)[:, None, None]   # (G, E, C)
+    out = torch.zeros(G * n, d, dtype=ye.dtype, device=xf.device)
+    rows = idx + (torch.arange(G, device=xf.device) * n)[:, None, None]   # (G, E, C)
     for e in range(E):
         out.index_add_(0, rows[:, e].reshape(-1), ye[:, e].reshape(G * C, d))
-    out = out.reshape(G, n, d)
+    frac = torch.mean(F.one_hot(topi[..., 0], E).to(F32), dim=1)
+    return out.reshape(G, n, d), frac, torch.mean(probs, dim=1)
 
+
+def moe_ffn(p, cfg, x, groups: int = 1):
+    """x: (B, S, d) -> (y, aux_loss). ``groups`` must divide B*S.
+
+    On a DTensor x the tokens keep their batch split on the mesh dims the
+    dispatch groups follow (the split's product divides ``groups``, as
+    the dry-run's ``moe_groups`` of 16 follows the 'data' axis), and are
+    gathered whole on the others; routing, dispatch, the experts and the
+    combine run on the local groups (``on_local_shards``: DTensor has no
+    rules for the stable sorts, the gathers and ``index_add_``), with the
+    expert weights gathered whole, so each group's routing, ties and sums
+    are the plain path's. The shared experts and the load-balance loss's
+    means over the groups are DTensor ops."""
+    Bsz, S, d = x.shape
+    G = groups
+    weights = (p["router"], p["gate"], p["up"], p["down"])
+    if isinstance(x, DTensor):
+        # keep the batch split on the innermost mesh dims whose product
+        # divides the groups ('data' alone of ('pod', 'data') for 16 groups)
+        mesh, n = x.device_mesh, 1
+        keep = [Replicate()] * mesh.ndim
+        for j in reversed(range(mesh.ndim)):
+            if x.placements[j] == Shard(0) and G % (n * mesh.shape[j]) == 0:
+                keep[j], n = Shard(0), n * mesh.shape[j]
+        x = x.redistribute(mesh, keep)
+    xf = x.reshape(G, Bsz * S // G, d)
+    out, frac, mean_prob = on_local_shards(
+        _dispatch, (xf, *weights), ((1, 2), (0, 1), (0, 1, 2), (0, 1, 2), (0, 1, 2)), cfg=cfg)
     if cfg.n_shared_experts:
         sp = p["shared"]
         out = out + (F.silu(xf @ sp["gate"]) * (xf @ sp["up"])) @ sp["down"]
-
     # switch-style load-balance loss
-    frac_tokens = torch.mean(F.one_hot(topi[..., 0], E).to(F32), dim=(0, 1))
-    mean_prob = torch.mean(probs, dim=(0, 1))
-    aux = E * torch.sum(frac_tokens * mean_prob)
+    aux = cfg.padded_experts * torch.sum(frac.mean(0) * mean_prob.mean(0))
     return out.reshape(Bsz, S, d), aux

@@ -30,6 +30,7 @@ from repro_torch import prng
 from repro_torch.kernels.gated_rmsnorm import gated_rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.layers import dtype_of, normal, rms_norm
+from repro_torch.sharding.partition import on_local_shards
 
 F32 = torch.float32
 
@@ -46,6 +47,11 @@ def segsum(a):
 def ssd_chunked(x, a, b, c, chunk, h0=None, checkpoint_chunks=True):
     """x:(B,L,G,Hg,P) values; a:(B,L,G,Hg) log-decay (<=0); b,c:(B,L,G,N).
 
+    On DTensors the scan runs on the local shards, whole along L and the
+    state dims (``on_local_shards``): split by batch, and by groups or by
+    heads where the inputs are (one group's b and c are shared by the
+    heads).
+
     Returns y:(B,L,G,Hg,P) and final state (B,G,Hg,N,P) f32. Decays in f32
     (exp of cumsums), products in f32 with the decay matrices rounded to
     x's dtype first, as the JAX package computes them. Where autograd
@@ -54,6 +60,14 @@ def ssd_chunked(x, a, b, c, chunk, h0=None, checkpoint_chunks=True):
     ``jax.checkpoint(step)``): the backward recomputes a chunk's
     intermediates instead of keeping them. It changes memory, not values.
     """
+    tensors = (x, a, b, c) + (() if h0 is None else (h0,))
+    return on_local_shards(
+        _ssd_chunked, tensors, ((1, 4), (1,), (1, 3), (1, 3), (3, 4)),
+        shared=(2, 3) if b.shape[2] == 1 else (), chunk=chunk,
+        checkpoint_chunks=checkpoint_chunks)
+
+
+def _ssd_chunked(x, a, b, c, h0=None, *, chunk, checkpoint_chunks):
     B, L, G, Hg, P = x.shape
     N = b.shape[-1]
     chunk = min(chunk, L)
@@ -97,7 +111,12 @@ def _records_grad(*tensors) -> bool:
 
 def ssd_step(h, x1, a1, b1, c1):
     """Single-token recurrence. h:(B,G,Hg,N,P) x1:(B,G,Hg,P) a1:(B,G,Hg)
-    b1,c1:(B,G,N)."""
+    b1,c1:(B,G,N). On DTensors on the local shards, as ``ssd_chunked``."""
+    return on_local_shards(_ssd_step, (h, x1, a1, b1, c1), ((3, 4), (3,), (), (2,), (2,)),
+                           shared=(3, 4) if b1.shape[1] == 1 else ())
+
+
+def _ssd_step(h, x1, a1, b1, c1):
     h = (h * torch.exp(a1.to(F32))[..., None, None]
          + torch.einsum("bgn,bghp->bghnp", b1.to(F32), x1.to(F32)))
     y = torch.einsum("bgn,bghnp->bghp", c1.to(F32), h)
@@ -159,8 +178,31 @@ def init_mamba2(key, cfg):
     }
 
 
+def _kernel_scan(x, a, b, c, *, chunk):
+    """The ``ssd_scan`` kernel on (B, L, H, P) values, (B, L, H) log-decays
+    and (B, L, N) b and c, in the kernel's (B, H, L, *) layout as views (b
+    and c stride-0 head views, shared by the heads). Returns y (B, L, H, P)
+    and the final state (B, H, N, P)."""
+    B, L, H, _ = x.shape
+    N = b.shape[-1]
+    y, h = ssd_scan(x.transpose(1, 2), a.transpose(1, 2), b[:, None].expand(B, H, L, N),
+                    c[:, None].expand(B, H, L, N), chunk, return_state=True)
+    return y.transpose(1, 2), h
+
+
 def _causal_conv(seq, w, b):
-    """Depthwise causal conv. seq:(B,L,C), w:(k,C)."""
+    """Depthwise causal conv. seq:(B,L,C), w:(k,C). On DTensors on the
+    local shards, whole along L, w and b split as seq's channels are
+    (torch 2.11's DTensor pads a split tensor wrongly)."""
+    return on_local_shards(_conv_local, (seq, w[None], b[None, None]), ((1,), (1,), ()),
+                           shared=(1, 2))
+
+
+def _conv_local(seq, w, b):
+    return _conv(seq, w[0], b[0, 0])
+
+
+def _conv(seq, w, b):
     k = w.shape[0]
     pad = F.pad(seq, (0, 0, k - 1, 0))
     out = torch.zeros_like(seq)
@@ -206,27 +248,27 @@ def mamba2_forward(p, cfg, u, h0=None, return_state=False):
     a = dt * A
     xdt = xh * dt[:, :, None, :, None].to(xh.dtype)             # (B,L,1,H,P)
     if cfg.use_pallas and h0 is None:
-        # the kernel's (B,H,L,*) layout as views: B and C shared by the heads
-        y, h_fin = ssd_scan(xdt[:, :, 0].transpose(1, 2), a.transpose(1, 2),
-                            Bk[:, None].expand(B, nheads, L, N),
-                            Cq[:, None].expand(B, nheads, L, N), cfg.ssm_chunk,
-                            return_state=True)
-        y, h_fin = y.transpose(1, 2), h_fin[:, None]
+        # on DTensors whole along L and the state dims; B and C shared by the heads
+        y, h_fin = on_local_shards(_kernel_scan, (xdt[:, :, 0], a, Bk, Cq),
+                                   ((1, 3), (1,), (1, 2), (1, 2)), shared=(2, 3),
+                                   chunk=cfg.ssm_chunk)
+        h_fin = h_fin[:, None]
     else:
         y, h_fin = ssd_chunked(xdt, a[:, :, None], Bk[:, :, None], Cq[:, :, None],
                                cfg.ssm_chunk, h0, checkpoint_chunks=cfg.ssm_checkpoint_chunks)
     y = y.reshape(B, L, d_inner) + xBC[..., :d_inner] * torch.repeat_interleave(p["D"], P)
     if cfg.use_pallas:
-        y = gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)
+        y = on_local_shards(gated_rmsnorm, (y, z, p["gate_norm"]), ((-1,), (-1,), (0,)),
+                            eps=cfg.norm_eps)
     else:
         y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     if not return_state:
         return out
     k = cfg.ssm_conv
-    n = min(k, L)
-    tail = xBC_raw.new_zeros(B, k, xBC_raw.shape[-1])          # left-padded with zeros
-    tail[:, k - n:] = xBC_raw[:, L - n:]
+    # the last k conv inputs, zeros ahead where L < k; a copy, so the cache
+    # does not hold the whole in-projection alive
+    tail = xBC_raw[:, L - k:].clone() if L >= k else F.pad(xBC_raw, (0, 0, k - L, 0))
     return out, {"state": h_fin, "conv": tail}
 
 

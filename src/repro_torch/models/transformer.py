@@ -9,8 +9,8 @@ load-balance losses in layer order as the scan does. Its sharding
 constraints sit where the JAX package's do
 (``sharding.partition.constrain`` after each block and on the logits):
 with no sharding context, or on plain tensors, they return their input.
-On DTensor params (a ``sharding.partition.use_mesh`` run) the dense and
-vlm configs run sharded; MoE and MLA configs raise. With
+On DTensor params (a ``sharding.partition.use_mesh`` run) every config
+runs sharded, the MoE and MLA ones included. With
 ``cfg.use_mla`` (deepseek-v2-lite) every layer's attention is MLA
 (``attention.mla_*``; decode absorbed under ``cfg.mla_absorb``). The vlm
 family (phi-3-vision) is this dense LM with ``n_img_tokens``
@@ -30,7 +30,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embedding,
                                        init_swiglu, normal, rms_norm, stacked_init, swiglu)
 from repro_torch.models.moe import init_moe, moe_ffn
-from repro_torch.sharding.partition import UNSHARDED_FAMILIES, constrain, is_sharded_tree
+from repro_torch.sharding.partition import constrain, gather_seq
 from repro_torch.tree import tree_map, unstack
 
 PORTED_ARCHS = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
@@ -45,13 +45,6 @@ def check_ported(cfg) -> None:
     if cfg.arch_type not in PORTED_ARCHS:
         raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported: it is not an "
                                   "arch type of the JAX package")
-
-
-def _check_sharded(params, cfg) -> None:
-    """DTensor params of an MoE or MLA config raise ``NotImplementedError``
-    rather than run half-sharded."""
-    if (cfg.is_moe or cfg.use_mla) and is_sharded_tree(params):
-        raise NotImplementedError(UNSHARDED_FAMILIES.format(what=f"{cfg.name} (MoE or MLA)"))
 
 
 # ----------------------------------------------------------------- init
@@ -94,6 +87,7 @@ def init_lm(key, cfg, device=None):
 def _block_apply(p, cfg, x, positions, kind, mode, cache=None, pos=None):
     """One transformer block. Returns (x, new_cache, aux): aux is the MoE
     layer's load-balance loss, 0.0 for a dense layer."""
+    x = gather_seq(x)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     new_cache = None
     if cfg.use_mla:
@@ -179,7 +173,6 @@ def lm_loss(params, cfg, batch):
     the sequence (a vlm's text after its image embeddings) are padded on
     the left with -1, so the image positions carry no loss. Returns (loss,
     {"aux": aux}); aux is 0.0 without MoE layers."""
-    _check_sharded(params, cfg)
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     x, aux, _ = lm_backbone(params, cfg, x, _positions(B, S, x.device), "train")
@@ -198,7 +191,6 @@ def lm_loss(params, cfg, batch):
 
 def lm_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the filled caches."""
-    _check_sharded(params, cfg)
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     x, _, caches = lm_backbone(params, cfg, x, _positions(B, S, x.device), "prefill")
@@ -227,7 +219,6 @@ def lm_decode(params, cfg, token, pos, caches):
     (``init_lm_cache(per_row=True)``). Writes the new slot into ``caches``
     in place (it consumes the caches it is given) and returns (logits
     (B, 1, V), caches)."""
-    _check_sharded(params, cfg)
     x = embed(params["emb"], token)
     x, _, caches = lm_backbone(params, cfg, x, None, "decode", caches=caches, pos=pos)
     return lm_logits(params, cfg, x), caches

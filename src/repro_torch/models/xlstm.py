@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch.models.layers import dtype_of, normal, rms_norm
 from repro_torch.models.ssm import _causal_conv, _softplus, ssd_chunked, ssd_step
+from repro_torch.sharding.partition import merge_heads, on_local_shards, split_heads
+from repro_torch.trips import scan
 
 F32 = torch.float32
 
@@ -63,11 +65,10 @@ def _mlstm_qkviaf(p, cfg, xm):
     """xm: (B, L, d_inner) after the conv; returns q, k (B, L, H, dk), the
     values with the normaliser channel (B, L, H, dk + 1) and the log
     forget gate (B, L, H) f32."""
-    B, L, _ = xm.shape
-    d_inner, H, dk = _mdims(cfg)
-    q = (xm @ p["wq"]).reshape(B, L, H, dk)
-    k = (xm @ p["wk"]).reshape(B, L, H, dk) * dk ** -0.5
-    v = xm.reshape(B, L, H, dk)
+    _, H, dk = _mdims(cfg)
+    q = split_heads(xm @ p["wq"], H, dk)
+    k = split_heads(xm @ p["wk"], H, dk) * dk ** -0.5
+    v = split_heads(xm, H, dk)
     gif = (xm @ p["wif"] + p["bif"]).to(F32)
     ig = torch.sigmoid(gif[..., :H])[..., None].to(v.dtype)    # (B, L, H, 1)
     a = -_softplus(-gif[..., H:])                              # jax.nn.log_sigmoid
@@ -75,10 +76,10 @@ def _mlstm_qkviaf(p, cfg, xm):
     return q, k, xv, a
 
 
-def _mlstm_out(p, cfg, y, z, B, L):
-    d_inner, H, dk = _mdims(cfg)
+def _mlstm_out(p, cfg, y, z):
+    dk = _mdims(cfg)[2]
     num, den = y[..., :dk], y[..., dk:]
-    out = (num / torch.clamp(den.abs(), min=1e-3)).reshape(B, L, d_inner)
+    out = merge_heads(num / torch.clamp(den.abs(), min=1e-3))
     out = rms_norm(out * F.silu(z), p["gate_norm"], cfg.norm_eps)
     return out @ p["down"]
 
@@ -87,8 +88,8 @@ def mlstm_forward(p, cfg, u, return_state=False):
     """u: (B, L, d). With ``return_state`` also the decode cache
     ``{"state": (B, H, 1, dk, dk + 1) f32, "conv": the last ssm_conv conv
     inputs}``."""
-    B, L, _ = u.shape
-    d_inner, H, dk = _mdims(cfg)
+    L = u.shape[1]
+    d_inner = _mdims(cfg)[0]
     up = u @ p["up"]
     xm_raw, z = up[..., :d_inner], up[..., d_inner:]
     xm = F.silu(_causal_conv(xm_raw, p["conv_w"], p["conv_b"]))
@@ -96,11 +97,13 @@ def mlstm_forward(p, cfg, u, return_state=False):
     # group axis g = H (per-head keys and queries), one head per group
     y, h_fin = ssd_chunked(xv[:, :, :, None, :], a[:, :, :, None], k, q, cfg.ssm_chunk,
                            checkpoint_chunks=cfg.ssm_checkpoint_chunks)
-    out = _mlstm_out(p, cfg, y[:, :, :, 0, :], z, B, L)
+    out = _mlstm_out(p, cfg, y[:, :, :, 0, :], z)
     if not return_state:
         return out
     kk = cfg.ssm_conv
-    tail = F.pad(xm_raw, (0, 0, kk, 0))[:, -kk:, :]
+    # the last kk conv inputs, zeros ahead where L < kk; a copy, so the
+    # cache does not hold the whole up-projection alive
+    tail = xm_raw[:, L - kk:].clone() if L >= kk else F.pad(xm_raw, (0, 0, kk - L, 0))
     return out, {"state": h_fin, "conv": tail}
 
 
@@ -114,15 +117,14 @@ def init_mlstm_cache(cfg, batch, dtype, device):
 
 def mlstm_decode(p, cfg, u1, cache):
     """u1: (B, 1, d); O(1) state update, written into ``cache`` in place."""
-    B = u1.shape[0]
-    d_inner, H, dk = _mdims(cfg)
+    d_inner = _mdims(cfg)[0]
     up = u1 @ p["up"]
     xm_raw, z = up[..., :d_inner], up[..., d_inner:]
     conv = torch.cat([cache["conv"][:, 1:, :], xm_raw], dim=1)
     xm = F.silu(torch.einsum("bkc,kc->bc", conv, p["conv_w"]) + p["conv_b"])[:, None, :]
     q, k, xv, a = _mlstm_qkviaf(p, cfg, xm)
     h, y = ssd_step(cache["state"], xv[:, 0, :, None, :], a[:, 0, :, None], k[:, 0], q[:, 0])
-    out = _mlstm_out(p, cfg, y[:, None, :, 0, :], z, B, 1)
+    out = _mlstm_out(p, cfg, y[:, None, :, 0, :], z)
     cache["state"].copy_(h)
     cache["conv"].copy_(conv)
     return out, cache
@@ -162,10 +164,10 @@ def _recurrent(p, cfg):
     return p["r"].permute(1, 2, 0, 3).reshape(H, dh, 4 * dh)
 
 
-def _slstm_cell(p, cfg, wx_t, st, r):
-    """One time step. wx_t: (B, 4d), the input part; st: the state dict;
-    r: ``_recurrent(p, cfg)``. Returns (new state, h (B, d) in the param
-    dtype)."""
+def _slstm_cell(b, cfg, wx_t, st, r):
+    """One time step. b: the bias (4d,); wx_t: (B, 4d), the input part; st:
+    the state dict; r: ``_recurrent(p, cfg)``. Returns (new state, h (B, d)
+    in the param dtype)."""
     d = cfg.d_model
     H = cfg.n_heads
     B = wx_t.shape[0]
@@ -173,7 +175,7 @@ def _slstm_cell(p, cfg, wx_t, st, r):
     # the JAX package's einsum("bhd,ghde->gbhe", h, r), as (H, B, 4 dh)
     rec = torch.bmm(h.reshape(B, H, d // H).transpose(0, 1), r)
     rec = rec.reshape(H, B, 4, d // H).permute(2, 1, 0, 3).reshape(4, B, d)
-    pre = wx_t.reshape(B, 4, d).transpose(0, 1) + rec + p["b"].reshape(4, d)[:, None, :]
+    pre = wx_t.reshape(B, 4, d).transpose(0, 1) + rec + b.reshape(4, d)[:, None, :]
     zt = torch.tanh(pre[0].to(F32))
     it = pre[1].to(F32)
     ft = pre[2].to(F32)
@@ -185,6 +187,9 @@ def _slstm_cell(p, cfg, wx_t, st, r):
     n = f_p * st["n"] + i_p
     h_new = (ot * c / torch.clamp(n.abs(), min=1e-3)).to(h.dtype)
     return {"h": h_new, "c": c, "n": n, "m": m_new}, h_new
+
+
+STATE = ("h", "c", "n", "m")
 
 
 def init_slstm_state(cfg, batch, dtype, device):
@@ -200,18 +205,39 @@ def _slstm_ffn(p, cfg, y):
     return (F.silu(y @ p["ff_gate"]) * (y @ p["ff_up"])) @ p["ff_down"]
 
 
+def _slstm_steps(wx, r, b, *state, cfg):
+    """The cell over every position of wx (B, L, 4d) from the state (h, c,
+    n, m), zeros where none is given. Returns (h of every step (B, L, d),
+    then the last state's h, c, n, m)."""
+    if not state:
+        st = init_slstm_state(cfg, wx.shape[0], wx.dtype, wx.device)
+        state = tuple(st[k] for k in STATE)
+
+    def cell(w, r_, b_, *s):
+        new, _ = _slstm_cell(b_, cfg, w, dict(zip(STATE, s)), r_)
+        return tuple(new[k] for k in STATE)
+
+    hs, last = scan(cell, wx, (r, b), state)
+    return (hs, *last)
+
+
+def _slstm_run(p, cfg, u, st=None):
+    """``_slstm_steps`` on u (B, L, d) from the state ``st`` (zeros for
+    None); on DTensors on the local shards, split by batch only (a step of
+    the loop over time has too little work for DTensor's per-op cost, and
+    a head's gates mix its whole width)."""
+    args = (u @ p["wx"], _recurrent(p, cfg), p["b"]) + (
+        () if st is None else tuple(st[k] for k in STATE))
+    out = on_local_shards(_slstm_steps, args,
+                          ((1, 2), (0, 1, 2), (0,)) + ((1,),) * (len(args) - 3), cfg=cfg)
+    return out[0], dict(zip(STATE, out[1:]))
+
+
 def slstm_forward(p, cfg, u, state=None, return_state=False):
     """u: (B, L, d), one cell step per position. With ``return_state`` also
     the state after the last step."""
-    B, L, _ = u.shape
-    wx = u @ p["wx"]                                           # (B, L, 4d)
-    st = state if state is not None else init_slstm_state(cfg, B, u.dtype, u.device)
-    r = _recurrent(p, cfg)
-    hs = []
-    for t in range(L):
-        st, h = _slstm_cell(p, cfg, wx[:, t], st, r)
-        hs.append(h)
-    y = _slstm_ffn(p, cfg, torch.stack(hs, dim=1))
+    hs, st = _slstm_run(p, cfg, u, state)
+    y = _slstm_ffn(p, cfg, hs)
     if return_state:
         return y, st
     return y
@@ -219,7 +245,7 @@ def slstm_forward(p, cfg, u, state=None, return_state=False):
 
 def slstm_decode(p, cfg, u1, state):
     """u1: (B, 1, d); one cell step, the state written in place."""
-    st, h = _slstm_cell(p, cfg, (u1 @ p["wx"])[:, 0], state, _recurrent(p, cfg))
+    hs, st = _slstm_run(p, cfg, u1, state)
     for name, t in st.items():
         state[name].copy_(t)
-    return _slstm_ffn(p, cfg, h[:, None, :]), state
+    return _slstm_ffn(p, cfg, hs), state

@@ -22,7 +22,7 @@ from repro_torch.models.layers import (cross_entropy, dtype_of, embed, init_embe
 from repro_torch.models.xlstm import (init_mlstm, init_mlstm_cache, init_slstm,
                                       init_slstm_state, mlstm_decode, mlstm_forward,
                                       slstm_decode, slstm_forward)
-from repro_torch.sharding.partition import constrain, dense_only
+from repro_torch.sharding.partition import constrain, gather_seq
 from repro_torch.tree import tree_map, unstack
 
 
@@ -60,6 +60,7 @@ def init_xlstm_lm(key, cfg, device=None):
 
 
 def _mlstm_block(p_l, cfg, x, mode, cache=None):
+    x = gather_seq(x)
     h = rms_norm(x, p_l["ln"], cfg.norm_eps)
     if mode == "decode":
         m, c = mlstm_decode(p_l["cell"], cfg, h, cache)
@@ -71,6 +72,7 @@ def _mlstm_block(p_l, cfg, x, mode, cache=None):
 
 
 def _slstm_block(p_l, cfg, x, mode, state=None):
+    x = gather_seq(x)
     h = rms_norm(x, p_l["ln"], cfg.norm_eps)
     if mode == "decode":
         m, st = slstm_decode(p_l["cell"], cfg, h, state)
@@ -120,7 +122,6 @@ def _backbone(params, cfg, x, mode, caches=None):
     return x, caches
 
 
-@dense_only("the xLSTM family")
 def xlstm_loss(params, cfg, batch):
     """Mean next-token CE over labels >= 0 (weighted by
     ``batch["client_weights"]`` per row where given). Returns (loss, {})."""
@@ -134,7 +135,6 @@ def xlstm_loss(params, cfg, batch):
     return cross_entropy(logits, torch.clamp(labels, min=0), mask), {}
 
 
-@dense_only("the xLSTM family")
 def xlstm_prefill(params, cfg, batch):
     """Logits of the last prompt position (B, 1, V) and the filled caches."""
     x = embed(params["emb"], batch["tokens"])
@@ -158,7 +158,6 @@ def init_xlstm_cache(params, cfg, batch_size, length, dtype):
     return {"mlstm": mc, "slstm": sc}
 
 
-@dense_only("the xLSTM family")
 def xlstm_decode(params, cfg, token, pos, caches):
     """token: (B, 1) ints; pos is unused (the state carries the position).
     Writes the new state into ``caches`` in place and returns (logits

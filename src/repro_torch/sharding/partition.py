@@ -28,16 +28,20 @@ make themselves (positions, RoPE tables) meet DTensors as replicated ones.
 
 ``on_local_shards`` runs a kernel wrapper on the local shards of DTensor
 inputs: the wrappers launch ctypes kernels on raw pointers, which a
-DTensor does not have.
+DTensor does not have; so do the model's loops and reshapes of split
+dims that DTensor has no rule for. ``split_heads``/``merge_heads`` split
+a projection into heads at any mesh, ``gather_seq`` keeps the sequence
+whole inside a block, and ``distribute_caches``/``write_slot`` lay out
+and write decode caches.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 import math
 from typing import Optional
 
+import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 # ------------------------------------------------------------- constrain ctx
@@ -262,6 +266,20 @@ def distribute_tree(tree, specs, mesh):
     return distribute_tensor(tree, mesh, placements(mesh, specs))
 
 
+def distribute_caches(caches, mesh, batch_size: int):
+    """Lay a decode cache tree out on ``mesh`` by ``cache_spec``: DTensor
+    leaves (a prefill's) are redistributed, plain ones distributed; a None
+    leaf (xLSTM without sLSTM groups) stays None."""
+    def one(path, t):
+        if t is None:
+            return None
+        pl = placements(mesh, cache_spec(path, t, mesh, batch_size))
+        return t.redistribute(mesh, pl) if isinstance(t, DTensor) else distribute_tensor(
+            t, mesh, pl)
+
+    return _map_with_path(one, caches)
+
+
 @contextlib.contextmanager
 def use_mesh(mesh):
     """Run model code on DTensors of ``mesh``: the axis sizes are set for
@@ -277,54 +295,142 @@ def use_mesh(mesh):
         clear_sharding_ctx()
 
 
-def is_sharded_tree(tree) -> bool:
-    """Whether any leaf of a tree of dicts, lists and tuples is a DTensor."""
-    if isinstance(tree, dict):
-        return any(is_sharded_tree(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return any(is_sharded_tree(v) for v in tree)
-    return isinstance(tree, DTensor)
+def gather_seq(x):
+    """A DTensor (B, S, ...) whose sequence dim is split (the 'seq'
+    activation constraint) made whole on those mesh dims; anything else
+    as it is. Each block starts with it and the norms end with it, so the
+    sequence is split only between blocks, as in sequence parallelism:
+    DTensor on torch 2.11 cannot fold a split sequence into a matmul's
+    rows, forward (the projections) or backward (the gradient of a
+    branch that joins the residual stream)."""
+    if not isinstance(x, DTensor) or x.ndim < 3:
+        return x
+    pl = [Replicate() if p == Shard(1) else p for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
-UNSHARDED_FAMILIES = ("the DTensor path covers the dense and vlm transformers without MoE or "
-                      "MLA; {what} on DTensors comes with the dry-run (ROADMAP.md queue 1, "
-                      "item 15)")
+def split_heads(x, heads: int, head_dim: int):
+    """``x.reshape(*x.shape[:-1], heads, head_dim)``, the head split of a
+    projection, at every mesh: a DTensor whose last dim is split over mesh
+    axes keeps the split (by heads) where ``heads`` divides the product of
+    their sizes, and is made whole on them first otherwise (qwen3's 8 kv
+    heads on a 16-way model axis), as XLA reshards such a reshape. On a
+    plain tensor, the reshape."""
+    shape = (*x.shape[:-1], heads, head_dim)
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        on = [j for j, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == last]
+        if on and heads % math.prod(x.device_mesh.shape[j] for j in on):
+            x = x.redistribute(x.device_mesh, [Replicate() if j in on else p
+                                               for j, p in enumerate(x.placements)])
+    return x.reshape(shape)
 
 
-def dense_only(what: str):
-    """Decorate a model entry point ``fn(params, cfg, ...)`` of a family
-    the DTensor path does not cover: DTensor params raise
-    ``NotImplementedError`` instead of running half-sharded."""
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapper(params, *args, **kw):
-            if is_sharded_tree(params):
-                raise NotImplementedError(UNSHARDED_FAMILIES.format(what=what))
-            return fn(params, *args, **kw)
+class _MergeHeads(torch.autograd.Function):
+    """(..., H, hd) -> (..., H * hd) on a DTensor, whose gradient goes back
+    through ``split_heads``: the plain view's backward would unflatten a
+    gradient split over the model axis by a head count that does not
+    divide it."""
 
-        return wrapper
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads, ctx.head_dim = x.shape[-2:]
+        last = x.ndim - 1
+        if any(isinstance(p, Shard) and p.dim == last for p in x.placements):
+            x = x.redistribute(x.device_mesh, [Replicate() if isinstance(p, Shard) and
+                                               p.dim == last else p for p in x.placements])
+        return x.reshape(*x.shape[:-2], -1)
 
-    return deco
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.heads, ctx.head_dim)
 
 
-def on_local_shards(fn, tensors, whole, **kw):
-    """``fn(*tensors, **kw)`` for a kernel wrapper ``fn`` whose inputs
+def merge_heads(x):
+    """(..., H, hd) -> (..., H * hd), ``split_heads``'s inverse, at every
+    mesh; on a plain tensor, the reshape."""
+    if isinstance(x, DTensor):
+        return _MergeHeads.apply(x)
+    return x.reshape(*x.shape[:-2], -1)
+
+
+def write_slot(t, dim: int, index: int, value) -> None:
+    """``t.select(dim, index).copy_(value)`` (or ``.fill_`` for a number),
+    in place: a decode step's cache write. On a DTensor ``t`` the rank
+    whose shard holds ``index`` writes its part of ``value`` (a DTensor
+    laid out as ``t`` less ``dim``) into its local shard; the others
+    write nothing."""
+    if not isinstance(t, DTensor):
+        view = t.select(dim, index)
+        view.fill_(value) if isinstance(value, (int, float)) else view.copy_(value)
+        return
+    mesh = t.device_mesh
+    if isinstance(value, DTensor):
+        value = value.redistribute(mesh, [
+            Shard(p.dim - (p.dim > dim)) if isinstance(p, Shard) and p.dim != dim
+            else Replicate() for p in t.placements]).to_local()
+    # this rank's part of ``dim``: split in mesh-dim order (cache_spec
+    # splits only dims that divide)
+    size, start = t.shape[dim], 0
+    for j, (p, c) in enumerate(zip(t.placements, mesh.get_coordinate())):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.shape[j]
+            start += c * size
+    if not start <= index < start + size:
+        return
+    view = t._local_tensor.select(dim, index - start)
+    view.fill_(value) if isinstance(value, (int, float)) else view.copy_(value)
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous. DTensor's
+    ``to_local`` backward infers a gradient's global strides from its
+    local layout, and gets them wrong where a split dim holds one element
+    a rank (one head a rank: qwen1.5-0.5b's 16 heads on the 16-way model
+    axis) and the layout is not contiguous (the attention's gradients);
+    a later view then fails on the local shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _dense_grad(t):
+    return _DenseGrad.apply(t) if t.requires_grad else t
+
+
+def on_local_shards(fn, tensors, whole, shared=(), **kw):
+    """``fn(*tensors, **kw)`` for a function ``fn`` of plain tensors (a
+    kernel wrapper, or a loop DTensor has no rules for) whose inputs
     include DTensors: each DTensor goes to ``fn`` as its local shard, and
-    the result comes back as a DTensor.
+    the result (a tensor or a tuple of them) comes back as DTensors.
 
-    ``whole[i]`` is the set of dims of ``tensors[i]`` that the kernel
-    reduces over, which no shard may split. On each mesh dim the inputs
-    that may be split (those with a dim outside ``whole``) stay split
-    where all of them are ``Shard`` on the same dim outside ``whole``,
-    and that dim divides evenly; otherwise every input is made whole
-    (``Replicate``) on that mesh dim, a pending sum (``Partial``)
+    ``whole[i]`` is the set of dims of ``tensors[i]`` that ``fn`` reduces
+    over, which no shard may split. On each mesh dim the inputs that may
+    be split (those with a dim outside ``whole``, and not in ``shared``)
+    stay split where all of them are ``Shard`` on the same dim outside
+    ``whole``, and that dim divides evenly; otherwise every input is made
+    whole (``Replicate``) on that mesh dim, a pending sum (``Partial``)
     included. Inputs whose every dim is in ``whole`` are replicated; their
     gradients are partial sums on the mesh dims the others stay split on.
-    The result takes the placements of the first input that may be split.
-    Plain tensors among the inputs are used as they are."""
-    mesh = next(t.device_mesh for t in tensors if isinstance(t, DTensor))
+    The inputs in ``shared`` (indices) are read alike by every part of
+    that split (Mamba2's B and C by every head, MLA's RoPE key by every
+    head): they keep a split of the kept dim where they are ``Shard`` on
+    it and it is outside their ``whole``, and are whole on that mesh dim
+    otherwise, their gradients partial sums there. Each result takes the
+    placements of the inputs that may be split. Plain tensors among the
+    inputs are used as they are; with no DTensor among them this is
+    ``fn(*tensors, **kw)``."""
+    mesh = next((t.device_mesh for t in tensors if isinstance(t, DTensor)), None)
+    if mesh is None:
+        return fn(*tensors, **kw)
     cut = [{d % t.ndim for d in w} for t, w in zip(tensors, whole)]
-    split = [i for i, t in enumerate(tensors) if isinstance(t, DTensor) and len(cut[i]) < t.ndim]
+    split = [i for i, t in enumerate(tensors)
+             if isinstance(t, DTensor) and len(cut[i]) < t.ndim and i not in shared]
     keep = [None] * mesh.ndim                  # per mesh dim: the tensor dim kept split
     for j in range(mesh.ndim):
         held = [tensors[i].placements[j] for i in split]
@@ -338,15 +444,23 @@ def on_local_shards(fn, tensors, whole, **kw):
         if all(tensors[i].shape[d] % n == 0 for i in split):
             keep[j] = d
     out_placements = [Shard(d) if d is not None else Replicate() for d in keep]
-    partial = [Partial() if d is not None else Replicate() for d in keep]
     local = []
     for i, t in enumerate(tensors):
         if not isinstance(t, DTensor):
             local.append(t)
         elif i in split:
-            local.append(t.redistribute(mesh, out_placements).to_local())
+            local.append(_dense_grad(t.redistribute(mesh, out_placements).to_local()))
         else:
-            replicated = [Replicate()] * mesh.ndim
-            local.append(t.redistribute(mesh, replicated).to_local(grad_placements=partial))
+            # used whole, or split alike where shared: a gradient pending sum
+            # over the split it is read whole across
+            here = [Shard(d) if (i in shared and d is not None and d not in cut[i]
+                                 and t.placements[j] == Shard(d)) else Replicate()
+                    for j, d in enumerate(keep)]
+            grads = [p if isinstance(p, Shard) or d is None else Partial()
+                     for p, d in zip(here, keep)]
+            local.append(_dense_grad(t.redistribute(mesh, here).to_local(
+                grad_placements=grads)))
     out = fn(*local, **kw)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, out_placements, run_check=False) for o in out)
     return DTensor.from_local(out, mesh, out_placements, run_check=False)

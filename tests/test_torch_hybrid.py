@@ -213,6 +213,21 @@ def test_pad_cache_grows_attention_only():
         assert c2["mamba"][name] is c["mamba"][name]
 
 
+def test_mamba2_prefill_conv_cache_is_a_copy():
+    """The conv cache of a prefill owns its ssm_conv rows: a view of the
+    in-projection would hold the whole (B, L, 2 d_inner + 2N + H) product
+    alive as long as the cache (every layer's, until the model stacks
+    them), with and without ``use_pallas``."""
+    for use_pallas in (False, True):
+        cfg = smoke_config(ARCH).replace(use_pallas=use_pallas)
+        p = ssm.init_mamba2(prng.PRNGKey(1), cfg)
+        u = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (2, 16, cfg.d_model)).astype(np.float32))
+        _, c = ssm.mamba2_forward(p, cfg, u, return_state=True)
+        conv = c["conv"]
+        assert conv.untyped_storage().nbytes() == conv.numel() * conv.element_size()
+
+
 def test_hybrid_cache_size_does_not_grow_with_length():
     """As tests/test_serve.py holds for the JAX package's SSM caches: only
     the shared slots' KV caches depend on the length."""

@@ -101,6 +101,14 @@ def test_assigned_archs_equal_the_reference():
     assert ASSIGNED_ARCHS == JAX_ASSIGNED_ARCHS
 
 
+def test_on_local_shards_of_plain_tensors_is_the_call():
+    """With no DTensor among the inputs ``on_local_shards`` calls the
+    function on them as they are, so model code calls it on every path."""
+    x, y = torch.ones(2, 3), torch.zeros(3)
+    got = part.on_local_shards(lambda a, b, *, k: (a, b, k), (x, y), ((-1,), (0,)), k=7)
+    assert got[0] is x and got[1] is y and got[2] == 7
+
+
 @pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_param_specs_equal_the_reference(arch, sizes):
     """The port's specs of its meta-device params equal the JAX package's
@@ -377,15 +385,15 @@ SPMD_PROG = textwrap.dedent("""
                 arrays.update({f"{act}_grad/{k}": v for k, v in grads_full.items()})
                 arrays.update({f"{act}_new/{k}": v for k, v in new_full.items()})
 
+        mcfg = smoke_config("qwen2-moe-a2.7b")
+        mapi = get_api(mcfg)
+        mp_ = mapi.init_params(prng.PRNGKey(0, device="cpu"), mcfg, device="cpu")
+        res["moe_plain_loss"] = float(mapi.loss_fn(mp_, mcfg, batch)[0])
         with part.use_mesh(mesh):
-            mcfg = smoke_config("qwen2-moe-a2.7b")
-            mapi = get_api(mcfg)
-            mp_ = mapi.init_params(prng.PRNGKey(0, device="cpu"), mcfg, device="cpu")
             mp_ = part.distribute_tree(mp_, part.tree_param_specs(mp_, mcfg), mesh)
-            try:
-                mapi.loss_fn(mp_, mcfg, batch)
-            except NotImplementedError as e:
-                res["moe_refusal"] = str(e)
+            mb = {k: distribute_tensor(v, mesh, part.placements(
+                mesh, part.batch_spec(mesh, B, v.ndim))) for k, v in batch.items()}
+            res["moe_loss"] = float(mapi.loss_fn(mp_, mcfg, mb)[0].full_tensor())
         if rank == 0:
             np.savez(outp + ".npz", **arrays)
             with open(outp + ".json", "w") as f:
@@ -418,8 +426,9 @@ def test_sharded_train_step_4_gloo_ranks(tmp_path):
     max|g|), the params after one step the plain step's by the first-step
     AdamW rule of ``tests/test_torch_train.py``, and every leaf keeps its
     placements. The use_pallas loss at S 128 takes flash on the local
-    shards; a MoE config under the mesh raises, naming item 15; the
-    production mesh on 4 ranks raises naming both counts."""
+    shards; a MoE config's loss under the mesh equals its plain loss
+    within 1e-6; the production mesh on 4 ranks raises naming both
+    counts."""
     jcfg = jax_smoke_config("qwen3-0.6b").replace(
         d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256)
     japi = jax_get_api(jcfg)
@@ -441,7 +450,7 @@ def test_sharded_train_step_4_gloo_ranks(tmp_path):
     res = json.loads(Path(out + ".json").read_text())
     arrays = dict(np.load(out + ".npz"))
     assert "needs 256 ranks, have 4" in res["production_mesh"]
-    assert "item 15" in res["moe_refusal"]
+    np.testing.assert_allclose(res["moe_loss"], res["moe_plain_loss"], atol=1e-6, rtol=0)
     np.testing.assert_allclose(res["plain_loss"], jloss, atol=1e-5, rtol=0)
     names = sorted(k.split("/", 1)[1] for k in arrays if k.startswith("plain_grad/"))
     for act in ("seq", "dmodel"):

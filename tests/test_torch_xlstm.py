@@ -29,7 +29,7 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.models import get_api as jax_get_api
 from repro.models import xlstm as jx
 from repro.models.model import pad_cache as jax_pad_cache
-from repro_torch import prng
+from repro_torch import prng, trips
 from repro_torch.configs import smoke_config
 from repro_torch.interop import lm_params_from_numpy, params_from_numpy, params_to_numpy
 from repro_torch.kernels import LAUNCHES, reset_launches
@@ -95,6 +95,43 @@ def test_mlstm_forward_state_and_decode_match_jax(chunk):
         yt, st = tx.mlstm_decode(tp, cfg, torch.from_numpy(x[:, t:t + 1]), st)
         _close(yt.numpy(), yj, 1e-4, f"decode {t}")
     _close(st["state"].numpy(), sj["state"], 1e-5, rtol=1e-6)
+
+
+def _owns_its_storage(t):
+    return t.untyped_storage().nbytes() == t.numel() * t.element_size()
+
+
+def test_mlstm_prefill_conv_cache_is_a_copy():
+    """The conv cache of a prefill owns its ssm_conv rows: a view of the
+    up-projection would hold the whole (B, L, 2 d_inner) product alive as
+    long as the cache (every layer's, until the model stacks them)."""
+    cfg = smoke_config(ARCH)
+    p = tx.init_mlstm(prng.PRNGKey(1), cfg)
+    _, st = tx.mlstm_forward(p, cfg, torch.from_numpy(_x(cfg, 2, 16)), return_state=True)
+    assert st["conv"].shape == (2, cfg.ssm_conv, cfg.ssm_expand * cfg.d_model)
+    assert _owns_its_storage(st["conv"])
+
+
+def test_scan_runs_every_step_and_books_one_on_meta():
+    """``trips.scan`` is the loop on a real tensor (each step booked
+    once); on a meta one it traces one step under a trip factor of L, with
+    the loop's output shapes."""
+    def cell(x, w, h):
+        seen.append(trips.factor())
+        return (torch.tanh(x + h * w),)
+
+    rng = np.random.default_rng(0)
+    xs, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in ((2, 5, 3), (3,)))
+    h, want = torch.zeros(2, 3), []
+    for t in range(5):
+        h = torch.tanh(xs[:, t] + h * w)
+        want.append(h)
+    for dev, factors in (("cpu", [1] * 5), ("meta", [5])):
+        seen = []
+        hs, (last,) = trips.scan(cell, xs.to(dev), (w.to(dev),), (torch.zeros(2, 3, device=dev),))
+        assert hs.shape == (2, 5, 3) and last.shape == (2, 3) and seen == factors, dev
+    hs, (last,) = trips.scan(cell, xs, (w,), (torch.zeros(2, 3),))
+    assert torch.equal(hs, torch.stack(want, dim=1)) and torch.equal(last, want[-1])
 
 
 def test_mlstm_cache_matches_jax():
