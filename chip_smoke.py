@@ -118,7 +118,7 @@ printed only when every phase passed:
    versions at every flush shape those runs made.
    Card against CPU: lognormal_straggler with round_robin gives identical
    event traces and cost_dropouts; fedmedian with round_robin at buffer 4
-   params within 1e-4. A 2x2 sweep (alpha x fedmedian/qfedavg, 600
+   params within 1e-4. A 2x2 sweep (alpha x fedmedian/qfedavg, 150
    arrivals a point) with two spawned workers equals the sequential
    payload but for wall times.
 18. LM training, sync (``run_scenario`` on the ``arch`` family, vmap
@@ -297,7 +297,23 @@ printed only when every phase passed:
    qwen3-0.6b x train_4k and deepseek-v2-lite-16b x decode_32k on the
    host, each in its own process on a fake group of 256 ranks, with a
    timeout: each record ``ok``, on meta tensors only.
-33. A JSON line describing every kernel, the card line, and the final
+33. The key-driven allocators and the linter. (a) ``core.allocation``'s
+   ``allocate`` under fedfair, random and round_robin, 8 keys each, at
+   the quickstart's 40 clients and ``examples/specs/big_population.json``'s
+   100,000, ``assign_completion`` over 1,000 keys in one call with
+   eligibility rows from a seeded numpy stream (an all-zero row gives -1)
+   and its first 100 keys one call each, and ``selection_probability``, on
+   the card against the same calls on the CPU: task ids bit-equal, the
+   probabilities within 1e-6 relative, every card call made with its
+   inputs on the card under torch's sync debug mode (any host sync
+   raises). ms per call on the card (CUDA events) and host us per one-key
+   ``assign_completion`` call, all taken first. (b) After (a)'s timings,
+   beside its checks, in fresh processes on the card's host: ``python -m
+   repro_torch.analysis src/repro_torch`` exits 0 with 0 findings, with
+   its wall time, and ``python -m repro_torch.analysis --dump-markdown``
+   and ``python -m repro_torch.api.registry --dump-markdown`` equal the
+   committed ``docs/ANALYSIS_TORCH.md`` and ``docs/REGISTRY_TORCH.md``.
+34. A JSON line describing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 In phases 16-20, 24, 27 and 29 every fedavg call of the card's runs is also held
@@ -312,6 +328,7 @@ expandable segments (``PYTORCH_CUDA_ALLOC_CONF``, unless set otherwise).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -421,6 +438,9 @@ EXP13 = dict(tasks=("synth-mnist", "synth-fmnist"), clients=16, arrivals=600, bu
              spread=8.0, aggregators={"fedmedian": {}, "trimmed_mean": {"trim": 0.2},
                                       "qfedavg": {"q": 1.0}})
 EXP14_SPREAD, EXP14_TARGET = 4.0, 0.55
+# the sweep's runs, cut from exp13's 600 arrivals: it checks that spawned
+# workers give the sequential payload, which needs no full-length run
+SWEEP_ARRIVALS = 150
 LOGNORMAL = {"sigma": 0.6, "straggler_frac": 0.25, "straggler_factor": 4.0, "dropout_prob": 0.05}
 
 # LM training (the arch family): two full-width tasks, smollm-135m as true
@@ -1948,7 +1968,7 @@ def phase_incentives(line: str):
 
 def exp13_spec(aggregator, options=None, strategy: str = "fedfair", buffer: int = EXP13["buffer"],
                spread: float = EXP13["spread"], cost_model=None, cost_options=None,
-               policy=None, name: str = "exp13"):
+               policy=None, name: str = "exp13", arrivals: int = EXP13["arrivals"]):
     """exp13's skewed two-task async scenario; exp14 is the same at spread
     4 with a cost model and a policy."""
     from repro_torch.api import (AllocationSpec, ClientPopulationSpec, PolicySpec, RuntimeSpec,
@@ -1963,7 +1983,7 @@ def exp13_spec(aggregator, options=None, strategy: str = "fedfair", buffer: int 
         allocation=AllocationSpec(strategy=strategy, alpha=3.0),
         policy=None if policy is None else PolicySpec(policy),
         runtime=RuntimeSpec(mode="async", backend="vmap", tau=3,
-                            total_arrivals=EXP13["arrivals"], buffer_size=buffer, beta=0.5,
+                            total_arrivals=arrivals, buffer_size=buffer, beta=0.5,
                             aggregator=aggregator, aggregator_options=dict(options or {}),
                             cost_model=cost_model, cost_model_options=dict(cost_options or {})))
 
@@ -2070,7 +2090,7 @@ def phase_robust_costs(line: str):
     if not same or not diff <= 1e-4:
         fail("fedmedian round_robin card vs CPU disagree")
 
-    base = exp13_spec(None, name="sweep")
+    base = exp13_spec(None, name="sweep", arrivals=SWEEP_ARRIVALS)
     grid = {"allocation.alpha": [1.0, 3.0], "runtime.aggregator": ["fedmedian", "qfedavg"]}
     t0 = time.perf_counter()
     seq = sweep_scenarios(base, grid, device="cuda")
@@ -2081,7 +2101,7 @@ def phase_robust_costs(line: str):
         for run in payload["runs"]:
             run.pop("wall_time")
             run["result"].pop("wall_time")
-    print(f"sweep 2x2 (alpha x aggregator), {EXP13['arrivals']} arrivals a point: sequential {t1 - t0:.2f} s, "
+    print(f"sweep 2x2 (alpha x aggregator), {SWEEP_ARRIVALS} arrivals a point: sequential {t1 - t0:.2f} s, "
           f"2 spawned workers {t2 - t1:.2f} s; payloads equal but for wall times={seq == par}")
     if seq != par or len(seq["runs"]) != 4:
         fail("sweep: the parallel payload differs from the sequential one")
@@ -4529,6 +4549,168 @@ def phase_dtensor_families(line: str) -> dict:
     return out
 
 
+# phase 33: the quickstart's three tasks at fixed losses, its 40 clients
+# and examples/specs/big_population.json's 100,000; keys per strategy and
+# for the one-client completion draw
+ALLOC_LOSSES = (0.82, 0.35, 0.61)
+ALLOC_CLIENTS = (40, 100_000)
+ALLOC_KEYS, COMPLETION_KEYS, COMPLETION_ALONE = 8, 1000, 100
+ALLOC_ALPHA = 3.0
+ALLOC_STRATEGIES = ("fedfair", "random", "round_robin")
+SELECTION = dict(n_selected=8, n_clients=40)
+SELECTION_RTOL = 1e-6
+LINT_TIMEOUT = 120
+# host time of a one-key assign_completion: 5 windows of 10 calls
+HOST_INNER, HOST_REPS = 10, 5
+# phase 33 (b): the linter on the port and the two generators, as a user
+# runs them (python -m ...)
+LINT_COMMANDS = {"lint": ("repro_torch.analysis", "src/repro_torch"),
+                 "docs/ANALYSIS_TORCH.md": ("repro_torch.analysis", "--dump-markdown"),
+                 "docs/REGISTRY_TORCH.md": ("repro_torch.api.registry", "--dump-markdown")}
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """torch raises on any call inside that syncs the host with the card."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_allocation_lint(line: str) -> dict:
+    """Phase 33: (a) the key-driven allocators on the card against the CPU;
+    (b) the port's linter and its two generated references."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core import allocation
+
+    print("== phase 33: key-driven allocators (card against CPU); the linter")
+    print(f"card: {line}")
+    t0 = time.perf_counter()
+    losses = np.asarray(ALLOC_LOSSES, np.float32)
+    # inputs on the card, so that no call copies from the host: the card's
+    # calls run with torch's sync debug mode raising on any host sync
+    card_losses = torch.from_numpy(losses).cuda()
+    keys = [prng.PRNGKey(k, device="cuda") for k in range(ALLOC_KEYS)]
+    elig = (np.random.default_rng(33).random((COMPLETION_KEYS, len(losses))) < 0.5
+            ).astype(np.float32)
+    cpu_keys = prng.split(prng.PRNGKey(33), COMPLETION_KEYS)
+    card_keys, card_elig = cpu_keys.cuda(), torch.from_numpy(elig).cuda()
+    key0, elig0 = card_keys[0], card_elig[0]
+
+    # (a)'s timings first, with nothing else running on the host
+    def one_key():
+        return allocation.assign_completion(key0, card_losses, elig0, ALLOC_ALPHA)
+
+    out = {"allocate": {f"{strategy} n={n}": {"keys": ALLOC_KEYS, "ms": time_ms(
+        lambda: allocation.allocate(keys[0], strategy, card_losses, n, ALLOC_ALPHA))}
+        for strategy in ALLOC_STRATEGIES for n in ALLOC_CLIENTS}}
+    out["assign_completion"] = {
+        "keys": COMPLETION_KEYS, "keys_alone": COMPLETION_ALONE, "ms": time_ms(one_key),
+        "host_us_per_call": 1e3 * host_ms(one_key, inner=HOST_INNER, reps=HOST_REPS),
+        "batch_ms": time_ms(lambda: allocation.assign_completion(card_keys, card_losses,
+                                                                 card_elig, ALLOC_ALPHA))}
+    out["selection_probability"] = {"ms": time_ms(lambda: allocation.selection_probability(
+        card_losses, ALLOC_ALPHA, **SELECTION))}
+    out["timing_s"] = time.perf_counter() - t0
+
+    # (b) in fresh processes (this process's registries also hold the
+    # backends phase 31 registered), on the host while (a)'s checks run
+    t1 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {name: subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, args in LINT_COMMANDS.items()}
+
+    for name, cell in out["allocate"].items():
+        strategy, n = name.split(" n=")[0], int(name.split(" n=")[1])
+        with no_host_sync():
+            card = [allocation.allocate(k, strategy, card_losses, n, ALLOC_ALPHA,
+                                        round_idx=i) for i, k in enumerate(keys)]
+        cpu = [allocation.allocate(prng.PRNGKey(k), strategy, losses, n, ALLOC_ALPHA,
+                                   round_idx=k) for k in range(ALLOC_KEYS)]
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            if a.device.type != "cuda" or a.dtype != torch.int32 or not torch.equal(a.cpu(), b):
+                fail(f"allocate {name} key {i}: card and CPU differ")
+        print(f"allocate {name}: {ALLOC_KEYS} keys bit-equal with the CPU; "
+              f"{cell['ms']:.3f} ms per call")
+    empty = elig.sum(1) == 0
+    if not empty.any():
+        fail("assign_completion: the eligibility stream drew no all-zero row")
+    with no_host_sync():
+        card = allocation.assign_completion(card_keys, card_losses, card_elig, ALLOC_ALPHA)
+    cpu = allocation.assign_completion(cpu_keys, losses, elig, ALLOC_ALPHA)
+    if card.device.type != "cuda" or not torch.equal(card.cpu(), cpu):
+        fail(f"assign_completion: {int((card.cpu() != cpu).sum())} of {COMPLETION_KEYS} keys "
+             "differ between the card and the CPU")
+    card = card.cpu().numpy()
+    if not np.array_equal(card == -1, empty):
+        fail("assign_completion: -1 is not exactly the all-zero rows")
+    picked = card[~empty]
+    if not elig[~empty][np.arange(picked.size), picked].all():
+        fail("assign_completion: a client was given a task it is not eligible for")
+    # one client a call, as the engines would call it: the first keys alone
+    with no_host_sync():
+        alone = torch.stack([allocation.assign_completion(card_keys[i], card_losses,
+                                                          card_elig[i], ALLOC_ALPHA)
+                             for i in range(COMPLETION_ALONE)])
+    if not np.array_equal(alone.cpu().numpy(), card[:COMPLETION_ALONE]):
+        fail("assign_completion: a key alone differs from its draw in the batch")
+    got = out["assign_completion"]
+    got["empty_rows"] = int(empty.sum())
+    print(f"assign_completion: {COMPLETION_KEYS} keys in one call bit-equal with the CPU "
+          f"({got['empty_rows']} all-zero rows give -1), {got['batch_ms']:.3f} ms; the first "
+          f"{COMPLETION_ALONE} alone the same, {got['ms']:.3f} ms and "
+          f"{got['host_us_per_call']:.1f} host us per call")
+    with no_host_sync():
+        card_p = allocation.selection_probability(card_losses, ALLOC_ALPHA, **SELECTION)
+    cpu_p = allocation.selection_probability(losses, ALLOC_ALPHA, **SELECTION)
+    rel = float(((card_p.cpu() - cpu_p).abs() / cpu_p.abs().clamp_min(1e-30)).max())
+    if card_p.device.type != "cuda" or rel > SELECTION_RTOL:
+        fail(f"selection_probability: card and CPU differ by {rel:.3e} relative")
+    out["selection_probability"].update(max_rel_err=rel,
+                                        bit_equal=bool(torch.equal(card_p.cpu(), cpu_p)))
+    print(f"selection_probability: {rel:.3e} relative to the CPU "
+          f"(bit-equal: {out['selection_probability']['bit_equal']}), "
+          f"{out['selection_probability']['ms']:.3f} ms")
+
+    waited = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=LINT_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other.kill()
+                other.communicate()
+            fail(f"{' '.join(LINT_COMMANDS[name])}: over {LINT_TIMEOUT} s")
+        if proc.returncode != 0:
+            fail(f"{' '.join(LINT_COMMANDS[name])}: exit {proc.returncode}: "
+                 f"{stdout[-2000:]}{stderr[-2000:]}")
+        waited[name] = (stdout, time.perf_counter() - t1)
+    stdout, lint_s = waited["lint"]
+    last = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+    if not last.startswith("0 finding(s)"):
+        fail(f"the linter on src/repro_torch: {stdout[-2000:]}")
+    for doc in ("docs/ANALYSIS_TORCH.md", "docs/REGISTRY_TORCH.md"):
+        if (ROOT / doc).read_text() != waited[doc][0]:
+            fail(f"{doc} differs from its generator's output")
+    out["lint"] = {"exit": 0, "summary": last, "wall_s": lint_s}
+    print(f"python -m repro_torch.analysis src/repro_torch: {last} (exit 0) in {lint_s:.2f} s "
+          "(beside the card checks); docs/ANALYSIS_TORCH.md and docs/REGISTRY_TORCH.md match "
+          "their generators")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 33: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import os
 
@@ -4580,6 +4762,7 @@ def main() -> int:
     sharded = phase_sharded(line)
     dtensor = phase_dtensor_lm(line)
     families32 = phase_dtensor_families(line)
+    alloc_lint = phase_allocation_lint(line)
     fam32 = families32["families"]
     fedavg = {
         "name": "fedavg",
@@ -4811,6 +4994,7 @@ def main() -> int:
                       "phi3_vision_train": vlm_train, "queue": queue}))
     print(json.dumps({"sharded": sharded, "dtensor_lm": dtensor}))
     print(json.dumps({"dtensor_families": families32}))
+    print(json.dumps({"allocation_lint": alloc_lint}))
     print(json.dumps({"kernels": [fedavg, fused, flash, rms, gated_rec, ssd]}))
     print(f"card: {line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,15 @@ execution backends, ``launch.train`` and ``launch.serve``) take
 ``device=None``, which means CUDA: without a
 card they raise unless the caller passes ``device="cpu"``
 (``repro_torch.device``).
+
+``resolve_device`` is re-exported lazily (PEP 562), so that importing a
+torch-free subpackage (``repro_torch.analysis``) does not import torch.
 """
 
-from repro_torch.device import resolve_device  # noqa: F401
+
+def __getattr__(name: str):
+    if name == "resolve_device":
+        from repro_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

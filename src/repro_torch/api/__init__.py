@@ -81,7 +81,7 @@ from repro_torch.api.costmodel import (  # noqa: F401
     TraceReplay,
     get_cost_model,
 )
-from repro_torch.api.policy import (  # noqa: F401  (registers the policies, incentives, auctions)
+from repro_torch.api.policy import (  # noqa: F401  (registers the policies and incentives)
     AllocationPolicy,
     EligibilityUpdate,
     GradNormPolicy,
@@ -103,6 +103,11 @@ from repro_torch.pop import (  # noqa: F401  (registers the "vectorized" populat
     VectorizedPopulation,
     get_population,
 )
+
+# the built-in allocators and auctions register next to their
+# implementations; importing them here populates the registries
+import repro_torch.core.allocation  # noqa: E402,F401
+import repro_torch.core.auctions  # noqa: E402,F401
 
 _LAZY = {
     # TASK_FAMILIES lives in api.registry, but engine.py registers its

@@ -21,6 +21,12 @@ and bit-exact with it:
 
 ``state_dict``/``load_state`` are JSON-native full restores; the trainer
 loads the construction-time state at the start of ``run()``.
+
+This module imports nothing of ``repro_torch.core`` at module level:
+``core.allocation`` and ``core.auctions`` import ``api.registry``, which
+runs this package's ``__init__``. ``LegacyStrategyPolicy`` imports them
+when it runs, and ``api/__init__.py`` imports them to register their
+entries.
 """
 
 from __future__ import annotations
@@ -34,8 +40,6 @@ import torch
 
 from repro_torch.api.registry import (ALLOCATORS, AUCTIONS, INCENTIVES, POLICIES,
                                       register_incentive, register_policy)
-from repro_torch.core import auctions as _auctions  # noqa: F401  (registers the auctions)
-from repro_torch.core.allocation import AllocationStrategy, custom_or_fedfair_probs
 from repro_torch.tree import tree_leaves
 
 
@@ -114,6 +118,8 @@ class LegacyStrategyPolicy(AllocationPolicy):
     callable, with the reference's unreported-loss fallbacks."""
 
     def __init__(self, strategy="fedfair"):
+        from repro_torch.core.allocation import AllocationStrategy
+
         if isinstance(strategy, str) and not isinstance(strategy, AllocationStrategy):
             strategy = ALLOCATORS.get(strategy)
         self.strategy = strategy
@@ -124,6 +130,8 @@ class LegacyStrategyPolicy(AllocationPolicy):
         )
 
     def allocate(self, ctx: RoundContext) -> Optional[np.ndarray]:
+        from repro_torch.core.allocation import AllocationStrategy, custom_or_fedfair_probs
+
         S = len(ctx.task_names)
         if self.strategy == AllocationStrategy.ROUND_ROBIN:
             return None

@@ -23,7 +23,6 @@ from typing import Tuple
 
 import numpy as np
 
-from repro_torch.fed.data import _warp
 
 
 class _ShapeProxy:
@@ -99,6 +98,9 @@ class LazyFedTask:
         y = rng.choice(classes, size=n)
         x = self.centers[y] + rng.normal(size=(n, self.input_dim)) * self.noise
         if self.warp_depth:
+            # lazy: repro_torch.fed imports the engines, which import this package
+            from repro_torch.fed.data import _warp
+
             x = _warp(np.random.default_rng(self.seed + 1), x, self.warp_depth)
         if self.label_noise:
             flip = rng.random(n) < self.label_noise

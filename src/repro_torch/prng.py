@@ -9,7 +9,8 @@ comparable with a reference run trace for trace.
 
 This module reimplements the threefry2x32 PRNG as JAX 0.9 computes it with
 ``jax_threefry_partitionable=True`` (the default): ``PRNGKey``, ``fold_in``,
-``split``, 32-bit ``random_bits``, ``randint`` and ``normal``. A key is an
+``split``, 32-bit ``random_bits``, ``randint``, ``uniform``, ``normal``,
+``gumbel``, ``categorical`` and ``permutation``. A key is an
 int64 tensor whose last axis holds the two uint32 words; every uint32 value
 is carried in int64 and wrapped with ``& 0xFFFFFFFF``. All functions
 broadcast over leading key axes, so a cohort of keys is one call. They run
@@ -117,8 +118,7 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -
     span = (maxval - minval) & MASK if maxval > minval else 1
     # uint32 arithmetic: (2**16)**2 wraps to 0 when span > 2**16
     multiplier = ((2**16 % span) ** 2 & MASK) % span
-    mult = torch.tensor(multiplier, dtype=torch.int64, device=key.device)
-    offset = (_mul32(higher % span, mult) + lower % span) & MASK
+    offset = (_mul32(higher % span, multiplier) + lower % span) & MASK
     return minval + offset % span
 
 
@@ -201,6 +201,32 @@ def _log_f32(v: torch.Tensor) -> torch.Tensor:
     return (t - x2 * 0.5) + y + e * float(_LOG_Q2)
 
 
+# XLA:CPU's f32 exp (Cephes: n = round(x log2 e), a = x - n ln 2 in two
+# parts, a degree-7 polynomial in a, times 2**n), every multiply-add an FMA
+_EXP_P = np.float32([1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+                     1.6666665459e-1, 5.0000001201e-1])
+_LOG2E = np.float32(1.44269504088896341)
+
+
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU flushes subnormal f32 results to zero; a torch op does not."""
+    return torch.where(v.abs() < float(_MIN_NORMAL), torch.zeros_like(v), v)
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``exp`` (not correctly rounded), subnormals flushed."""
+    x = torch.clamp(x, float(np.float32(-87.8)), float(np.float32(88.8)))
+    n = torch.clamp(torch.floor(_fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    a = _fma(n, -_LOG_Q2, x)
+    a = _fma(n, -_LOG_Q1, a)
+    z = _fma(a, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        z = _fma(z, a, c)
+    z = 1.0 + _fma(z, a * a, a)
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return _flush(z * pow2)
+
+
 def _log1p_f32(a: torch.Tensor) -> torch.Tensor:
     """XLA:CPU's f32 ``log1p`` for a > -1."""
     x2 = a * a
@@ -254,10 +280,12 @@ def _draw(values, key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 
 def _uniform_values(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    # f32 bounds as exact Python scalars: no host-to-device copy, which on a
+    # card would sync the host
+    lo = np.float32(minval)
+    span, lo = float(np.float32(maxval) - lo), float(lo)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.clamp(floats * span + lo, min=lo)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
@@ -271,3 +299,55 @@ def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     uniform on ``(nextafter(-1, 0), 1)``."""
     return _draw(lambda bits: _SQRT2.item() * _erfinv_f32(
         _uniform_values(bits, float(_LO), float(_HI))), key, shape)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, its default ("low") mode:
+    ``-log(-log(u))`` with u uniform on ``[tiny, 1)``, through XLA:CPU's
+    f32 log, so the values are the same on every device."""
+    return _draw(lambda bits: -_log_f32(-_log_f32(
+        _uniform_values(bits, float(_MIN_NORMAL), 1.0))), key, shape)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                shape: Sequence[int] = None) -> torch.Tensor:
+    """``jax.random.categorical`` with replacement: the argmax over the last
+    axis of gumbel noise plus ``logits`` (the first maximum on a tie).
+    ``shape`` is each key's result shape, the batch shape of its logits
+    (their shape without the last axis) at its end; the leading rest are
+    independent draws. As every draw here, it broadcasts over leading key
+    axes: keys (..., 2) take logits (..., *batch, S), the key axes first.
+    Returns int64."""
+    lead = tuple(key.shape[:-1])
+    if tuple(logits.shape[:len(lead)]) != lead:
+        raise ValueError(f"categorical logits {tuple(logits.shape)} do not lead with the "
+                         f"key axes {lead}")
+    batch = tuple(logits.shape[len(lead):-1])
+    shape = batch if shape is None else tuple(int(s) for s in shape)
+    try:
+        fits = tuple(torch.broadcast_shapes(shape, batch)) == shape
+    except RuntimeError:
+        fits = False
+    if not fits:
+        raise ValueError(f"categorical shape {shape} is not broadcast-compatible with the "
+                         f"batch shape {batch}")
+    noise = gumbel(key, (*shape, logits.shape[-1]))
+    return torch.argmax(noise + logits.reshape(*lead, *(1,) * (len(shape) - len(batch)),
+                                               *batch, logits.shape[-1]), dim=-1)
+
+
+def permutation(key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jax.random.permutation(key, x)`` of a tensor, along its first axis:
+    ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each a ``split``, a 32-bit
+    random key per element and a stable sort of the elements by key, as
+    ``jax._src.random._shuffle`` does (XLA sorts stably there too). A
+    tensor of more than one axis moves its rows by a shuffle of their
+    indices."""
+    if x.ndim != 1:
+        return x[permutation(key, torch.arange(x.shape[0], device=x.device))]
+    rounds = math.ceil(3 * math.log(max(1, x.numel())) / math.log(MASK))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, x.shape), stable=True).indices
+        x = x[order]
+    return x

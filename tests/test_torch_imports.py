@@ -112,3 +112,24 @@ VLM_QUEUE_SLICE = ["configs/phi3_vision_4_2b.py", "launch/queue.py"]
 @pytest.mark.parametrize("rel", VLM_QUEUE_SLICE)
 def test_vlm_queue_slice_modules_are_checked(rel):
     assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
+ANALYSIS_SLICE = ["analysis/__init__.py", "analysis/framework.py", "analysis/rules.py",
+                  "analysis/__main__.py"]
+
+
+@pytest.mark.parametrize("rel", ANALYSIS_SLICE)
+def test_analysis_slice_modules_are_checked(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
+@pytest.mark.parametrize("mod", ["repro_torch.core.allocation", "repro_torch.core.theory",
+                                 "repro_torch.core.mmfl"])
+def test_core_module_imports_first(mod):
+    """Each of these imports first in a fresh interpreter, as its JAX
+    package counterpart does: ``api.policy`` and ``pop.data`` import
+    ``core``/``fed`` when they run, not at module level."""
+    out = subprocess.run([sys.executable, "-c", f"import {mod}"], cwd=ROOT, capture_output=True,
+                         text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
