@@ -62,7 +62,7 @@ from repro_torch.core.mmfl import MMFLCoordinator
 from repro_torch.device import resolve_device
 from repro_torch.fed.client import accuracy
 from repro_torch.fed.data import FedTask
-from repro_torch.fed.trainer import (fed_client_batch, fed_local_fn,
+from repro_torch.fed.trainer import (cohort_update, fed_client_batch, fed_local_fn,
                                      init_task_model, task_round_key)
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -166,9 +166,10 @@ class AsyncTask:
     run through the ExecutionBackend. An adapter may also define
     ``accuracy(params) -> float`` (the arch family's next-token probe);
     when every task does, the history carries that measured accuracy
-    (``AsyncHistory.acc_eval``) instead of ``1 - metric``. (The
-    reference's pre-backend adapters, which override ``update()`` instead,
-    are not ported.)"""
+    (``AsyncHistory.acc_eval``) instead of ``1 - metric``. A legacy
+    (pre-backend) adapter leaves ``local_fn`` unset and overrides
+    ``update()`` instead; the flush then calls it with no backend
+    dispatch."""
 
     name: str
     n_clients: int
@@ -183,6 +184,18 @@ class AsyncTask:
         """Stacked inputs for ``local_fn``; a function of (seed, version,
         client_ids) only, so every engine and backend agrees."""
         raise NotImplementedError
+
+    def update(self, params, seed: int, version: int, client_ids):
+        """Reference cohort (leading axis len(client_ids)): ``local_fn``
+        per client through the serial backend, on the params' device."""
+        if self.local_fn is None:
+            raise NotImplementedError(
+                "AsyncTask adapters define local_fn + client_batch "
+                "(ExecutionBackend protocol) or override update()")
+        device = tree_leaves(params)[0].device
+        return get_backend("serial", device).run_cohort(
+            CohortTask(self.name, params, self.local_fn),
+            self.client_batch(seed, version, client_ids)).updates
 
     def evaluate(self, params) -> float:
         """Prevailing f_s for Eq. 4 (lower is better: 1 - test accuracy)."""
@@ -214,6 +227,11 @@ class FedAsyncTask(AsyncTask):
     def client_batch(self, seed: int, version: int, client_ids) -> ClientBatch:
         return fed_client_batch(self.task, task_round_key(seed, self.task_idx, version),
                                 client_ids, self.device)
+
+    def update(self, params, seed: int, version: int, client_ids):
+        return cohort_update(params, task_round_key(seed, self.task_idx, version), self.task,
+                             client_ids, self.cfg.tau, self.cfg.lr, self.cfg.batch_size,
+                             self.device)
 
     def evaluate(self, params) -> float:
         acc = float(accuracy(params, *self._test))
@@ -444,8 +462,12 @@ class AsyncMMFLEngine:
             group = by_version[v]
             ids = np.array([j.client for j in group], np.int64)
             base = self._retained[s][v][0]
-            cohort = self.backend.run_cohort(CohortTask(task.name, base, task.local_fn),
-                                             task.client_batch(cfg.seed, v, ids)).updates
+            if task.local_fn is None:
+                # legacy adapter: only update() is defined, no backend dispatch
+                cohort = task.update(base, cfg.seed, v, ids)
+            else:
+                cohort = self.backend.run_cohort(CohortTask(task.name, base, task.local_fn),
+                                                 task.client_batch(cfg.seed, v, ids)).updates
             deltas.append(tree_map(lambda c, b: c - b, cohort, base))
             for j in group:
                 weights.append(task.p_k[j.client])

@@ -101,6 +101,19 @@ def fed_client_batch(task: FedTask, key, client_ids, device=None) -> ClientBatch
                        data=tuple(torch.from_numpy(a).to(dev) for a in (x, y, w)))
 
 
+def cohort_update(global_params, key, task: FedTask, client_ids, tau: int, lr,
+                  batch_size: int, device=None):
+    """Run tau local steps for the given clients of one task in one batched
+    call (library entry point; the legacy async adapters and the tests use
+    it as the reference cohort). Returns a cohort with leading axis
+    len(client_ids), on ``device`` (None means CUDA). The reference pads
+    the cohort to a power of two for its compile cache; fold_in keying
+    makes the padded rows duplicates, so the port runs the cohort as it
+    is."""
+    batch = fed_client_batch(task, key, client_ids, device)
+    return cohort_local_update(global_params, batch.keys, *batch.data, tau, lr, batch_size)
+
+
 @dataclass
 class TrainConfig:
     rounds: int = 100

@@ -156,6 +156,15 @@ def graph_kernels(fn) -> list:
     return names
 
 
+def sass(name: str) -> str:
+    """The SASS of kernel ``name``'s library (``cuobjdump -sass``, built
+    first where needed), to check which instructions its kernels compiled
+    to."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(load(name).path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
 def device_launches(fn) -> int:
     """Kernels one call of ``fn`` enqueues on the current CUDA device,
     counted from a CUDA graph of the call (``graph_kernels``)."""

@@ -1,5 +1,6 @@
 // flash_attention: forward online-softmax attention (causal switch, GQA) for
-// NVIDIA Hopper (sm_90a), with both products on the tensor cores.
+// NVIDIA Hopper (sm_90a): TMA loads, wgmma on the tensor cores, a producer
+// warpgroup and two consumer warpgroups.
 //
 //   o[b, h, i, :] = sum_j softmax_j(q[b,h,i,:] . k[b,g,j,:] * hd^-0.5) v[b,g,j,:]
 //   with g = h // (H / KV); causal: key j is masked (score -1e30) when j > i.
@@ -17,46 +18,79 @@
 // 3072 / 32), 112 (zamba2-7b's 3584 / 32) or 128; Sq and Sk are any length.
 //
 // Bound on this card: operations, 4 hd flops per (query, key) pair that the
-// mask keeps. bf16 runs at the tensor cores' 989 TFLOP/s. f32 must keep f32
-// accuracy, so its least time is at the three-pass TF32 rate, 494.7 / 3 =
-// 165 TFLOP/s (67 TFLOP/s on the CUDA cores). Bytes (q, k, v and o once)
-// bound neither model shape.
+// mask keeps. bf16 runs at the tensor cores' 989 TFLOP/s, which only wgmma
+// reaches. f32 must keep f32 accuracy, so its least time is at the
+// three-pass TF32 rate, 494.7 / 3 = 165 TFLOP/s (67 TFLOP/s on the CUDA
+// cores). Bytes (q, k, v and o once) bound neither model shape. What holds
+// a kernel of this shape back is everything that is not a product: the
+// softmax (one ex2 a score), the loads, and in f32 the split of every tile;
+// the design keeps them under the products.
 //
-// Design (FlashAttention-2 layout). One block per (query tile, head,
-// batch): 8 warps and 128 queries in bf16, 4 warps and 64 queries in f32
-// (whose tiles take twice the shared memory); the causal tiles with the
-// most keys are scheduled first. Each warp owns 16 query rows. Both products are mma.sync on the
-// tensor cores with f32 accumulators:
-// - bf16: m16n8k16. Q and K fragments come by ldmatrix, V's by
-//   ldmatrix.trans; P, rounded to bf16, is re-packed in registers from the
-//   QK^T accumulators into the A operand of PV (no shared round trip).
-// - f32: m16n8k8 TF32 in three passes: x = big + small with
-//   big = cvt.rna.tf32(x) and small = x - big (the product reads its top 19
-//   bits), and a.b = a_small b_big + a_big b_small + a_big b_big, summed in
-//   f32 (the dropped terms are about 2^-21 of a.b). One TF32 pass keeps
-//   about three digits and would not hold the f32 contract. For PV the
-//   accumulator columns 2t and 2t+1 of P feed the A operand's k-slots t and
-//   t+4, and V's rows are read in the same order, so P stays in registers.
-// S stays in registers as mma fragments; a row's max and sum take two
-// shuffles inside the quad of lanes that hold it; the softmax runs in base 2
-// (scores scaled by hd^-0.5 log2 e, exp by the special-function unit's ex2). K and V tiles (64 keys in
-// bf16, 32 in f32) go through a double-buffered shared ring filled by
-// cp.async (16 bytes a thread, zero-filled past Sk and Sq): the next tile's
-// copy runs under this tile's products. Shared rows are padded (8 bf16, 4
-// f32 values) so that fragment loads hit distinct banks. A block takes at
-// most 104,448 bytes of shared memory (bf16, hd 128), so two fit on an SM.
-// The running max starts at key 0, which every causal row sees, so it is
-// finite after the first tile; a warp skips a causal tile whose keys all
-// lie past its rows (it would add exactly 0).
+// Design (warp-specialised, as FlashAttention-3). 384 threads in three
+// warpgroups; work items of 128 query rows of one (batch, head).
+// - The grid is persistent, one block an SM: block i takes item i, then in
+//   odd rounds the mirror item, so that the items with the most causal keys
+//   go first and a block that took a heavy item takes a light one next.
+//   The K/V ring runs on across items, so the next item's loads overlap
+//   this one's last tiles and its stores.
+// - Warpgroup 2 is the producer: it gives back its registers (setmaxnreg
+//   24) and one thread issues the TMA loads: the Q tile of each item, then
+//   K and V tiles into a ring (4 stages for bf16 at hd <= 64, 3 above, 2
+//   for f32), each stage with a "full" mbarrier (TMA bytes) and an "empty"
+//   one (the 256 consumer threads); Q has its own pair.
+// - Warpgroups 0 and 1 are consumers of 64 query rows each (setmaxnreg
+//   240). S = Q K^T and O += P V are wgmma with f32 accumulators in
+//   registers. S(t) and PV(t - 1) are issued together, so the softmax of
+//   tile t runs while the tensor cores work on PV(t - 1); in bf16 the two
+//   warpgroups also take turns to issue (named barriers), so that one's
+//   softmax runs under the other's products. The online softmax runs on the
+//   S accumulators in base 2, the scale folded into the exponent's
+//   multiply-add (ex2 on the special-function unit; a row's max and sum take
+//   two shuffles in the quad that holds it). A warpgroup skips a causal tile
+//   whose keys all lie past its rows (it would add exactly 0). The running
+//   max starts at key 0, which every causal row sees, so it is finite after
+//   the first tile. Every wgmma is issued on a path the whole warpgroup
+//   takes, so that ptxas keeps them asynchronous.
+// - Shared tiles are TMA's 128-byte swizzle: rows of 128 bytes (64 bf16 or
+//   32 f32 values), a head dim split into such column chunks, one TMA box
+//   a chunk. hd 96 and 112 (and, in bf16, 16 and 32) leave the last chunk
+//   part full; TMA fills the columns past hd with zeros, which no product
+//   reads: QK^T runs over the first hd columns and PV's N is hd.
+// - bf16: 128 keys a tile. S is wgmma with Q and K from shared memory
+//   (both K-major); P is rounded to bf16 and packed in registers from the
+//   S accumulators straight into PV's A operand; PV reads V (MN-major)
+//   through the descriptor's transpose.
+// - f32: three TF32 passes, so that the f32 tolerance holds. A value x is
+//   split once into big = cvt.rna.tf32(x) and small = x - big (the tensor
+//   cores read the top 19 bits of each), and a.b = a_small b_big +
+//   a_big b_small + a_big b_big summed in f32: the dropped terms are about
+//   2^-21 of a.b (one TF32 pass keeps about three digits). TF32
+//   wgmma takes K-major operands only, so both consumer warpgroups split
+//   each tile once in shared memory, into one of two buffers: K big in
+//   place, K small beside it, and V^T big and small with keys contiguous
+//   (transposed in registers, 4 x 4 values a thread, 16-byte stores, no
+//   bank conflicts); every warpgroup reads them. Tile t + 1's K is split
+//   under S(t) and its V under PV(t). Q is split once per item: big in
+//   place, small in the consumer's registers as the A operand of the first
+//   pass; P's halves are made in registers. P's accumulator columns 2t and
+//   2t+1 feed the A operand's k-slots t and t+4, so V^T holds each group of
+//   8 keys in that order (0, 2, 4, 6, 1, 3, 5, 7). 64 keys a tile at
+//   hd <= 64, 32 above (shared memory).
 //
 // Strides are arguments: the model hands over (B, S, H, hd) activations
-// viewed as (B, H, S, hd), read and written in place. The wrapper makes
-// every row start 16-byte aligned (last axis contiguous).
+// viewed as (B, H, S, hd), read and written in place. Three tensor maps
+// (q, k, v; dims (hd, S, heads, B) with the view's strides) are encoded on
+// the host for each call with cuTensorMapEncodeTiled, a CUDA driver API
+// function reached through the runtime (no -lcuda), and passed as
+// __grid_constant__ parameters. TMA needs every row 16-byte aligned and
+// every stride of an axis longer than 1 a nonzero multiple of 16 bytes: the
+// wrapper copies a view that is not.
 //
-// C interface (no PyTorch headers; loaded with ctypes). The kernel runs on
-// the given stream, allocates nothing, and the launcher returns
-// cudaGetLastError() (0 on success).
+// C interface (no PyTorch headers; loaded with ctypes). Each call is one
+// kernel launch on the given stream; it allocates nothing, and the launcher
+// returns cudaGetLastError() (0 on success).
 
+#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types (no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,77 +100,438 @@ namespace {
 
 constexpr float kMaskValue = -1e30f;
 constexpr int kMaxDevices = 64;
+constexpr int BQ = 128;         // query rows per block: two consumer warpgroups of 64
+constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kConsumers = 256;
 
-// per dtype: warps of 16 query rows, keys per K/V tile, row padding
-template <typename T> struct Tile;
-template <> struct Tile<float> { static constexpr int WARPS = 4, BK = 32, PAD = 4; };
-template <> struct Tile<__nv_bfloat16> { static constexpr int WARPS = 8, BK = 64, PAD = 8; };
-// blocks an SM must hold: for bf16's 8 warps this caps a thread at 128
-// registers (f32's 4 warps are held to 2 blocks by shared memory anyway)
-constexpr int kMinBlocks = 2;
-template <typename T> constexpr int kThreads = 32 * Tile<T>::WARPS;
-template <typename T> constexpr int BQ = 16 * Tile<T>::WARPS;  // query rows per block
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  int H, KV, Sq, Sk;
-  float scale;
+// per dtype and head dim: values in a 128-byte swizzle row (CW), keys per
+// K/V tile (BK), the shared width of a row (HDP, hd rounded up to whole
+// swizzle rows) and the stages of the K/V ring
+template <typename T, int HD> struct Cfg;
+template <int HD> struct Cfg<__nv_bfloat16, HD> {
+  static constexpr int CW = 64, BK = 128, HDP = (HD + 63) / 64 * 64;
+  static constexpr int STAGES = HDP <= 64 ? 4 : 3;
+};
+template <int HD> struct Cfg<float, HD> {
+  static constexpr int CW = 32, BK = HD <= 64 ? 64 : 32, HDP = (HD + 31) / 32 * 32;
+  static constexpr int STAGES = 2;
 };
 
-// Q tile and two K and two V tiles, rows padded to HD + PAD
-template <typename T, int HD>
-constexpr int smem_bytes() {
-  return (BQ<T> + 4 * Tile<T>::BK) * (HD + Tile<T>::PAD) * static_cast<int>(sizeof(T));
-}
+// shared bytes: Q, the K/V ring, and for f32 two buffers of the split K
+// and V^T (big and small); 1 KB of slack to align the tiles to the
+// swizzle's 1 KB
+template <typename T, int HD> struct Smem {
+  using C = Cfg<T, HD>;
+  static constexpr int Q = C::HDP / C::CW * BQ * 128;
+  static constexpr int KV = C::HDP / C::CW * C::BK * 128;  // one K (or V) tile
+  static constexpr int VT = C::BK / 32 * HD * 128;          // one f32 V^T tile
+  static constexpr int TOTAL =
+      1024 + Q + 2 * C::STAGES * KV + (sizeof(T) == 4 ? 2 * (KV + 2 * VT) : 0);
+};
+
+struct Args {
+  void* o;
+  int64_t o_sb, o_sh, o_ss;
+  int B, H, KV, Sq, Sk;
+  float scale;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+// --- mbarriers, TMA, proxy fences and named barriers
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one box of a 4-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+// generic-proxy writes to shared memory made visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R) : "memory");
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R) : "memory");
 }
 
-// rows [row0, row0 + R) of a (rows, HD) matrix with row stride `stride`
-// into shared rows of LD elements; rows >= nrows become zeros
-template <typename T, int HD, int LD, int R>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, int row0,
-                                          int nrows) {
-  constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte copy
-  constexpr int CPR = HD / EPC;                           // copies per row
+// --- wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are pending
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of wgmma's registers across the
+// asynchronous product's issue and wait
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int e = threadIdx.x; e < R * CPR; e += kThreads<T>) {
-    const int r = e / CPR, c = (e % CPR) * EPC;
-    const bool valid = row0 + r < nrows;
-    cp_async16(dst + r * LD + c, valid ? src + int64_t(row0 + r) * stride + c : src, valid);
-  }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
+// shared-memory matrix descriptors for the 128-byte swizzle: K-major (rows
+// of 128 bytes, groups of 8 rows 1 KB apart) and MN-major (8-row groups of
+// the K dimension 1 KB apart, swizzle atoms of the MN dimension `lbo` bytes
+// apart); a k-step inside a swizzle row advances the start address
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t lbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[N / 2],
+                                                 uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_bf16<128>(float (&d)[64],
+                                                      uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[N / 2],
+                                                 const uint32_t (&a)[4], uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_bf16<16>(float (&d)[8],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_bf16<32>(float (&d)[16],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_bf16<64>(float (&d)[32],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_bf16<96>(float (&d)[48],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_bf16<112>(float (&d)[56],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55 "
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_bf16<128>(float (&d)[64],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2],
+                                                 uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[16],
+                                                      uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[32],
+                                                      uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
+                                                 const uint32_t (&a)[4], uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<16>(float (&d)[8],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[16],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<96>(float (&d)[48],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<112>(float (&d)[56],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55 "
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<128>(float (&d)[64],
+                                                      const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// 128-byte swizzle: byte offset of value `col` of row `row` in a tile of
+// 128-byte rows of SIZE-byte values (the tile 1 KB aligned)
+template <int SIZE>
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  constexpr int PER16 = 16 / SIZE;  // values per 16-byte unit
+  return row * 128 + ((((col / PER16) ^ row) & 7) << 4) + (col % PER16) * SIZE;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -144,33 +539,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
+__device__ __forceinline__ float to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// the three-pass split: big = tf32(x) and small = x - big, handed over as
-// f32 bits (the TF32 product reads their top 19 bits)
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
+  return __uint_as_float(r);
 }
 
 // 2^x on the special-function unit (relative error about 2^-22 for the
@@ -181,217 +553,428 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// d += a.b at f32 accuracy: three TF32 passes, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bs0,
-                                           uint32_t bb1, uint32_t bs1) {
-  mma_tf32(d, as, bb0, bb1);
-  mma_tf32(d, ab, bs0, bs1);
-  mma_tf32(d, ab, bb0, bb1);
+// online softmax of one tile's scores, in place: s holds the raw S
+// accumulators (entry 4 j + e is row row_lo + 8 (e / 2), key
+// k0 + 8 j + 2 t4 + e % 2); on return it holds the probabilities
+// 2^(s scale2 - m), m and l are updated, and corr holds the factor by which
+// each row's output accumulator is to be rescaled. The scale is folded into
+// the exponent's multiply-add (scale2 > 0 keeps the row max in place);
+// masked scores become -1e30 and keys past Sk -inf once scaled.
+template <int BK, bool CAUSAL>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0, int row_lo,
+                                             int warp_first, int t4, int Sk, float scale2) {
+  if (k0 + BK > Sk || (CAUSAL && k0 + BK - 1 > warp_first)) {
+    const float masked = kMaskValue / scale2;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+      if (col >= Sk) {
+        s[i] = -INFINITY;
+      } else if (CAUSAL && col > row_lo + 8 * ((i >> 1) & 1)) {
+        s[i] = masked;
+      }
+    }
+  }
+  float mt[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f}, neg[2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float m_new = fmaxf(m[r], mt[r] * scale2);
+    corr[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+    neg[r] = -m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const float p = exp2_approx(fmaf(s[i], scale2, neg[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += p;
+    s[i] = p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    l[r] = l[r] * corr[r] + rs[r];
+  }
 }
 
 template <typename T, int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads<T>, kMinBlocks) flash_fwd(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const Args a) {
   constexpr bool BF16 = sizeof(T) == 2;
-  constexpr int BK = Tile<T>::BK, LD = HD + Tile<T>::PAD, BQT = BQ<T>;
-  constexpr int NT = BK / 8;  // score tiles of 8 keys
-  constexpr int DT = HD / 8;  // output tiles of 8 columns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + BQT * LD;     // two buffers of BK rows
-  T* Vs = Ks + 2 * BK * LD;  // two buffers of BK rows
+  using C = Cfg<T, HD>;
+  using M = Smem<T, HD>;
+  constexpr int BK = C::BK, CW = C::CW, NCH = C::HDP / C::CW, NS = C::STAGES;
+  constexpr uint32_t kSplit = M::KV + 2 * M::VT;  // f32: K small, V^T big, V^T small
+  __shared__ __align__(8) uint64_t bars[2 * NS + 2];  // full[NS], empty[NS], Q full, Q empty
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  unsigned char* gQ = smem_raw + (sQ - raw);  // the same bytes through a generic pointer
+  const uint32_t sK = sQ + M::Q;            // stage i: K at sK + 2 i KV, V after it
+  const uint32_t sX = sK + 2 * NS * M::KV;  // f32: split buffer j at sX + j kSplit
+  const uint32_t full0 = smem_addr(&bars[0]), empty0 = smem_addr(&bars[NS]);
+  const uint32_t qbar = smem_addr(&bars[2 * NS]), qempty = smem_addr(&bars[2 * NS + 1]);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQT;  // heavy causal tiles first
-  const int kvh = h / (a.H / a.KV);
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  // The grid is persistent: in round r block i takes work item
+  // r G + i, or r G + G - 1 - i in odd rounds (G = gridDim.x), so that a
+  // block that took a heavy item takes a light one next. Item w is query
+  // tile n_qt - 1 - w / (B H) (the tiles with the most causal keys first) of
+  // batch-head w % (B H). The ring runs on across items: gt counts the
+  // tiles of the items before this one.
+  const int n_qt = (a.Sq + BQ - 1) / BQ, n_items = n_qt * a.B * a.H;
+  const int G = gridDim.x, blk = blockIdx.x;
+  auto item_of = [&](int r) { return r * G + ((r & 1) ? G - 1 - blk : blk); };
+  int gt = 0, b = 0, h = 0, q0 = 0, n_tiles = 0;
+  auto take_item = [&](int w) {
+    b = (w % (a.B * a.H)) / a.H;
+    h = w % a.H;
+    q0 = (n_qt - 1 - w / (a.B * a.H)) * BQ;
+    n_tiles = (a.Sk + BK - 1) / BK;
+    if (CAUSAL) n_tiles = min(n_tiles, (min(q0 + BQ, a.Sq) - 1) / BK + 1);
+  };
+  // this item's tile t: its stage (K and V), the stage's barriers and the
+  // parity of its phase; its split buffer (f32)
+  auto k_of = [&](int t) { return sK + ((gt + t) % NS) * 2 * M::KV; };
+  auto v_of = [&](int t) { return k_of(t) + M::KV; };
+  auto full = [&](int t) { return full0 + 8 * ((gt + t) % NS); };
+  auto empty = [&](int t) { return empty0 + 8 * ((gt + t) % NS); };
+  auto phase = [&](int t) { return uint32_t((gt + t) / NS) & 1; };
+  auto x_of = [&](int t) { return sX + ((gt + t) & 1) * kSplit; };
 
-  const float scale2 = a.scale * 1.4426950408889634f;  // hd^-0.5 log2 e
-  int n_tiles = (a.Sk + BK - 1) / BK;
-  if (CAUSAL) n_tiles = min(n_tiles, (min(q0 + BQT, a.Sq) - 1) / BK + 1);
-
-  load_tile<T, HD, LD, BQT>(Qs, qp, a.q_ss, q0, a.Sq);
-  load_tile<T, HD, LD, BK>(Ks, kp, a.k_ss, 0, a.Sk);
-  load_tile<T, HD, LD, BK>(Vs, vp, a.v_ss, 0, a.Sk);
-  cp_async_commit();
-
-  const int wrow = warp * 16;             // the warp's first row in the tile
-  const int row_lo = q0 + wrow + g;       // this thread's rows: row_lo, row_lo + 8
-  const int warp_last = q0 + wrow + 15;
-  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    if (t + 1 < n_tiles) {  // the next tile's copy runs under this tile's products
-      const int nb = (t + 1) & 1;
-      load_tile<T, HD, LD, BK>(Ks + nb * BK * LD, kp, a.k_ss, k0 + BK, a.Sk);
-      load_tile<T, HD, LD, BK>(Vs + nb * BK * LD, vp, a.v_ss, k0 + BK, a.Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, kConsumers);
     }
-    __syncthreads();
-    const T* Kt = Ks + (t & 1) * BK * LD;
-    const T* Vt = Vs + (t & 1) * BK * LD;
+    mbar_init(qbar, 1);
+    mbar_init(qempty, kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    if (!CAUSAL || k0 <= warp_last) {
-      float s[NT][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer warpgroup: it gives back its registers, and one thread keeps
+    // the ring full
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      for (int it = 0; item_of(it) < n_items; ++it) {
+        take_item(item_of(it));
+        const int kvh = h / (a.H / a.KV);
+        if (it > 0) mbar_wait(qempty, (it - 1) & 1);  // the last item's Q is no longer read
+        mbar_expect_tx(qbar, M::Q);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-
-      // S = Q K^T
-      if constexpr (BF16) {
-        // ldmatrix: lane l addresses row l % 8 of 8x8 matrix l / 8
-        const int mi = lane >> 3, mr = lane & 7;
+        for (int c = 0; c < NCH; ++c) tma_load(sQ + c * BQ * 128, &tq, qbar, c * CW, q0, h, b);
+        for (int t = 0; t < n_tiles; ++t) {
+          if (gt + t >= NS) mbar_wait(empty(t), phase(t) ^ 1);  // the stage's last tile released
+          mbar_expect_tx(full(t), 2 * M::KV);
 #pragma unroll
-        for (int ks = 0; ks < HD / 16; ++ks) {
-          uint32_t af[4];
-          ldsm_x4(af, Qs + (wrow + (mi & 1) * 8 + mr) * LD + ks * 16 + (mi >> 1) * 8);
-#pragma unroll
-          for (int jp = 0; jp < NT / 2; ++jp) {
-            uint32_t kb[4];  // B fragments of key tiles 2 jp and 2 jp + 1
-            ldsm_x4(kb, Kt + ((2 * jp + (mi >> 1)) * 8 + mr) * LD + ks * 16 + (mi & 1) * 8);
-            mma_bf16(s[2 * jp], af, kb[0], kb[1]);
-            mma_bf16(s[2 * jp + 1], af, kb[2], kb[3]);
+          for (int c = 0; c < NCH; ++c) {
+            tma_load(k_of(t) + c * BK * 128, &tk, full(t), c * CW, t * BK, kvh, b);
+            tma_load(v_of(t) + c * BK * 128, &tv, full(t), c * CW, t * BK, kvh, b);
           }
         }
-      } else {
-#pragma unroll
-        for (int ks = 0; ks < HD / 8; ++ks) {
-          const float* qa = reinterpret_cast<const float*>(Qs) + (wrow + g) * LD + ks * 8 + t4;
-          uint32_t ab[4], as[4];
-          split(qa[0], ab[0], as[0]);
-          split(qa[8 * LD], ab[1], as[1]);
-          split(qa[4], ab[2], as[2]);
-          split(qa[8 * LD + 4], ab[3], as[3]);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const float* kb = reinterpret_cast<const float*>(Kt) + (j * 8 + g) * LD + ks * 8 + t4;
-            uint32_t bb0, bs0, bb1, bs1;
-            split(kb[0], bb0, bs0);
-            split(kb[4], bb1, bs1);
-            mma_3xtf32(s[j], ab, as, bb0, bs0, bb1, bs1);
-          }
-        }
+        gt += n_tiles;
       }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int ct = threadIdx.x;  // 0..255
+    const int warp = (ct >> 5) & 3, lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+    const float scale2 = a.scale * 1.4426950408889634f;  // hd^-0.5 log2 e
+    const uint32_t qwg = sQ + wg * 64 * 128;          // the warpgroup's rows of each Q chunk
+    if constexpr (BF16) {
+      if (wg == 1) named_barrier_arrive(2, kConsumers);  // warpgroup 0 issues first
+    }
+    for (int it = 0; item_of(it) < n_items; ++it) {
+      take_item(item_of(it));
+      const int r0 = q0 + wg * 64;                      // this warpgroup's first row
+      const int warp_first = r0 + warp * 16;
+      const int row_lo = warp_first + g;                // this thread's rows: row_lo, row_lo + 8
+      // tiles whose keys some row of this warpgroup sees (the rest it only
+      // releases); every wgmma below is issued on a path all of the
+      // warpgroup takes, so that ptxas keeps them asynchronous
+      const int n_live = CAUSAL ? min(n_tiles, (r0 + 63) / BK + 1) : n_tiles;
+      float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+      float o[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      mbar_wait(qbar, it & 1);
 
-      // online softmax in base 2: scores are scaled by hd^-0.5 log2 e, so
-      // exp(s - m) is 2^(x - m); accumulator e of tile j is
-      // (row_lo + 8 (e / 2), k0 + 8 j + 2 t4 + e % 2)
-      const bool edge = k0 + BK > a.Sk || (CAUSAL && k0 + BK - 1 > q0 + wrow);
-      float mt[2] = {-INFINITY, -INFINITY};
+      if constexpr (BF16) {
+        // S(t) and PV(t - 1) are issued together; the softmax of tile t runs
+        // while the tensor cores work on PV(t - 1). The two warpgroups take
+        // turns to issue (named barriers 2 and 3), so that one's softmax
+        // runs under the other's products.
+        uint32_t p[BK / 16][4];  // P of the tile whose PV is pending, as PV's A operand
+        // each take_turn waits on the other warpgroup's pass_turn, so both must
+        // take as many turns: the same n_live, which holds while a key tile
+        // covers whole query blocks ((q0 + 63) / BK == (q0 + 127) / BK)
+        static_assert(BK % BQ == 0, "bf16 turns need both warpgroups to see the same tiles");
+        auto take_turn = [&]() { named_barrier(2 + wg, kConsumers); };
+        auto pass_turn = [&]() { named_barrier_arrive(3 - wg, kConsumers); };
+        auto issue_s = [&](float (&s)[BK / 2], int t) {
+          const uint32_t kt = k_of(t);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+          for (int ks = 0; ks < HD / 16; ++ks) {  // S = Q K^T, 16 columns of hd a step
+            const uint32_t off = (ks % 4) * 32;
+            wgmma_ss_bf16<BK>(s, desc_kmajor(qwg + (ks / 4) * BQ * 128 + off),
+                              desc_kmajor(kt + (ks / 4) * BK * 128 + off), ks > 0);
+          }
+          wgmma_commit();
+        };
+        auto issue_pv = [&](int t) {
+          const uint32_t vt = v_of(t);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * scale2;
-          if (edge) {
-            const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-            if (col >= a.Sk) {
-              x = -INFINITY;
-            } else if (CAUSAL && col > row_lo + 8 * (e >> 1)) {
-              x = kMaskValue;
+          for (int kk = 0; kk < BK / 16; ++kk) {  // O += P V, 16 keys a step
+            wgmma_rs_bf16<HD>(o, p[kk], desc_mnmajor(vt + kk * 16 * 128, BK * 128), 1);
+          }
+          wgmma_commit();
+        };
+        auto softmax_to_p = [&](float (&s)[BK / 2], int t, bool rescale) {
+          float corr[2];
+          softmax_tile<BK, CAUSAL>(s, m, l, corr, t * BK, row_lo, warp_first, t4, a.Sk, scale2);
+          if (rescale) {
+            wgmma_wait<0>();  // PV(t - 1) is done with o and p
+            fence_regs(o);
+            fence_regs(p);
+            mbar_arrive(empty(t - 1));
+#pragma unroll
+            for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+          }
+          // P in bf16: accumulator tiles 2 kk and 2 kk + 1 make k-step kk
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
             }
           }
-          s[j][e] = x;
-          mt[e >> 1] = fmaxf(mt[e >> 1], x);
+        };
+        {
+          float s[BK / 2];
+          mbar_wait(full(0), phase(0));
+          take_turn();
+          wgmma_fence();
+          issue_s(s, 0);
+          pass_turn();
+          wgmma_wait<0>();
+          fence_regs(s);
+          softmax_to_p(s, 0, false);
         }
-      }
-      float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-        const float m_new = fmaxf(m[r], mt[r]);
-        corr[r] = exp2_approx(m[r] - m_new);
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2_approx(s[j][e] - m[e >> 1]);
-          rs[e >> 1] += p;
-          s[j][e] = p;
+        for (int t = 1; t < n_live; ++t) {
+          float s[BK / 2];
+          mbar_wait(full(t), phase(t));
+          take_turn();
+          wgmma_fence();
+          issue_s(s, t);
+          issue_pv(t - 1);
+          pass_turn();
+          wgmma_wait<1>();  // S(t) is done; PV(t - 1) may run on
+          fence_regs(s);
+          softmax_to_p(s, t, true);
         }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-        l[r] = l[r] * corr[r] + rs[r];
-      }
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        acc[d][0] *= corr[0];
-        acc[d][1] *= corr[0];
-        acc[d][2] *= corr[1];
-        acc[d][3] *= corr[1];
-      }
-
-      // acc += P V
-      if constexpr (BF16) {
-        const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                  pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                  pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                  pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-          for (int dp = 0; dp < DT / 2; ++dp) {
-            uint32_t vb[4];
-            ldsm_x4_trans(vb, Vt + (kk * 16 + (mi & 1) * 8 + mr) * LD + dp * 16 + (mi >> 1) * 8);
-            mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-            mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-          }
+        take_turn();
+        wgmma_fence();
+        issue_pv(n_live - 1);
+        pass_turn();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        mbar_arrive(empty(n_live - 1));
+        for (int t = n_live; t < n_tiles; ++t) {
+          mbar_wait(full(t), phase(t));
+          mbar_arrive(empty(t));
         }
       } else {
+        // split this warpgroup's Q rows once: big in place, small into the
+        // A fragments of the first pass (rows g, g + 8; k-slots t4, t4 + 4)
+        uint32_t qs[HD / 8][4];
 #pragma unroll
-        for (int kk = 0; kk < NT; ++kk) {
-          // k-slot t <-> key 2 t, slot t + 4 <-> key 2 t + 1 (P's own columns)
-          uint32_t pb[4], ps[4];
-          split(s[kk][0], pb[0], ps[0]);
-          split(s[kk][2], pb[1], ps[1]);
-          split(s[kk][1], pb[2], ps[2]);
-          split(s[kk][3], pb[3], ps[3]);
-          const float* vr = reinterpret_cast<const float*>(Vt) + (kk * 8 + 2 * t4) * LD + g;
+        for (int ks = 0; ks < HD / 8; ++ks) {
 #pragma unroll
-          for (int d = 0; d < DT; ++d) {
-            uint32_t bb0, bs0, bb1, bs1;
-            split(vr[d * 8], bb0, bs0);
-            split(vr[d * 8 + LD], bb1, bs1);
-            mma_3xtf32(acc[d], pb, ps, bb0, bs0, bb1, bs1);
+          for (int j = 0; j < 4; ++j) {
+            const int row = wg * 64 + warp * 16 + g + (j & 1) * 8;
+            const int col = ks * 8 + t4 + (j >> 1) * 4;
+            float* x = reinterpret_cast<float*>(gQ + (col / 32) * BQ * 128 + swz<4>(row, col % 32));
+            const float big = to_tf32(*x);
+            qs[ks][j] = __float_as_uint(*x - big);
+            *x = big;
+          }
+        }
+        fence_proxy_async();
+        named_barrier(2 + wg, 128);
+
+        // Tile t's split (in the buffer x_of(t), written by both warpgroups):
+        // K big in place in its stage and K small at the same swizzled
+        // offsets, 16 bytes a lane, contiguous; V^T big and small, row d
+        // holding the tile's keys, each group of 8 in the order 0, 2, 4, 6,
+        // 1, 3, 5, 7. For V a thread takes a 4 x 4 block, the 4 keys of one
+        // half of a group of 8 by one unit of 4 values, transposes it in
+        // registers and stores 4 rows of 4 slots; a quarter warp covers the 8
+        // units, so its loads hit 8 distinct 16-byte units, and with each
+        // lane's rows rotated by (unit / 2) % 4 so do its stores.
+        auto split_k = [&](int t) {
+          unsigned char* gK = gQ + (k_of(t) - sQ);
+          unsigned char* gX = gQ + (x_of(t) - sQ);
+          float4 x[M::KV / 16 / kConsumers];
+#pragma unroll
+          for (int j = 0; j < M::KV / 16 / kConsumers; ++j)
+            x[j] = reinterpret_cast<const float4*>(gK)[ct + j * kConsumers];
+#pragma unroll
+          for (int j = 0; j < M::KV / 16 / kConsumers; ++j) {
+            const float4 big =
+                make_float4(to_tf32(x[j].x), to_tf32(x[j].y), to_tf32(x[j].z), to_tf32(x[j].w));
+            reinterpret_cast<float4*>(gK)[ct + j * kConsumers] = big;
+            reinterpret_cast<float4*>(gX)[ct + j * kConsumers] =
+                make_float4(x[j].x - big.x, x[j].y - big.y, x[j].z - big.z, x[j].w - big.w);
+          }
+        };
+        auto split_v = [&](int t) {
+          const unsigned char* gV = gQ + (v_of(t) - sQ);
+          unsigned char* gX = gQ + (x_of(t) + M::KV - sQ);
+          constexpr int BLOCKS = NCH * (BK / 8) * 2 * 8;  // (chunk, group of 8 keys, half, unit)
+          const int u = ct & 7, half = (ct >> 3) & 1, grp = (ct >> 4) % (BK / 8);
+          const int c = (ct >> 4) / (BK / 8), d0 = c * 32 + 4 * u;
+          if (ct >= BLOCKS || d0 >= HD) return;
+          float4 r[4];  // keys grp * 8 + half + 2 i, values d0 .. d0 + 3
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            r[i] = *reinterpret_cast<const float4*>(gV + c * BK * 128 +
+                                                    swz<4>(grp * 8 + half + 2 * i, 4 * u));
+          }
+          const int slot = grp * 8 + 4 * half;  // the first of the block's 4 slots
+          const uint32_t base = (slot / 32) * HD * 128;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ee = (e + (u >> 1)) & 3;  // this store's row: d0 + ee
+            float x[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              x[i] = ee == 0 ? r[i].x : ee == 1 ? r[i].y : ee == 2 ? r[i].z : r[i].w;
+            }
+            const uint32_t off = base + swz<4>(d0 + ee, slot % 32);
+            const float4 big =
+                make_float4(to_tf32(x[0]), to_tf32(x[1]), to_tf32(x[2]), to_tf32(x[3]));
+            *reinterpret_cast<float4*>(gX + off) = big;
+            *reinterpret_cast<float4*>(gX + off + M::VT) =
+                make_float4(x[0] - big.x, x[1] - big.y, x[2] - big.z, x[3] - big.w);
+          }
+        };
+        // the split of tile t + 1, while the products of tile t run: K under
+        // S(t); V, once every warpgroup is done with PV(t - 1), under PV(t)
+        auto split_next_k = [&](int t) {
+          if (t + 1 < n_tiles) {
+            mbar_wait(full(t + 1), phase(t + 1));
+            split_k(t + 1);
+          }
+        };
+        auto split_next_v = [&](int t) {
+          if (t + 1 < n_tiles) {
+            named_barrier(1, kConsumers);
+            split_v(t + 1);
+            fence_proxy_async();
+            named_barrier(1, kConsumers);  // tile t + 1's split is whole
+          }
+        };
+
+        uint32_t pb[BK / 8][4], ps[BK / 8][4];  // P's halves, PV's A operands
+        named_barrier(1, kConsumers);  // every warpgroup is done with the last item's split
+        mbar_wait(full(0), phase(0));
+        split_k(0);
+        split_v(0);
+        fence_proxy_async();
+        named_barrier(1, kConsumers);
+        for (int t = 0; t < n_live; ++t) {
+          const uint32_t kt = k_of(t), xt = x_of(t);
+          float s[BK / 2], corr[2];
+          wgmma_fence();
+          // S = Q_small K_big + Q_big K_small + Q_big K_big, 8 columns of hd a step
+#pragma unroll
+          for (int ks = 0; ks < HD / 8; ++ks) {
+            wgmma_rs_tf32<BK>(s, qs[ks], desc_kmajor(kt + (ks / 4) * BK * 128 + (ks % 4) * 32),
+                              ks > 0);
+          }
+#pragma unroll
+          for (int ks = 0; ks < HD / 8; ++ks) {
+            wgmma_ss_tf32<BK>(s, desc_kmajor(qwg + (ks / 4) * BQ * 128 + (ks % 4) * 32),
+                              desc_kmajor(xt + (ks / 4) * BK * 128 + (ks % 4) * 32), 1);
+          }
+#pragma unroll
+          for (int ks = 0; ks < HD / 8; ++ks) {
+            wgmma_ss_tf32<BK>(s, desc_kmajor(qwg + (ks / 4) * BQ * 128 + (ks % 4) * 32),
+                              desc_kmajor(kt + (ks / 4) * BK * 128 + (ks % 4) * 32), 1);
+          }
+          wgmma_commit();
+          split_next_k(t);
+          wgmma_wait<0>();  // S(t), and PV(t - 1)
+          fence_regs(s);
+          fence_regs(o);
+          fence_regs(pb);
+          fence_regs(ps);
+          mbar_arrive(empty(t));  // the stage's K and V are no longer read
+          softmax_tile<BK, CAUSAL>(s, m, l, corr, t * BK, row_lo, warp_first, t4, a.Sk, scale2);
+#pragma unroll
+          for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+          // P's halves as A fragments: k-slot t4 <-> key 2 t4, t4 + 4 <-> 2 t4 + 1
+#pragma unroll
+          for (int kk = 0; kk < BK / 8; ++kk) {
+            const float x[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3]};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float big = to_tf32(x[i]);
+              pb[kk][i] = __float_as_uint(big);
+              ps[kk][i] = __float_as_uint(x[i] - big);
+            }
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 8; ++kk) {  // O += P V, 8 keys a step, three passes
+            const uint32_t off = xt + M::KV + (kk / 4) * HD * 128 + (kk % 4) * 32;
+            wgmma_rs_tf32<HD>(o, ps[kk], desc_kmajor(off), 1);
+            wgmma_rs_tf32<HD>(o, pb[kk], desc_kmajor(off + M::VT), 1);
+            wgmma_rs_tf32<HD>(o, pb[kk], desc_kmajor(off), 1);
+          }
+          wgmma_commit();
+          split_next_v(t);
+        }
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pb);
+        fence_regs(ps);
+        for (int t = n_live; t < n_tiles; ++t) {  // the other warpgroup's tiles: split, release
+          split_next_k(t);
+          mbar_arrive(empty(t));
+          split_next_v(t);
+        }
+      }
+
+      mbar_arrive(qempty);  // this item's Q is no longer read
+      // O / l, row by row
+      T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + 8 * r;
+        if (row >= a.Sq) continue;
+        const float denom = fmaxf(l[r], 1e-30f);
+        T* orow = op + int64_t(row) * a.o_ss + 2 * t4;
+#pragma unroll
+        for (int d = 0; d < HD / 8; ++d) {
+          const float x0 = o[4 * d + 2 * r] / denom, x1 = o[4 * d + 2 * r + 1] / denom;
+          if constexpr (BF16) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) = __floats2bfloat162_rn(x0, x1);
+          } else {
+            *reinterpret_cast<float2*>(orow + d * 8) = make_float2(x0, x1);
           }
         }
       }
-    }
-    __syncthreads();  // the next iteration's copy overwrites this tile's buffers
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_lo + 8 * r;
-    if (row >= a.Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = op + int64_t(row) * a.o_ss + 2 * t4;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      const float x0 = acc[d][2 * r] / denom, x1 = acc[d][2 * r + 1] / denom;
-      if constexpr (BF16) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) = __floats2bfloat162_rn(x0, x1);
-      } else {
-        *reinterpret_cast<float2*>(orow + d * 8) = make_float2(x0, x1);
-      }
+      gt += n_tiles;
     }
   }
 }
@@ -411,31 +994,104 @@ int opt_in_smem(const void* kernel, int bytes, bool (&done)[kMaxDevices]) {
   return 0;
 }
 
-template <typename T, int HD, bool CAUSAL>
-int launch_one(const Args& a, int B, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<T, HD>();
-  static bool opted_in[kMaxDevices] = {};
-  if (smem > 48 * 1024) {
-    const int rc = opt_in_smem(reinterpret_cast<const void*>(flash_fwd<T, HD, CAUSAL>), smem,
-                               opted_in);
-    if (rc != 0) return rc;
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the CUDA driver API's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn != nullptr) return fn;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+  fn = reinterpret_cast<EncodeTiled>(p);
+  return fn;
+}
+
+// The tensor map of a (B, heads, S, hd) view with element strides sb, sh, ss
+// (the last axis contiguous): dims (hd, S, heads, B), boxes of one 128-byte
+// swizzle row by `rows`. A dim of extent 1 never moves, so its stride is set
+// to a valid one whatever the view's is.
+int make_map(CUtensorMap* map, const void* base, bool bf16, int hd, int S, int heads, int B,
+             int64_t ss, int64_t sh, int64_t sb, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int64_t size = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(S), cuuint64_t(heads), cuuint64_t(B)};
+  const int64_t st[3] = {ss, sh, sb};
+  int64_t widest = 16;
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] > 1 && st[i] * size > widest) widest = st[i] * size;
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) strides[i] = cuuint64_t(dims[i + 1] > 1 ? st[i] * size : widest);
+  const cuuint32_t box[4] = {cuuint32_t(128 / size), cuuint32_t(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+struct Views {
+  const void *q, *k, *v;
+  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+};
+
+// the current device's SM count, read once per device
+int sm_count(int& count) {
+  static int counts[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices && counts[dev] > 0) {
+    count = counts[dev];
+    return 0;
   }
-  const dim3 grid(B * a.H, (a.Sq + BQ<T> - 1) / BQ<T>);
-  flash_fwd<T, HD, CAUSAL><<<grid, kThreads<T>, smem, stream>>>(a);
+  err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices) counts[dev] = count;
+  return 0;
+}
+
+template <typename T, int HD, bool CAUSAL>
+int launch_one(const Views& w, const Args& a, cudaStream_t stream) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int smem = Smem<T, HD>::TOTAL;
+  static bool opted_in[kMaxDevices] = {};
+  int rc = opt_in_smem(reinterpret_cast<const void*>(flash_fwd<T, HD, CAUSAL>), smem, opted_in);
+  if (rc != 0) return rc;
+  CUtensorMap tq, tk, tv;
+  constexpr int BK = Cfg<T, HD>::BK;
+  int sms = 0;
+  if ((rc = make_map(&tq, w.q, BF16, HD, a.Sq, a.H, a.B, w.q_ss, w.q_sh, w.q_sb, BQ)) != 0 ||
+      (rc = make_map(&tk, w.k, BF16, HD, a.Sk, a.KV, a.B, w.k_ss, w.k_sh, w.k_sb, BK)) != 0 ||
+      (rc = make_map(&tv, w.v, BF16, HD, a.Sk, a.KV, a.B, w.v_ss, w.v_sh, w.v_sb, BK)) != 0 ||
+      (rc = sm_count(sms)) != 0) {
+    return rc;
+  }
+  const int64_t items = int64_t((a.Sq + BQ - 1) / BQ) * a.B * a.H;
+  const int grid = static_cast<int>(items < sms ? items : sms);  // one block an SM at most
+  flash_fwd<T, HD, CAUSAL><<<grid, kThreads, smem, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const Args& a, int B, int hd, bool causal, cudaStream_t s) {
+int launch(const Views& w, const Args& a, int hd, bool causal, cudaStream_t s) {
   switch (hd) {
-    case 16: return causal ? launch_one<T, 16, true>(a, B, s) : launch_one<T, 16, false>(a, B, s);
-    case 32: return causal ? launch_one<T, 32, true>(a, B, s) : launch_one<T, 32, false>(a, B, s);
-    case 64: return causal ? launch_one<T, 64, true>(a, B, s) : launch_one<T, 64, false>(a, B, s);
-    case 96: return causal ? launch_one<T, 96, true>(a, B, s) : launch_one<T, 96, false>(a, B, s);
+    case 16: return causal ? launch_one<T, 16, true>(w, a, s) : launch_one<T, 16, false>(w, a, s);
+    case 32: return causal ? launch_one<T, 32, true>(w, a, s) : launch_one<T, 32, false>(w, a, s);
+    case 64: return causal ? launch_one<T, 64, true>(w, a, s) : launch_one<T, 64, false>(w, a, s);
+    case 96: return causal ? launch_one<T, 96, true>(w, a, s) : launch_one<T, 96, false>(w, a, s);
     case 112:
-      return causal ? launch_one<T, 112, true>(a, B, s) : launch_one<T, 112, false>(a, B, s);
+      return causal ? launch_one<T, 112, true>(w, a, s) : launch_one<T, 112, false>(w, a, s);
     case 128:
-      return causal ? launch_one<T, 128, true>(a, B, s) : launch_one<T, 128, false>(a, B, s);
+      return causal ? launch_one<T, 128, true>(w, a, s) : launch_one<T, 128, false>(w, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -446,9 +1102,10 @@ extern "C" {
 
 // q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o (B, H, Sq, hd), each given by
 // its base pointer and element strides of batch, head and sequence (the last
-// axis contiguous; every row 16-byte aligned). dtype 0 = float32,
-// 1 = bfloat16; hd in {16, 32, 64, 96, 112, 128}; scale is hd^-0.5 rounded to
-// f32 by the caller.
+// axis contiguous; every row 16-byte aligned and every stride of an axis
+// longer than 1 a nonzero multiple of 16 bytes, as TMA needs). dtype 0 =
+// float32, 1 = bfloat16; hd in {16, 32, 64, 96, 112, 128}; scale is hd^-0.5
+// rounded to f32 by the caller.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            long long q_sb, long long q_sh, long long q_ss,
                            long long k_sb, long long k_sh, long long k_ss,
@@ -457,15 +1114,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            int B, int H, int KV, int Sq, int Sk, int hd, float scale,
                            int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
-      int64_t(B) * H > 0x7fffffff || (Sq + 15) / 16 > 65535) {
+      int64_t((Sq + BQ - 1) / BQ) * B * H > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-               o_sb, o_sh, o_ss, H, KV, Sq, Sk, scale};
+  const Views w{q, k, v, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+  const Args a{o, o_sb, o_sh, o_ss, B, H, KV, Sq, Sk, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(a, B, hd, causal != 0, s);
-    case 1: return launch<__nv_bfloat16>(a, B, hd, causal != 0, s);
+    case 0: return launch<float>(w, a, hd, causal != 0, s);
+    case 1: return launch<__nv_bfloat16>(w, a, hd, causal != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

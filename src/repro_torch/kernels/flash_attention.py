@@ -8,11 +8,11 @@ causal is top-left aligned (query i sees keys 0..i). On a CUDA tensor it
 launches the hand-written kernel of ``csrc/flash_attention.cu`` (or
 raises); on a CPU tensor it takes the plain version, ``ref.ref_attention``;
 on a meta tensor its shape rule, ``shapes.flash_attention``.
-The kernel reads its inputs through their strides, so the model's
-transposed (B, S, H, hd) views go in without a copy (a view whose rows do
-not start on 16 bytes is copied first), and the output has q's memory
-layout. It has no backward yet: on CUDA a call that autograd would record
-raises.
+The kernel reads its inputs through their strides (TMA tensor maps), so
+the model's transposed (B, S, H, hd) views go in without a copy (a view
+whose rows do not start on 16 bytes, or that repeats rows by a zero
+stride, is copied first), and the output has q's memory layout. It has
+no backward yet: on CUDA a call that autograd would record raises.
 """
 
 from __future__ import annotations
@@ -35,10 +35,13 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 
 
 def rows_aligned(t: torch.Tensor) -> bool:
     """Whether every row of ``t`` (its last axis) is contiguous and starts on
-    16 bytes, as the kernel's 16-byte ``cp.async`` copies need."""
+    16 bytes, and every other axis longer than 1 has a nonzero stride of a
+    multiple of 16 bytes, as the kernel's TMA tensor maps need (an axis of
+    length 1 never moves, so its stride does not matter)."""
     size = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s * size % 16 == 0 for s in t.stride()[:-1]))
+            and all(n == 1 or (s > 0 and s * size % 16 == 0)
+                    for s, n in zip(t.stride()[:-1], t.shape[:-1])))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -21,8 +21,10 @@ from repro.kernels.ref import ref_attention as jax_ref_attention
 from repro.kernels.ref import ref_rmsnorm as jax_ref_rmsnorm
 from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro.models.layers import rms_norm as jax_rms_norm
-from repro_torch.kernels import LAUNCHES, flash_attention, reset_launches, rmsnorm
-from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.kernels import (LAUNCHES, device_launches, flash_attention, reset_launches,
+                                 rmsnorm)
+from repro_torch.kernels.build import sass
+from repro_torch.kernels.flash_attention import HEAD_DIMS, rows_aligned
 from repro_torch.kernels.ref import ref_attention, ref_rmsnorm
 from repro_torch.models.layers import rms_norm
 
@@ -102,6 +104,21 @@ def test_flash_attention_cpu_is_the_plain_version():
     assert LAUNCHES["flash_attention"] == 0
 
 
+def test_rows_aligned_refuses_what_a_tensor_map_cannot_read():
+    """The wrapper copies a view that a TMA tensor map cannot describe: rows
+    that are not contiguous or start off 16 bytes, or on an axis longer than
+    1 a stride of 0 or not a multiple of 16 bytes."""
+    t = torch.zeros(2, 40, 4, 64)                     # (B, S, H, hd)
+    assert rows_aligned(t) and rows_aligned(t.transpose(1, 2))
+    assert rows_aligned(t[:, :1]) and rows_aligned(t[:, :1, :1])
+    assert rows_aligned(torch.zeros(2, 40, 4, 8, dtype=torch.bfloat16))
+    assert not rows_aligned(t[..., 1:])
+    assert not rows_aligned(t.transpose(-1, -2))
+    assert not rows_aligned(t[:, :1].expand(-1, 40, -1, -1))
+    assert not rows_aligned(t[:, :, :1].expand(-1, -1, 4, -1))
+    assert not rows_aligned(torch.zeros(2, 40, 4, 63))
+
+
 @pytest.mark.parametrize("q,k,v,err", [
     (torch.zeros(2, 4, 8), torch.zeros(2, 2, 8, 16), torch.zeros(2, 2, 8, 16), ValueError),
     (torch.zeros(2, 4, 8, 16), torch.zeros(2, 2, 8, 16), torch.zeros(2, 2, 9, 16), ValueError),
@@ -173,10 +190,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the loss forwards' shapes (B, H, KV, S, S, hd) at S 2048: smollm-135m at
+# B 4 (GQA 3:1), zamba2-7b's shared attention (hd 112), qwen2-moe-a2.7b (hd
+# 128) and phi-3-vision-4.2b (hd 96)
+FLASH_MODEL_SHAPES = [(4, 9, 3, 2048, 2048, 64), (1, 32, 32, 2048, 2048, 112),
+                      (1, 16, 16, 2048, 2048, 128), (1, 32, 32, 2048, 2048, 96)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [(2, 9, 3, 256, 256, 64), (1, 16, 8, 128, 128, 128),
                                             (2, 4, 2, 256, 256, 32), (1, 4, 2, 100, 300, 16),
-                                            (1, 2, 1, 300, 77, 64)])
+                                            (1, 2, 1, 300, 77, 64)] + FLASH_MODEL_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_cuda_matches_plain(cuda_device, B, H, KV, Sq, Sk, hd, causal, dtype):
@@ -187,6 +211,7 @@ def test_flash_attention_cuda_matches_plain(cuda_device, B, H, KV, Sq, Sk, hd, c
     want = ref_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == 1
+    assert device_launches(lambda: flash_attention(q, k, v, causal=causal)) == 1
     assert got.dtype == _TORCH[dtype] and got.shape == (B, H, Sq, hd)
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
 
@@ -202,6 +227,31 @@ def test_flash_attention_cuda_reads_transposed_views(cuda_device):
     want = ref_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     assert got.transpose(1, 2).is_contiguous()
     assert (got - want).abs().max().item() <= ATTN_TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [FLASH_MODEL_SHAPES[0], FLASH_MODEL_SHAPES[1],
+                                            (1, 4, 2, 200, 456, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_two_calls_are_bit_equal(cuda_device, B, H, KV, Sq, Sk, hd,
+                                                      causal, dtype):
+    """No atomics and no order that changes between runs: the persistent
+    grid gives each block the same items, and every sum runs in a fixed
+    order."""
+    q, k, v = (_to_torch(_normal(s, 240 + i), dtype).to(cuda_device) for i, s in
+               enumerate([(B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)]))
+    assert torch.equal(flash_attention(q, k, v, causal=causal),
+                       flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+def test_flash_attention_library_holds_wgmma_and_tma_loads(cuda_device):
+    """The Hopper design compiled to warpgroup products (HGMMA) and TMA
+    tensor loads (UTMALDG), and to no warp-level mma.sync (HMMA)."""
+    code = sass("flash_attention")
+    assert "HGMMA" in code and "UTMALDG" in code
+    assert "HMMA" not in code
 
 
 # (rows, d): the threads a row the launcher picks (the fewest, 8 to 1024,
@@ -315,3 +365,11 @@ def test_flash_attention_cuda_reads_transposed_and_unaligned_views(cuda_device, 
     want = ref_attention(*(t.contiguous() for t in shifted))
     assert (flash_attention(*shifted).float() - want.float()).abs().max().item() \
         <= ATTN_TOL[dtype]
+    # k and v broadcast along S and along the heads (stride 0), which TMA
+    # cannot read, so the wrapper copies them
+    for expand in (lambda t: t[:, :, :1].expand(-1, -1, S, -1),
+                   lambda t: t[:, :1].expand(-1, KV, -1, -1)):
+        kx, vx = expand(k.transpose(1, 2)), expand(v.transpose(1, 2))
+        want = ref_attention(views[0], kx.contiguous(), vx.contiguous())
+        assert (flash_attention(views[0], kx, vx).float() - want.float()).abs().max().item() \
+            <= ATTN_TOL[dtype]
