@@ -72,19 +72,26 @@ printed only when every phase passed:
    ragged 1001, f32 and bf16; atol 2e-5 / 5e-2), with times at (2048, 7168)
    f32 beside the bytes bound, the plain version and the composite
    ``F.rms_norm(x * F.silu(z))`` (no single PyTorch call computes it).
-13. The ssd_scan kernel against its plain versions on the card: against
-   ``ref_ssd`` (the sequential recurrence) at the JAX sweep's shapes (atol
-   5e-4, rtol 1e-3) and its chunk invariance (5e-5 / 1e-4); against the
-   model's ``ssd_chunked`` (y and final state) at zamba2-7b's loss shape
-   (1, 112, 2048, 64), chunk 256, and serve-prefill shape (8, 112, 128, 64),
-   chunk 64, with B and C as stride-0 head views, and chunks 64 and 256
-   against each other at the loss shape; bf16 against ``ref_ssd`` at both.
-   Times at both shapes in f32 and bf16 (eager, and as device time inside
-   a CUDA graph) beside the operations and bytes bounds (at the three-pass
-   TF32 rate, the CUDA cores' figure beside it), ``ref_ssd`` and
-   ``ssd_chunked``, and the kernel's device launches per call (4 at the loss shape: chunk scores, chunk states, the state pass,
-   chunk outputs; 2 at the serve shape: chunk scores, then a block per
-   (batch, head) walking its chunks).
+13. The ssd_scan kernel: its library's Hopper kernels must hold wgmma
+   (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA); then against its
+   plain versions on the card: against ``ref_ssd`` (the sequential
+   recurrence) at the JAX sweep's shapes (atol 5e-4, rtol 1e-3) and its
+   chunk invariance (5e-5 / 1e-4); against the model's ``ssd_chunked`` (y
+   and final state) at zamba2-7b's loss shape (1, 112, 2048, 64), chunk 256,
+   and serve-prefill shape (8, 112, 128, 64), chunk 64, with B and C as
+   stride-0 head views, and chunks 64 and 256 against each other at the
+   loss shape; bf16 against ``ref_ssd`` at both. The wrapper's size rule
+   (``hopper_takes``) sends both shapes to the Hopper route (TMA-fed
+   wgmma: a state kernel with the pass over the chunks folded in, then an
+   output kernel; 2 device launches a call, and the graph must name only
+   those). Times at both shapes in f32 and bf16
+   (eager, as device time inside a CUDA graph beside the device time
+   before the Hopper redesign from PERF.md, and host time per call) beside
+   the operations and bytes bounds (f32 at the three-pass TF32 rate, the
+   CUDA cores' figure beside it), ``ref_ssd`` and ``ssd_chunked``, the
+   device launches per call, and the mma.sync kernels forced at the same
+   inputs (the chunk-parallel ones with 4 launches; at the serve shape also
+   the walk per (batch, head) with 2).
 14. Serving zamba2-7b at full width and depth (81 layers, 13 shared slots,
    f32 weights from PRNGKey(0)) with ``use_pallas=True``: batch 8, prompt
    128 (so chunk 64), 32 greedy tokens; prefill and decode tokens/s and the
@@ -432,6 +439,13 @@ SSD_SERVE = (8, 112, 128, 64, 64, 64)
 SSD_TOL = dict(atol=5e-4, rtol=1e-3)               # tests/test_kernels.py
 SSD_CHUNK_TOL = dict(atol=5e-5, rtol=1e-4)         # test_ssd_scan_state_continuity
 SSD_BF16_TOL = dict(atol=5e-2, rtol=1e-2)          # y in bf16 (tests/test_torch_ssm_kernels.py)
+# ssd_scan's device times (CUDA graph, ms) and device launches a call at the
+# two shapes before the Hopper redesign (the mma.sync kernels), as PERF.md
+# row 6 records them (NVIDIA H100 80GB HBM3, 700 W). Printed as text beside
+# this run's times and kept out of the kernels line.
+SSD_BEFORE_MS = {("loss", "float32"): 0.2630, ("loss", "bfloat16"): 0.3317,
+                 ("serve", "float32"): 0.0873, ("serve", "bfloat16"): 0.0950}
+SSD_BEFORE_LAUNCHES = {"loss": 4, "serve": 2}
 HYBRID_CPU_LAYERS, HYBRID_CPU_BATCH, HYBRID_CPU_GEN = 7, 2, 4
 HYBRID_LOSS_B, HYBRID_LOSS_S = 1, 2048
 
@@ -1504,13 +1518,31 @@ def _close(got, want, tol, what: str) -> float:
     return diff.max().item()
 
 
+def _hopper_sass(name: str) -> dict:
+    """HGMMA, UTMALDG and HMMA counts of each of a library's Hopper kernels
+    (the functions whose names hold ``_tma``), from its SASS."""
+    from repro_torch.kernels.build import sass
+
+    funcs = {f.split("\n", 1)[0]: f for f in sass(name).split("Function : ")[1:]}
+    return {fn[:120]: {"HGMMA": f.count("HGMMA"), "UTMALDG": f.count("UTMALDG"),
+                       "HMMA": f.count("HMMA")}
+            for fn, f in funcs.items() if "_tma" in fn}
+
+
 def phase_ssd():
     import torch
 
-    from repro_torch.kernels import device_launches, ssd_scan
+    from repro_torch.kernels import graph_kernels, ssd_scan
     from repro_torch.kernels.ref import ref_ssd
+    from repro_torch.kernels.ssd_scan import hopper_takes
 
     print("== phase 13: ssd_scan kernel vs plain versions on the card")
+    hop = _hopper_sass("ssd_scan")
+    print(f"ssd_scan Hopper kernels' SASS: {hop}")
+    if len(hop) != 4 or not all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"]
+                                for c in hop.values()):
+        fail(f"ssd_scan: the Hopper kernels' SASS lacks wgmma or TMA loads, or holds mma.sync: "
+             f"{hop}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     err = 0.0
@@ -1527,6 +1559,24 @@ def phase_ssd():
     print(f"small shapes {SSD_SMALL} against ref_ssd: max |err| {err:.3g} ({SSD_TOL}); chunks "
           f"16 vs 128 at (1, 2, 128, 16, 8): max |diff| {inv:.3g} ({SSD_CHUNK_TOL})")
 
+    def launched(fn, label, name):
+        """The device kernels of one call; fails unless they are the Hopper
+        route's two (the route the size rule names at Mamba2's shapes)."""
+        kernels = graph_kernels(fn)
+        if len(kernels) != 2 or not all("_tma" in k for k in kernels):
+            fail(f"ssd_scan {label} {name}: expected the Hopper route's two kernels, the graph "
+                 f"holds {kernels}")
+        return len(kernels)
+
+    def other_routes(rec, label, call, want, tol, where):
+        """The mma.sync kernels forced at the same inputs: their error,
+        launches and device time."""
+        for path in ("chunks",) + (("seq",) if label == "serve" else ()):
+            rec[f"{path}_path"] = {
+                "max_abs_err": _close(call(path)[0], want, tol, f"{where} on path {path}"),
+                "device_launches_per_call": len(graph_kernels(lambda: call(path))),
+                "device_ms": graph_ms(lambda: call(path), inner=10)}
+
     timed = {}
     for label, (B, H, L, P, N, chunk) in (("loss", SSD_LOSS), ("serve", SSD_SERVE)):
         x, a, b, c = _ssd_inputs(gen, B, H, L, P, N, dev, shared_bc=True)
@@ -1542,25 +1592,18 @@ def phase_ssd():
         if label == "loss":
             rec["chunk64_vs_256_max_abs_diff"] = _close(ssd_scan(x, a, b, c, 64), got, SSD_TOL,
                                                          "ssd_scan loss shape chunk 64 vs 256")
+        call = lambda: ssd_scan(x, a, b, c, chunk, return_state=True)  # noqa: E731
+        if not hopper_takes(x, b, c, chunk, True):
+            fail(f"{where}: the size rule does not send zamba2-7b's scan to the Hopper route")
         rec["bound_ms"], rec["bound_by"] = ssd_bound_ms(B, H, L, P, N, chunk, True)
         rec["bound_ms_cuda_cores"] = ssd_bound_ms(B, H, L, P, N, chunk, True,
                                                   cuda_cores=True)[0]
-        rec["device_launches_per_call"] = device_launches(
-            lambda: ssd_scan(x, a, b, c, chunk, return_state=True))
-        rec["ms"] = time_ms(lambda: ssd_scan(x, a, b, c, chunk, return_state=True), inner=5)
-        rec["device_ms"] = graph_ms(lambda: ssd_scan(x, a, b, c, chunk, return_state=True),
-                                    inner=10)
-        if label == "serve":
-            # the other route at the same inputs: the size rule sends the
-            # serve prefill to the kernel that walks each (b, h)'s chunks
-            rec["chunks_path"] = {
-                "max_abs_err_vs_chunked": _close(
-                    ssd_scan(x, a, b, c, chunk, path="chunks"), want, SSD_TOL,
-                    f"{where}: y on the chunk-parallel path"),
-                "device_launches_per_call": device_launches(
-                    lambda: ssd_scan(x, a, b, c, chunk, return_state=True, path="chunks")),
-                "device_ms": graph_ms(lambda: ssd_scan(x, a, b, c, chunk, return_state=True,
-                                                       path="chunks"), inner=10)}
+        rec["device_launches_per_call"] = launched(call, label, "float32")
+        rec["ms"] = time_ms(call, inner=5)
+        rec["device_ms"] = graph_ms(call, inner=10)
+        rec["host_ms"] = host_ms(call, inner=100, reps=10)
+        other_routes(rec, label, lambda path: ssd_scan(
+            x, a, b, c, chunk, return_state=True, path=path), want, SSD_TOL, where)
         rec["plain_ms"] = time_ms(lambda: ref_ssd(x, a, b, c, return_state=True), reps=3)
         rec["chunked_ms"] = time_ms(lambda: _chunked(x, a, b, c, chunk), reps=5)
         rec["library_ms"] = None          # no PyTorch call computes the scan
@@ -1573,37 +1616,38 @@ def phase_ssd():
         bf16 = {"max_abs_err_vs_ref_ssd": max(
             _close(got16, want16, SSD_BF16_TOL, f"{where} bf16 vs ref_ssd: y"),
             _close(h16, want_h16, SSD_TOL, f"{where} bf16 vs ref_ssd: state"))}
+        call16 = lambda: ssd_scan(xh, a, bh, ch, chunk, return_state=True)  # noqa: E731
         bf16["bound_ms"], bf16["bound_by"] = ssd_bound_ms(B, H, L, P, N, chunk, True, 2)
-        bf16["device_launches_per_call"] = device_launches(
-            lambda: ssd_scan(xh, a, bh, ch, chunk, return_state=True))
-        bf16["ms"] = time_ms(lambda: ssd_scan(xh, a, bh, ch, chunk, return_state=True),
-                             inner=5)
-        bf16["device_ms"] = graph_ms(lambda: ssd_scan(xh, a, bh, ch, chunk, return_state=True),
-                                     inner=10)
+        bf16["device_launches_per_call"] = launched(call16, label, "bfloat16")
+        bf16["ms"] = time_ms(call16, inner=5)
+        bf16["device_ms"] = graph_ms(call16, inner=10)
+        bf16["host_ms"] = host_ms(call16, inner=100, reps=10)
+        other_routes(bf16, label, lambda path: ssd_scan(
+            xh, a, bh, ch, chunk, return_state=True, path=path), want16, SSD_BF16_TOL,
+            f"{where} bf16")
         bf16["chunked_ms"] = time_ms(lambda: _chunked(xh, a, bh, ch, chunk), reps=5)
         bf16["library_ms"] = None
         rec["bf16"] = bf16
         timed[label] = rec
-        print(f"ssd_scan {label} {(B, H, L, P, N)} chunk {chunk} f32: y max |err| vs ssd_chunked "
+        print(f"ssd_scan {label} {(B, H, L, P, N)} chunk {chunk}: y max |err| vs ssd_chunked "
               f"{e_y:.3g}, state {e_h:.3g}"
               + (f", chunk 64 vs 256 {rec['chunk64_vs_256_max_abs_diff']:.3g}" if label == "loss"
                  else "")
-              + f"; kernel {rec['ms']:.4f} ms eager, {rec['device_ms']:.4f} ms device (CUDA "
-              f"graph; {rec['bound_ms'] / rec['device_ms']:.1%} of the "
-              f"{rec['bound_by']} bound {rec['bound_ms']:.4f} ms; "
-              f"{rec['bound_ms_cuda_cores']:.4f} ms at 67 TFLOP/s on the CUDA cores; "
-              f"{rec['device_launches_per_call']} device launches), ref_ssd "
-              f"{rec['plain_ms']:.3f} "
-              f"ms, ssd_chunked {rec['chunked_ms']:.4f} ms; bf16: max |err| vs ref_ssd "
-              f"{bf16['max_abs_err_vs_ref_ssd']:.3g}, kernel {bf16['ms']:.4f} ms eager, "
-              f"{bf16['device_ms']:.4f} ms device ({bf16['bound_ms'] / bf16['device_ms']:.1%} "
-              f"of {bf16['bound_ms']:.4f} ms), "
-              f"ssd_chunked {bf16['chunked_ms']:.4f} ms")
-        if label == "serve":
-            alt = rec["chunks_path"]
-            print(f"ssd_scan serve shape on the chunk-parallel path: "
-                  f"{alt['device_launches_per_call']} device launches, {alt['device_ms']:.4f} ms "
-                  f"device, against {rec['device_ms']:.4f} ms on the path the size rule takes")
+              + f"; bf16 max |err| vs ref_ssd {bf16['max_abs_err_vs_ref_ssd']:.3g}; ref_ssd "
+              f"{rec['plain_ms']:.3f} ms, ssd_chunked {rec['chunked_ms']:.4f} ms (bf16 "
+              f"{bf16['chunked_ms']:.4f})")
+        for name, r in (("float32", rec), ("bfloat16", bf16)):
+            alt = "; ".join(f"{k[:-5]} {v['device_ms']:.4f} ms ({v['device_launches_per_call']} "
+                            f"launches)" for k, v in r.items() if k.endswith("_path"))
+            cores = (f"; {r['bound_ms_cuda_cores']:.4f} ms at 67 TFLOP/s on the CUDA cores"
+                     if "bound_ms_cuda_cores" in r else "")
+            print(f"ssd_scan {label} {name}: kernel {r['device_ms']:.4f} ms device (CUDA graph; "
+                  f"{r['bound_ms'] / r['device_ms']:.1%} of the {r['bound_by']} bound "
+                  f"{r['bound_ms']:.4f} ms{cores}; before the Hopper redesign "
+                  f"{SSD_BEFORE_MS[label, name]:.4f} ms and {SSD_BEFORE_LAUNCHES[label]} device "
+                  f"launches as PERF.md records them, not this run's), {r['ms']:.4f} ms eager, "
+                  f"host {r['host_ms'] * 1e3:.2f} us per call, {r['device_launches_per_call']} "
+                  f"device launches per call; the mma.sync kernels here: {alt}")
         del x, a, b, c, got, h, want, want_h, xh, bh, ch, got16, h16, want16, want_h16
     torch.cuda.empty_cache()
     return err, timed

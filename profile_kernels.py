@@ -46,8 +46,9 @@ sys.path.insert(0, str(ROOT))
 
 # name substrings of the port's kernel families (first match wins:
 # gated_rmsnorm_rows before rmsnorm_rows; "ssd_" covers every launch of the
-# scan: ssd_chunk_scores, ssd_chunk_state, ssd_state_pass, ssd_chunk_out,
-# ssd_scan_seq); "rmsnorm_rows" covers rmsnorm_rows_reg and the two-pass
+# scan: the Hopper route's ssd_state_tma and ssd_out_tma, the mma.sync
+# route's ssd_chunk_scores, ssd_chunk_state, ssd_state_pass, ssd_chunk_out
+# and ssd_scan_seq); "rmsnorm_rows" covers rmsnorm_rows_reg and the two-pass
 # rmsnorm_rows, "fedavg_" fedavg_vec16 and fedavg_scalar; "indexfunc" is
 # index_add_ (the MoE combine), "softmax" the chunked attention's softmax
 FAMILIES = (("flash_attention", ("flash_fwd",)), ("gated_rmsnorm", ("gated_rmsnorm_rows",)),

@@ -5,8 +5,10 @@ first use by ``nvcc`` into a shared library for Hopper (``sm_90a``), which
 is then loaded with ``ctypes``; ``load_all`` starts one ``nvcc`` per
 source, all at once. No PyTorch headers are compiled, so a
 build takes seconds. Libraries go to ``build/repro_torch_ext/`` at the
-root of the checkout, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.
+root of the checkout, named by a hash of the source, the headers of
+``csrc/`` (``hopper.cuh``, which the TMA/wgmma kernels share) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.
 
 Every wrapper launches through ``launch``: it makes the tensor's device
 current where it is not, reads that device's current stream, calls the
@@ -209,7 +211,9 @@ def load_all(names=KERNELS) -> Dict[str, Built]:
         if name in _LOADED or name in started:
             continue
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        # the headers of csrc/ (hopper.cuh) are part of every source's build
+        parts = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+        digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         so = BUILD_DIR / f"lib{name}-{digest}.so"
         if so.exists():
             _LOADED[name] = Built(ctypes.CDLL(str(so)), so, 0.0, "")

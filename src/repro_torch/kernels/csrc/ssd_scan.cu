@@ -26,12 +26,61 @@
 // with X 2 P flops per pair, the carry-in and the chunk state 2 N P each
 // per step. At f32 accuracy the least time is at the three-pass TF32
 // rate, 494.7 / 3 = 165 TFLOP/s (67 TFLOP/s on the CUDA cores); with bf16
-// inputs the scores are exact at the bf16 rate. Bytes: x, y once, b, c
-// once per distinct (b, h) view, a once, the final state once.
+// inputs the scores (two bf16 inputs) are exact at the bf16 rate, and a
+// product of an input with an f32 factor is exact in three bf16 passes, a
+// third of that rate. Bytes: x, y once, b, c once per distinct (b, h) view,
+// a once, the final state once.
 //
-// Design: the chunk-parallel decomposition of the Mamba2 SSD algorithm
-// (Dao and Gu, arXiv:2405.21060, section 7). Every launch is on one
-// stream:
+// Two routes, chosen by the wrapper's size rule (ssd_scan.py::hopper_takes,
+// path "auto"):
+//
+// The Hopper route (path 3), for Mamba2's widths N = P = 64 and chunks of
+// 64, 128, 192 or 256 steps (zamba2-7b's scans): two kernels and a memset
+// of their flags, warp-specialised as flash_attention.cu is (hopper.cuh
+// holds the shared pieces). In each, warpgroup 2 is the producer: it gives back its
+// registers (setmaxnreg 40) and one thread per consumer warpgroup keeps that
+// warpgroup's two-stage ring of 64 x 64 tiles full with TMA loads (tensor
+// maps: x as (P, L, H, B), b and c as (N, L, heads, B) with the head axis
+// left out when they are one group, so Mamba2's stride-0 head views need no
+// copy; 128-byte swizzle; bf16 tiles stay bf16). Warpgroups 0 and 1 are
+// consumers (setmaxnreg 232) on wgmma with f32 accumulators:
+//   (1) ssd_state_tma, a block per (chunk, batch, head group), taken in the
+//       order of an atomic ticket, chunk-major: per head, the chunk's
+//       cumsum (kept in scratch for (2), in log2 units, so that (2) takes
+//       exp of a difference of cumsums as one ex2) and the state s_z^T = X^T
+//       diag(dec) B with A = X^T dec from registers; then, a head behind
+//       (under the next head's products), the pass over the chunks folded
+//       in: once chunk z - 1's flags are set (it has a smaller ticket, so
+//       it is running), h_z+1 = exp(acs[-1]) h_z + s_z goes to scratch as
+//       h^T for chunk z + 1, or, for the last chunk, to h_out. Each thread
+//       waits for and publishes its own 32 values of the state (a release
+//       store of its flag after them), so a link takes no barrier and no
+//       fence, and each is one (P, N) fma: the serial part grows as Z, not
+//       Z^2.
+//   (2) ssd_out_tma, a block per (64-row tile, batch, chunk, head group),
+//       the row tiles with the most keys first: the tile's scores C B^T up
+//       to its diagonal once for the group's heads (the warpgroups take
+//       alternate key tiles), kept in shared memory in the accumulators'
+//       order (never in device memory); then per head (warpgroup w takes
+//       heads w, w + 2, ...) the carry-in C h_z scaled by exp(acs_i), and
+//       the intra-chunk term with (S o L) built in registers from the
+//       stored scores as the A operand of the product with X; y is written
+//       from registers in x's dtype.
+// f32: three TF32 passes (x = big + small, big = cvt.rna.tf32(x), small = x
+// - big; a.b = a_s b_b + a_b b_s + a_b b_b), since TF32 wgmma takes K-major
+// operands only: A operands split in registers (C's fragments, S o L, X^T
+// dec); B and h^T tiles split in place, their small halves in scratch
+// shared memory; X^T (transposed once a tile, 4 x 4 in registers, keys in
+// the accumulators' order 0, 2, 4, 6, 1, 3, 5, 7) and the chunk's B^T (for
+// (1)) split into scratch. bf16: C B^T in one pass (exact); an input times an f32 factor
+// (X^T dec, S o L, C h_z) in three bf16 passes, the factor split into
+// three bf16 parts hi + mid + lo (24 bits of its mantissa); X and B are
+// read as loaded, MN-major, through the descriptor's transpose.
+// A head group is head_group heads (the wrapper's head_group(chunk): 16 at
+// chunks of 64, 4 above) when b and c are shared, else one head.
+//
+// The mma.sync route (paths 0-2), for every other shape: mma.sync m16n8k8
+// TF32 with f32 accumulators:
 //   (a') ssd_chunk_scores, a block per (64 x 64 block on or below the
 //        diagonal, b, z): the raw scores C_i . B_j of the chunk, once for
 //        all heads when B and C are one group shared by the heads
@@ -50,37 +99,37 @@
 //   (c)  ssd_chunk_out, a block per (b, h, z, 64 rows of the chunk), the
 //        tiles with the most causal work first: y = exp(acs_i) (C h_z) plus
 //        the intra-chunk term, over key tiles up to its diagonal.
-// Only phase (b) walks the chunks of a (b, h) in order, and it does no
-// products. Every product is mma.sync m16n8k8 TF32 with f32 accumulators,
-// in three passes for f32 operands (x = big + small, big =
-// cvt.rna.tf32(x), small = x - big, of which the product reads the top 19
-// bits; a.b = a_s b_b + a_b b_s + a_b b_b): one pass keeps about three
-// digits. A bf16 input is exact in TF32, so a product of two inputs
-// (C B^T) takes one pass and a product of an input with an f32 factor two.
-// Each warp owns 16 rows; the decayed, masked scores are built in
-// registers as the A operand of their product with X: accumulator columns
-// 2t and 2t+1 go to k-slots t and t+4, and X's rows are read in that order.
-// exp is the special-function unit's ex2 of x log2 e. f32 tiles are staged
-// with cp.async (16 bytes a thread where rows are 16-byte aligned, else 4),
-// key tiles double-buffered so that the next tile's copy runs under this
-// tile's products; bf16 tiles are converted on the way in. N and P are
-// padded with zeros in shared memory (N to a multiple of 8, P to 8, 16, 32,
-// 64 or 128), the chunk to the key tile; shared rows are padded by 4 floats
-// so that fragment loads hit distinct banks. Inputs are read through
-// strides (the last axis contiguous), so Mamba2's B and C, shared by every
-// head, arrive as a stride-0 head view with no copy, and x and y as
-// transposed (B, L, H, P) views. The scratch (`scores`, `states`, `dlast`)
-// is the caller's.
+// Three passes for f32 operands, as above; a bf16 input is exact in TF32,
+// so a product of two inputs (C B^T) takes one pass and a product of an
+// input with an f32 factor two. Each warp owns 16 rows; the decayed, masked
+// scores are built in registers as the A operand of their product with X:
+// accumulator columns 2t and 2t+1 go to k-slots t and t+4, and X's rows are
+// read in that order. exp is the special-function unit's ex2 of x log2 e.
+// f32 tiles are staged with cp.async (16 bytes a thread where rows are
+// 16-byte aligned, else 4), key tiles double-buffered so that the next
+// tile's copy runs under this tile's products; bf16 tiles are converted on
+// the way in. N and P are padded with zeros in shared memory (N to a
+// multiple of 8, P to 8, 16, 32, 64 or 128), the chunk to the key tile;
+// shared rows are padded by 4 floats so that fragment loads hit distinct
+// banks.
+//
+// Both routes read their inputs through strides (the last axis
+// contiguous), so Mamba2's B and C, shared by every head, arrive as a
+// stride-0 head view with no copy, and x and y as transposed (B, L, H, P)
+// views. The scratch is the caller's (ssd_scan_scratch_bytes).
 //
 // C interface (no PyTorch headers; loaded with ctypes). The kernels run on
 // the given stream, allocate nothing, and the launcher returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). The Hopper route's tensor maps are
+// encoded on the host and remembered by pointer, shape and strides
+// (hopper.cuh's cached_map), so a repeated call pays a lookup.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -90,7 +139,6 @@ constexpr int BJ = 32;          // keys (chunk steps) per staged tile
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use (H100)
 constexpr int kMaxP = 128;
 constexpr int kSeqQ = 64;       // the longest chunk (and widest state) of ssd_scan_seq
-constexpr int kMaxDevices = 64;
 
 struct Args {
   const void* x;
@@ -111,6 +159,7 @@ struct Args {
 };
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+inline int64_t round_up4(int64_t v) { return (v + 3) / 4 * 4; }
 
 __host__ __device__ constexpr int p_tile(int P) {
   return P <= 8 ? 8 : P <= 16 ? 16 : P <= 32 ? 32 : P <= 64 ? 64 : 128;
@@ -165,10 +214,6 @@ __device__ __forceinline__ void store_y(T* yrow, int col, const Args& a, float v
   }
   yrow[col] = from_f32<T>(v0);
   if (col + 1 < a.P) yrow[col + 1] = from_f32<T>(v1);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -227,12 +272,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 // An mma operand as big + small TF32 parts: big = cvt.rna.tf32(x) and
 // small = x - big, handed over as f32 bits (the TF32 product reads their
 // top 19 bits). An EXACT operand (a bf16 input, exact in TF32) keeps
@@ -243,7 +282,7 @@ struct Split {
   __device__ __forceinline__ explicit Split(const float (&v)[K]) {
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      big[i] = to_tf32(v[i]);
+      big[i] = __float_as_uint(to_tf32(v[i]));
       small[i] = EXACT ? 0u : __float_as_uint(v[i] - __uint_as_float(big[i]));
     }
   }
@@ -792,21 +831,6 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_seq(const Args a) {
   }
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory, once per
-// device (`done` is the kernel's own flags): the attribute belongs to the
-// current device's context, so a flag for the whole process would leave a
-// second card's launches refused.
-int opt_in_smem(const void* kernel, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < kMaxDevices && done[dev]) return 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < kMaxDevices) done[dev] = true;
-  return 0;
-}
-
 template <typename T, int PT>
 int launch_pt(const Args& a, int64_t BH, bool seq, cudaStream_t stream) {
   static bool scores_opted[kMaxDevices] = {}, state_opted[kMaxDevices] = {},
@@ -816,15 +840,18 @@ int launch_pt(const Args& a, int64_t BH, bool seq, cudaStream_t stream) {
   const size_t smem_c = smem_out_floats(a.NP, PT, a.Q) * sizeof(float);
   int rc = 0;
   if (smem_s > 48 * 1024 &&
-      (rc = opt_in_smem(reinterpret_cast<const void*>(ssd_chunk_scores<T>), scores_opted))) {
+      (rc = opt_in_smem(reinterpret_cast<const void*>(ssd_chunk_scores<T>), kMaxSmem,
+                               scores_opted))) {
     return rc;
   }
   if (smem_a > 48 * 1024 &&
-      (rc = opt_in_smem(reinterpret_cast<const void*>(ssd_chunk_state<T, PT>), state_opted))) {
+      (rc = opt_in_smem(reinterpret_cast<const void*>(ssd_chunk_state<T, PT>), kMaxSmem,
+                               state_opted))) {
     return rc;
   }
   if (smem_c > 48 * 1024 &&
-      (rc = opt_in_smem(reinterpret_cast<const void*>(ssd_chunk_out<T, PT>), out_opted))) {
+      (rc = opt_in_smem(reinterpret_cast<const void*>(ssd_chunk_out<T, PT>), kMaxSmem,
+                               out_opted))) {
     return rc;
   }
   const unsigned BHZ = static_cast<unsigned>(BH * a.Z);
@@ -835,7 +862,8 @@ int launch_pt(const Args& a, int64_t BH, bool seq, cudaStream_t stream) {
   if (seq) {
     const size_t smem_q = smem_seq_floats(a.NP, PT) * sizeof(float);
     if (smem_q > 48 * 1024 &&
-        (rc = opt_in_smem(reinterpret_cast<const void*>(ssd_scan_seq<T, PT>), seq_opted))) {
+        (rc = opt_in_smem(reinterpret_cast<const void*>(ssd_scan_seq<T, PT>), kMaxSmem,
+                               seq_opted))) {
       return rc;
     }
     ssd_scan_seq<T, PT><<<static_cast<unsigned>(BH), kThreads, smem_q, stream>>>(a);
@@ -864,34 +892,981 @@ int launch(const Args& a, int64_t BH, bool seq, cudaStream_t s) {
   }
 }
 
-// SMs of the current device, read once per device
-int sm_count(int* sms) {
-  static int count[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < kMaxDevices && count[dev] > 0) {
-    *sms = count[dev];
-    return 0;
-  }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < kMaxDevices) count[dev] = *sms;
-  return 0;
-}
-
 // f32 rows reached through (batch, head, step) strides start on 16 bytes
 bool rows_aligned(const void* p, int64_t sb, int64_t sh, int64_t sl, int width) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 && sh % 4 == 0 &&
          sl % 4 == 0 && width % 4 == 0;
 }
 
+
+// ------------------------------------------------------- the Hopper route
+
+constexpr int kT = 64;             // chunk rows of a row tile, keys of a key tile; N = P = 64
+constexpr int kHopThreads = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kStages = 2;         // stages of each consumer warpgroup's TMA ring
+constexpr int kF32Tile = kT * kT * 4;   // bytes of a 64 x 64 f32 tile (and of a score tile)
+constexpr int kChunkBytes = kT * 128;   // a 128-byte swizzle chunk of a 64-row tile
+
+template <typename T> struct Hop {
+  static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int CW = 128 / sizeof(T);        // values of a 128-byte swizzle row
+  static constexpr int NCH = kT / CW;               // swizzle chunks of a 64-wide row
+  static constexpr int TILE = kT * kT * sizeof(T);  // a 64 x 64 input tile
+  // the state kernel: B (bf16, as loaded) or B^T big and small (f32) for
+  // the whole chunk, and the two rings; 1 KB of slack to align to the
+  // swizzle's 1 KB
+  static int state_smem(int Q) {
+    return 1024 + (BF16 ? Q * 128 : 2 * Q * 256) + 2 * kStages * TILE;
+  }
+  // scratch of a consumer warpgroup of the output kernel: f32 X^T or h^T,
+  // big and small; bf16 h^T as three bf16 parts
+  static constexpr int SCRATCH = BF16 ? 3 * TILE : 2 * kF32Tile;
+  // the output kernel: C, the row tile's scores (f32, one tile per key
+  // tile of the chunk), the two rings (stages of an f32 tile: h^T comes
+  // through them) and two scratches
+  static int out_smem(int Q) {
+    return 1024 + TILE + Q / kT * kF32Tile + 2 * kStages * kF32Tile + 2 * SCRATCH;
+  }
+};
+
+struct HopArgs {
+  const float* a;
+  void* y;
+  float* h_out;   // (B, H, N, P) contiguous, or null
+  float* states;  // (B, H, Z, P, N): h_z^T, the state entering chunk z (z >= 1)
+  float* acs;     // (B, H, L): the cumsum of a inside each chunk, times log2(e)
+  int* flags;     // (B, H, Z, 128): thread t of chunk z wrote its h_{z+1}; then the ticket
+  int64_t a_sb, a_sh, a_sl, y_sb, y_sh, y_sl;
+  int B, H, Z, Q, G, n_groups;  // G heads a block; n_groups = ceil(H / G)
+  bool shared_bc;
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// rows [row, row + 64) of a 64-wide operand (its NCH swizzle chunks) by TMA
+template <typename T>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int row, int head, int batch) {
+#pragma unroll
+  for (int c = 0; c < Hop<T>::NCH; ++c) {
+    tma_load(dst + c * kChunkBytes, map, bar, c * Hop<T>::CW, row, head, batch);
+  }
+}
+
+// an f32 tile split in place: big = cvt.rna.tf32(x) where x was, small =
+// x - big at the same offset of `small`; threads t, t + n, ...
+__device__ __forceinline__ void split_tile(unsigned char* tile, unsigned char* small, int t,
+                                           int n) {
+  for (int i = t; i < kF32Tile / 16; i += n) {
+    const float4 v = reinterpret_cast<const float4*>(tile)[i];
+    const float4 big = make_float4(to_tf32(v.x), to_tf32(v.y), to_tf32(v.z), to_tf32(v.w));
+    reinterpret_cast<float4*>(tile)[i] = big;
+    reinterpret_cast<float4*>(small)[i] = make_float4(v.x - big.x, v.y - big.y, v.z - big.z,
+                                                      v.w - big.w);
+  }
+}
+
+// The transpose of a 64 x 64 f32 tile as loaded ([key][col], two swizzle
+// chunks of 32 columns), split: row col of `big` and `small` holds the
+// tile's keys, at key0 + (key), each group of 8 in the order 0, 2, 4, 6, 1,
+// 3, 5, 7 (k-slot t of an 8-step <-> key 2 t, slot t + 4 <-> key 2 t + 1),
+// in swizzle chunks of 32 keys 8 KB apart: a K-major wgmma operand over the
+// keys. A thread takes a 4 x 4 block (4 keys of one half of a group by 4
+// columns), transposes it in registers and stores 4 rows of 4 slots;
+// rotating each lane's rows by (unit / 2) % 4 keeps loads and stores free
+// of bank conflicts (flash_attention.cu's V^T). Threads t of `threads`.
+__device__ __forceinline__ void transpose_split(unsigned char* __restrict__ big,
+                                                unsigned char* __restrict__ small,
+                                                const unsigned char* __restrict__ src, int key0,
+                                                int t, int threads = 128) {
+  constexpr int kMaxPer = 2;  // blocks a thread takes (128 threads)
+  float4 r[kMaxPer][4];       // keys grp * 8 + half + 2 i, columns d0 .. d0 + 3
+  const int per = 256 / threads;
+#pragma unroll
+  for (int k = 0; k < kMaxPer; ++k) {  // every load first
+    if (k >= per) break;
+    const int blk = t + k * threads;
+    const int u = blk & 7, half = (blk >> 3) & 1, grp = (blk >> 4) & 7, c = blk >> 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[k][i] = *reinterpret_cast<const float4*>(src + c * kChunkBytes +
+                                                 swz<4>(grp * 8 + half + 2 * i, 4 * u));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxPer; ++k) {
+    if (k >= per) break;
+    const int blk = t + k * threads;
+    const int u = blk & 7, half = (blk >> 3) & 1, grp = (blk >> 4) & 7, c = blk >> 7;
+    const int d0 = c * 32 + 4 * u;
+    // rotate each float4 by rot = (u / 2) % 4 lanes, so that store e holds row d0 + (e + rot) % 4
+    const int rot = (u >> 1) & 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4 v = r[k][i];
+      if (rot & 1) v = make_float4(v.y, v.z, v.w, v.x);
+      if (rot & 2) v = make_float4(v.z, v.w, v.x, v.y);
+      r[k][i] = v;
+    }
+    const int slot = key0 + grp * 8 + 4 * half;  // the first of the block's 4 slots
+    const uint32_t base = (slot / 32) * kChunkBytes;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x[4] = {e == 0 ? r[k][0].x : e == 1 ? r[k][0].y : e == 2 ? r[k][0].z : r[k][0].w,
+                          e == 0 ? r[k][1].x : e == 1 ? r[k][1].y : e == 2 ? r[k][1].z : r[k][1].w,
+                          e == 0 ? r[k][2].x : e == 1 ? r[k][2].y : e == 2 ? r[k][2].z : r[k][2].w,
+                          e == 0 ? r[k][3].x : e == 1 ? r[k][3].y : e == 2 ? r[k][3].z : r[k][3].w};
+      const uint32_t off = base + swz<4>(d0 + ((e + rot) & 3), slot % 32);
+      const float4 b4 = make_float4(to_tf32(x[0]), to_tf32(x[1]), to_tf32(x[2]), to_tf32(x[3]));
+      *reinterpret_cast<float4*>(big + off) = b4;
+      *reinterpret_cast<float4*>(small + off) =
+          make_float4(x[0] - b4.x, x[1] - b4.y, x[2] - b4.z, x[3] - b4.w);
+    }
+  }
+}
+
+// Half h (keys 32 h .. 32 h + 31) of transpose_split's output for one
+// 64 x 64 tile: its 32 keys in one swizzle chunk (8 KB) of `big` and
+// `small`, the same order, blocks and rotation; 128 threads, one block each.
+__device__ __forceinline__ void transpose_half(unsigned char* __restrict__ big,
+                                               unsigned char* __restrict__ small,
+                                               const unsigned char* __restrict__ src, int h,
+                                               int t) {
+  const int u = t & 7, half = (t >> 3) & 1, grp = 4 * h + ((t >> 4) & 3), c = t >> 6;
+  const int d0 = c * 32 + 4 * u, rot = (u >> 1) & 3;
+  float4 r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4 v = *reinterpret_cast<const float4*>(src + c * kChunkBytes +
+                                                swz<4>(grp * 8 + half + 2 * i, 4 * u));
+    if (rot & 1) v = make_float4(v.y, v.z, v.w, v.x);
+    if (rot & 2) v = make_float4(v.z, v.w, v.x, v.y);
+    r[i] = v;
+  }
+  const int slot = (grp - 4 * h) * 8 + 4 * half;  // the first of the block's 4 slots
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float x[4] = {e == 0 ? r[0].x : e == 1 ? r[0].y : e == 2 ? r[0].z : r[0].w,
+                        e == 0 ? r[1].x : e == 1 ? r[1].y : e == 2 ? r[1].z : r[1].w,
+                        e == 0 ? r[2].x : e == 1 ? r[2].y : e == 2 ? r[2].z : r[2].w,
+                        e == 0 ? r[3].x : e == 1 ? r[3].y : e == 2 ? r[3].z : r[3].w};
+    const uint32_t off = swz<4>(d0 + ((e + rot) & 3), slot);
+    const float4 b4 = make_float4(to_tf32(x[0]), to_tf32(x[1]), to_tf32(x[2]), to_tf32(x[3]));
+    *reinterpret_cast<float4*>(big + off) = b4;
+    *reinterpret_cast<float4*>(small + off) =
+        make_float4(x[0] - b4.x, x[1] - b4.y, x[2] - b4.z, x[3] - b4.w);
+  }
+}
+
+// An f32 value v as three bf16 parts hi + mid + lo (each the bf16 rounding
+// of what the parts before it leave): 24 bits of v's mantissa, so that a
+// product of the parts with a bf16 input, summed in f32, keeps f32 accuracy.
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// the pairs (v0, v1) of four A-fragment registers as three bf16 parts,
+// two values a conversion
+__device__ __forceinline__ void split3(const float (&v)[8], uint32_t (&hi)[4], uint32_t (&mid)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const __nv_bfloat162 h2 = __floats2bfloat162_rn(v[2 * r], v[2 * r + 1]);
+    const float2 hf = __bfloat1622float2(h2);
+    const float r0 = v[2 * r] - hf.x, r1 = v[2 * r + 1] - hf.y;
+    const __nv_bfloat162 m2 = __floats2bfloat162_rn(r0, r1);
+    const float2 mf = __bfloat1622float2(m2);
+    hi[r] = bits(h2);
+    mid[r] = bits(m2);
+    lo[r] = bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+  }
+}
+
+// 2^x on the special-function unit
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T> __device__ __forceinline__ float ld_f32(const unsigned char* p);
+template <> __device__ __forceinline__ float ld_f32<float>(const unsigned char* p) {
+  return *reinterpret_cast<const float*>(p);
+}
+template <> __device__ __forceinline__ float ld_f32<__nv_bfloat16>(const unsigned char* p) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+// byte offset of element (row, col) of a 64 x 64 tile as TMA loads it
+template <typename T> __device__ __forceinline__ uint32_t tile_off(int row, int col) {
+  constexpr int CW = Hop<T>::CW;
+  return (col / CW) * kChunkBytes + swz<sizeof(T)>(row, col % CW);
+}
+
+// (1) The chunk states and the pass over the chunks. A block takes the
+// work item of its ticket: (chunk z, batch b, head group), chunk-major, so
+// that the item whose state it waits for has a smaller ticket and is
+// running. Per head (warpgroup w takes heads w, w + 2, ... of the group):
+// the chunk's cumsum of a (to `acs` for the output kernel), then
+//   s^T = X^T diag(exp(acs[-1] - acs)) B   (P x N, over the chunk's keys)
+// on wgmma with A = X^T dec from registers (the next key tile's A is
+// built while this one's product runs), then, a head behind (under the
+// next head's products), h_{z+1} = exp(acs[-1]) h_z + s once chunk z - 1
+// has written h_z (the flag of each thread's own values), written for
+// chunk z + 1 as h^T (to `states`, then the thread's flag, a release
+// store) or, for the last chunk, to h_out.
+// f32: B^T split big and small for the whole chunk once (shared by the
+// group's heads); three TF32 passes. bf16: B as loaded (MN-major operand);
+// A in three bf16 parts.
+
+
+// A fragments of one 64-key tile of a product: big and small TF32 halves
+// of k8 steps (f32), or three bf16 parts of k16 steps (bf16)
+template <typename T> struct AFrag;
+template <> struct AFrag<float> { uint32_t big[8][4], small[8][4]; };
+template <> struct AFrag<__nv_bfloat16> { uint32_t hi[4][4], mid[4][4], lo[4][4]; };
+
+template <typename T>
+__device__ __forceinline__ void fence_a(AFrag<T>& A) {
+  if constexpr (sizeof(T) == 4) {
+    fence_regs(A.big);
+    fence_regs(A.small);
+  } else {
+    fence_regs(A.hi);
+    fence_regs(A.mid);
+    fence_regs(A.lo);
+  }
+}
+
+// A = X^T dec of key tile X (rows p_lo, p_lo + 8 of the product). f32: k8
+// steps, k-slot t4 <-> key 2 t4, t4 + 4 <-> 2 t4 + 1 (B^T's order); bf16:
+// k16 steps, registers (row, keys 2 t4, + 1), (row + 8, ...), then keys + 8.
+template <typename T>
+__device__ __forceinline__ void state_a(AFrag<T>& A, const unsigned char* X, const float* dec,
+                                        int p_lo, int t4) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int j = kk * 8 + 2 * t4;
+      const float d0 = dec[j], d1 = dec[j + 1];
+      const float v[4] = {ld_f32<T>(X + tile_off<T>(j, p_lo)) * d0,
+                          ld_f32<T>(X + tile_off<T>(j, p_lo + 8)) * d0,
+                          ld_f32<T>(X + tile_off<T>(j + 1, p_lo)) * d1,
+                          ld_f32<T>(X + tile_off<T>(j + 1, p_lo + 8)) * d1};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float big = to_tf32(v[r]);
+        A.big[kk][r] = __float_as_uint(big);
+        A.small[kk][r] = __float_as_uint(v[r] - big);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int j = kk * 16 + 2 * t4;
+      float v[8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int jj = j + (r >> 1) * 8, p = p_lo + (r & 1) * 8;
+        v[2 * r] = ld_f32<T>(X + tile_off<T>(jj, p)) * dec[jj];
+        v[2 * r + 1] = ld_f32<T>(X + tile_off<T>(jj + 1, p)) * dec[jj + 1];
+      }
+      split3(v, A.hi[kk], A.mid[kk], A.lo[kk]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    ssd_state_tma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                  const HopArgs a) {
+  using K = Hop<T>;
+  constexpr bool BF16 = K::BF16;
+  __shared__ __align__(8) uint64_t bars[4 * kStages + 1];  // full[w][s], empty[w][s], B (bf16)
+  // per warpgroup, double-buffered by head: the decays, the warps' sums
+  __shared__ float dec_s[2][2][256], wsum[2][2][4];
+  __shared__ int item_s;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sB = (raw + 1023u) & ~1023u;
+  unsigned char* gB = smem_raw + (sB - raw);
+  const int Q = a.Q, nkt = Q / kT;
+  const uint32_t b_bytes = BF16 ? Q * 128 : Q * 256;  // B (bf16), or B^T big then small (f32)
+  const uint32_t sRing = sB + (BF16 ? b_bytes : 2 * b_bytes);
+  auto full = [&](int w, int s) { return smem_addr(&bars[w * kStages + s]); };
+  auto empty = [&](int w, int s) { return smem_addr(&bars[(2 + w) * kStages + s]); };
+  const uint32_t bbar = smem_addr(&bars[4 * kStages]);
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full(w, s), 1);
+        mbar_init(empty(w, s), 128);
+      }
+    }
+    mbar_init(bbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    item_s = atomicAdd(a.flags + int64_t(a.B) * a.H * a.Z * 128, 1);
+  }
+  __syncthreads();
+  const int item = item_s, per_z = a.B * a.n_groups;
+  const int z = item / per_z, b = item % per_z / a.n_groups, gi = item % a.n_groups;
+  const int h0 = gi * a.G, h1 = min(h0 + a.G, a.H), hb = a.shared_bc ? 0 : h0;
+  const int l0 = z * Q;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    // producer: warp w keeps ring w full (lane 0)
+    setmaxnreg_dec<40>();
+    const int w = (threadIdx.x - 256) / 32;
+    if (w < 2 && (threadIdx.x & 31) == 0) {
+      int n = 0;
+      auto push = [&](const CUtensorMap* map, int row, int head) {
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(empty(w, s), ((n / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(w, s), K::TILE);
+        load_tile<T>(sRing + (w * kStages + s) * K::TILE, map, full(w, s), row, head, b);
+        ++n;
+      };
+      if constexpr (BF16) {
+        if (w == 0) {
+          mbar_expect_tx(bbar, Q * 128);
+          for (int kt = 0; kt < nkt; ++kt) {
+            load_tile<T>(sB + kt * K::TILE, &tb, bbar, l0 + kt * kT, hb, b);
+          }
+        }
+      } else {
+        for (int kt = w; kt < nkt; kt += 2) push(&tb, l0 + kt * kT, hb);
+      }
+      for (int h = h0 + w; h < h1; h += 2) {
+        for (int kt = 0; kt < nkt; ++kt) push(&tx, l0 + kt * kT, h);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31, g = lane >> 2, t4 = lane & 3;
+  const int p_lo = warp * 16 + g;  // this thread's rows of s^T: p_lo, p_lo + 8
+  int n = 0;                       // this warpgroup's place in its ring
+  auto wait_full = [&]() {
+    const int s = n % kStages;
+    mbar_wait(full(wg, s), (n / kStages) & 1);
+    return smem_raw + (sRing + (wg * kStages + s) * K::TILE - raw);
+  };
+  auto release = [&]() {
+    mbar_arrive(empty(wg, n % kStages));
+    ++n;
+  };
+  // this thread's two steps of the chunk's a, loaded a head ahead
+  const int i0 = 2 * t;
+  auto load_a = [&](int h, float& v0, float& v1) {
+    const float* ap = a.a + b * a.a_sb + h * a.a_sh + int64_t(l0) * a.a_sl;
+    v0 = h < h1 && i0 < Q ? ap[i0 * a.a_sl] : 0.f;
+    v1 = h < h1 && i0 + 1 < Q ? ap[(i0 + 1) * a.a_sl] : 0.f;
+  };
+  float v0, v1;
+  load_a(h0 + wg, v0, v1);
+  if constexpr (BF16) {
+    mbar_wait(bbar, 0);
+  } else {
+    for (int kt = wg; kt < nkt; kt += 2) {  // B^T of the whole chunk, split once
+      transpose_split(gB, gB + b_bytes, wait_full(), kt * kT, t);
+      release();
+    }
+    fence_proxy_async();
+    named_barrier(1, 256);
+  }
+
+  // the pass over the chunks for head h's s (in v, acc's layout: v[4 j +
+  // e] at row p_lo + 8 (e / 2), column 8 j + 2 t4 + e % 2), done a head
+  // behind the products so that the wait for chunk z - 1 runs under them:
+  // h_{z+1} = el h_z + s, el = exp(acs[-1])
+  auto pass = [&](float (&v)[32], int h, float el) {
+    const int64_t bh = int64_t(b) * a.H + h;
+    float* st = a.states + bh * a.Z * (kT * kT);
+    // each thread waits for, and publishes, its own 32 values: the flag of
+    // (b h, z, thread t) follows chunk z's stores of them
+    int* flag = a.flags + (bh * a.Z + z) * 128 + t;
+    if (z > 0) {
+      while (ld_acquire(flag - 128) == 0) __nanosleep(20);
+      const float* hz = st + int64_t(z) * kT * kT;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 u = __ldcg(reinterpret_cast<const float2*>(
+              hz + (p_lo + 8 * r) * kT + 8 * j + 2 * t4));
+          v[4 * j + 2 * r] = fmaf(el, u.x, v[4 * j + 2 * r]);
+          v[4 * j + 2 * r + 1] = fmaf(el, u.y, v[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+    if (z + 1 < a.Z) {
+      float* hn = st + int64_t(z + 1) * kT * kT;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          __stcg(reinterpret_cast<float2*>(hn + (p_lo + 8 * r) * kT + 8 * j + 2 * t4),
+                 make_float2(v[4 * j + 2 * r], v[4 * j + 2 * r + 1]));
+        }
+      }
+      st_release(flag, 1);
+    } else if (a.h_out != nullptr) {
+      float* ho = a.h_out + bh * kT * kT;  // (N, P)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ho[(8 * j + 2 * t4 + (e & 1)) * kT + p_lo + 8 * (e >> 1)] = v[4 * j + e];
+        }
+      }
+    }
+  };
+
+  float prev[32], prev_el = 0.f;  // the last head's s, for its pass
+  for (int h = h0 + wg, hp = 0; h < h1; h += 2, hp ^= 1) {
+    const int64_t bh = int64_t(b) * a.H + h;
+    // the chunk's inclusive cumsum of a: two steps a thread, a shuffle scan
+    // in each warp, then the warps' totals (their sum is acs[-1])
+    float inc = v0 + v1;
+    const float u1 = v1;
+    load_a(h + 2, v0, v1);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += u;
+    }
+    if (lane == 31) wsum[wg][hp][warp] = inc;
+    named_barrier(2 + wg, 128);
+    float base = 0.f, last = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < warp) base += wsum[wg][hp][k];
+      last += wsum[wg][hp][k];
+    }
+    const float c1 = base + inc, c0 = c1 - u1;  // acs at i0 and i0 + 1
+    float* dec = dec_s[wg][hp];
+    if (i0 < Q) {
+      float* ag = a.acs + bh * a.Z * Q + l0 + i0;  // in log2 units, for the output kernel
+      ag[0] = c0 * kLog2e;
+      ag[1] = c1 * kLog2e;
+      dec[i0] = fast_exp(last - c0);
+      dec[i0 + 1] = fast_exp(last - c1);
+    }
+    named_barrier(2 + wg, 128);
+
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    AFrag<T> A, An;
+    state_a<T>(A, wait_full(), dec, p_lo, t4);
+    release();
+    for (int kt = 0; kt < nkt; ++kt) {
+      wgmma_fence();
+      if constexpr (BF16) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t d = desc_mnmajor(sB + (kt * 4 + kk) * 16 * 128, Q * 128);
+          wgmma_rs_bf16<64>(acc, A.lo[kk], d, 1);
+          wgmma_rs_bf16<64>(acc, A.mid[kk], d, 1);
+          wgmma_rs_bf16<64>(acc, A.hi[kk], d, 1);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int kq = kt * 8 + kk;
+          const uint32_t off = (kq / 4) * kChunkBytes + (kq % 4) * 32;
+          wgmma_rs_tf32<64>(acc, A.small[kk], desc_kmajor(sB + off), 1);
+          wgmma_rs_tf32<64>(acc, A.big[kk], desc_kmajor(sB + b_bytes + off), 1);
+          wgmma_rs_tf32<64>(acc, A.big[kk], desc_kmajor(sB + off), 1);
+        }
+      }
+      wgmma_commit();
+      if (kt + 1 < nkt) {  // the next tile's A while the products run
+        state_a<T>(An, wait_full(), dec + (kt + 1) * kT, p_lo, t4);
+        release();
+      } else if (h > h0 + wg) {  // the last head's pass while this head's products run
+        pass(prev, h - 2, prev_el);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_a<T>(A);
+      if (kt + 1 < nkt) A = An;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) prev[i] = acc[i];
+    prev_el = fast_exp(last);
+  }
+  if (h0 + wg < h1) pass(prev, h0 + wg + 2 * ((h1 - 1 - h0 - wg) / 2), prev_el);
+}
+
+// (2) The outputs. A block per (row tile of 64 chunk rows, b, z, head
+// group), the row tiles with the most keys first. The scores of the row
+// tile, S = C B^T over the key tiles up to its diagonal, are computed once
+// for the group's heads (the two warpgroups take alternate key tiles) and
+// kept in shared memory in the accumulators' order; then warpgroup w takes
+// heads w, w + 2, ...: y = exp(acs_i) (C h_z) + ((S o L) X), L_ij =
+// exp(acs_i - acs_j) for j <= i and exactly 0 above the diagonal, built in
+// registers from the stored scores as the A operand of the product with X
+// (the next key tile's while this one's product runs). Every operand comes
+// ahead of its use: B, X and h_z^T (the state kernel's output) by TMA
+// through the warpgroup's ring, each head's cumsum by cp.async one head
+// ahead. f32: C's fragments split big and small in registers, B and h^T
+// split in place (small into the warpgroup's scratch), X^T transposed and
+// split in halves of 32 keys (keys in the accumulators' order) into the
+// scratch's two buffers, each half's products running while the next half
+// is transposed and its A built; three TF32 passes. bf16: C B^T in one
+// pass; h^T in three bf16 parts; X as loaded (MN-major); S o L in three
+// bf16 parts.
+
+// C's A fragments for a k8 step ks (rows row, row + 8; columns 8 ks + t4,
+// + 4), split big and small
+__device__ __forceinline__ void c_frags(AFrag<float>& A, const unsigned char* C, int row, int t4) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const int n0 = ks * 8 + t4;
+    const float v[4] = {ld_f32<float>(C + tile_off<float>(row, n0)),
+                        ld_f32<float>(C + tile_off<float>(row + 8, n0)),
+                        ld_f32<float>(C + tile_off<float>(row, n0 + 4)),
+                        ld_f32<float>(C + tile_off<float>(row + 8, n0 + 4))};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float big = to_tf32(v[r]);
+      A.big[ks][r] = __float_as_uint(big);
+      A.small[ks][r] = __float_as_uint(v[r] - big);
+    }
+  }
+}
+
+// (S o L) of key tile k0 for rows i_lo, i_lo + 8 as the A fragments of
+// their product with X: s4 is this thread's slot of the score tile (8-column
+// group j at s4[32 j]), acs the chunk's cumsum in log2 units, a_lo and a_hi
+// its rows' values; only the diagonal tile (`diag`) has keys past a row,
+// masked to exactly 0. bf16: the accumulator order is the k16 A
+// fragment's; each value in three bf16 parts.
+__device__ __forceinline__ void out_a(AFrag<__nv_bfloat16>& A, const float4* s4,
+                                      const float* acs, int k0, bool diag, int i_lo, float a_lo,
+                                      float a_hi, int t4) {
+  float v[32];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 f = s4[32 * j];
+    const int j0 = k0 + 8 * j + 2 * t4;
+    const float2 aj = *reinterpret_cast<const float2*>(acs + j0);
+    v[4 * j] = f.x * fast_exp2(a_lo - aj.x);
+    v[4 * j + 1] = f.y * fast_exp2(a_lo - aj.y);
+    v[4 * j + 2] = f.z * fast_exp2(a_hi - aj.x);
+    v[4 * j + 3] = f.w * fast_exp2(a_hi - aj.y);
+    if (diag) {
+      v[4 * j] = j0 <= i_lo ? v[4 * j] : 0.f;
+      v[4 * j + 1] = j0 + 1 <= i_lo ? v[4 * j + 1] : 0.f;
+      v[4 * j + 2] = j0 <= i_lo + 8 ? v[4 * j + 2] : 0.f;
+      v[4 * j + 3] = j0 + 1 <= i_lo + 8 ? v[4 * j + 3] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float w8[8] = {v[8 * kk], v[8 * kk + 1], v[8 * kk + 2], v[8 * kk + 3],
+                         v[8 * kk + 4], v[8 * kk + 5], v[8 * kk + 6], v[8 * kk + 7]};
+    split3(w8, A.hi[kk], A.mid[kk], A.lo[kk]);
+  }
+}
+
+// The f32 counterpart for keys k0 + 32 i .. + 31 alone (k8 steps 4 i .. 4 i
+// + 3): step j takes the accumulator columns 2 t4, 2 t4 + 1 of group j as
+// k-slots t4, t4 + 4 (X^T's key order), each value split big and small.
+__device__ __forceinline__ void out_a_half(AFrag<float>& A, const float4* s4, const float* acs,
+                                           int k0, bool diag, int i, int i_lo, float a_lo,
+                                           float a_hi, int t4) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int j = 4 * i + jj;
+    const float4 f = s4[32 * j];
+    const int j0 = k0 + 8 * j + 2 * t4;
+    const float2 aj = *reinterpret_cast<const float2*>(acs + j0);
+    float x[4] = {f.x * fast_exp2(a_lo - aj.x), f.z * fast_exp2(a_hi - aj.x),
+                  f.y * fast_exp2(a_lo - aj.y), f.w * fast_exp2(a_hi - aj.y)};
+    if (diag) {
+      x[0] = j0 <= i_lo ? x[0] : 0.f;
+      x[1] = j0 <= i_lo + 8 ? x[1] : 0.f;
+      x[2] = j0 + 1 <= i_lo ? x[2] : 0.f;
+      x[3] = j0 + 1 <= i_lo + 8 ? x[3] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float big = to_tf32(x[r]);
+      A.big[j][r] = __float_as_uint(big);
+      A.small[j][r] = __float_as_uint(x[r] - big);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    ssd_out_tma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap th,
+                const HopArgs a) {
+  using K = Hop<T>;
+  constexpr bool BF16 = K::BF16;
+  __shared__ __align__(8) uint64_t bars[4 * kStages + 1];  // full[w][s], empty[w][s], C
+  __shared__ __align__(16) float acs_s[2][2][256];  // per warpgroup, double-buffered by head
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sC = (raw + 1023u) & ~1023u;
+  const int Q = a.Q, nkt = Q / kT;
+  const uint32_t sS = sC + K::TILE;
+  const uint32_t sRing = sS + nkt * kF32Tile;
+  const uint32_t sScr = sRing + 2 * kStages * kF32Tile;
+  auto gen = [&](uint32_t s) { return smem_raw + (s - raw); };
+  auto full = [&](int w, int s) { return smem_addr(&bars[w * kStages + s]); };
+  auto empty = [&](int w, int s) { return smem_addr(&bars[(2 + w) * kStages + s]); };
+  const uint32_t cbar = smem_addr(&bars[4 * kStages]);
+
+  const int per_rt = a.B * a.Z * a.n_groups;
+  const int rt = nkt - 1 - int(blockIdx.x) / per_rt, rest = int(blockIdx.x) % per_rt;
+  const int gi = rest % a.n_groups, z = rest / a.n_groups % a.Z, b = rest / (a.n_groups * a.Z);
+  const int h0 = gi * a.G, h1 = min(h0 + a.G, a.H), hb = a.shared_bc ? 0 : h0;
+  const int l0 = z * Q, r0 = rt * kT;
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full(w, s), 1);
+        mbar_init(empty(w, s), 128);
+      }
+    }
+    mbar_init(cbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    // producer: warp w keeps ring w full: its key tiles of B, then for each
+    // of its heads h_z^T (chunks after the first) and the X tiles
+    setmaxnreg_dec<40>();
+    const int w = (threadIdx.x - 256) / 32;
+    if (w < 2 && (threadIdx.x & 31) == 0) {
+      int n = 0;
+      auto stage = [&](uint32_t bytes) {
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(empty(w, s), ((n / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(w, s), bytes);
+        ++n;
+        return s;
+      };
+      auto ring = [&](int s) { return sRing + (w * kStages + s) * kF32Tile; };
+      if (w == 0) {
+        mbar_expect_tx(cbar, K::TILE);
+        load_tile<T>(sC, &tc, cbar, l0 + r0, hb, b);
+      }
+      for (int kt = w; kt <= rt; kt += 2) {
+        const int s = stage(K::TILE);
+        load_tile<T>(ring(s), &tb, full(w, s), l0 + kt * kT, hb, b);
+      }
+      for (int h = h0 + w; h < h1; h += 2) {
+        if (z > 0) {
+          const int s = stage(kF32Tile);
+          load_tile<float>(ring(s), &th, full(w, s), 0, z, b * a.H + h);
+        }
+        for (int kt = 0; kt <= rt; ++kt) {
+          const int s = stage(K::TILE);
+          load_tile<T>(ring(s), &tx, full(w, s), l0 + kt * kT, h, b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31, g = lane >> 2, t4 = lane & 3;
+  const uint32_t scr = sScr + wg * K::SCRATCH;
+  const int i_lo = r0 + warp * 16 + g;  // this thread's chunk rows: i_lo, i_lo + 8
+  int n = 0;                            // this warpgroup's place in its ring
+  auto wait_full = [&]() {
+    const int s = n % kStages;
+    mbar_wait(full(wg, s), (n / kStages) & 1);
+    return sRing + (wg * kStages + s) * kF32Tile;
+  };
+  auto release = [&]() {
+    mbar_arrive(empty(wg, n % kStages));
+    ++n;
+  };
+  // this thread's slot of score tile kt (8-column group j at + 32 j)
+  auto s_slot = [&](int kt) {
+    return reinterpret_cast<float4*>(gen(sS + kt * kF32Tile)) + warp * 8 * 32 + lane;
+  };
+  // K-major operand offset of k-step ks of a 64-row tile (8 f32 or 16 bf16 a step)
+  auto kstep = [](int ks) { return uint32_t((ks / 4) * kChunkBytes + (ks % 4) * 32); };
+  // the chunk's cumsum for head h into buffer `buf`, by cp.async
+  auto fetch_acs = [&](int h, int buf) {
+    if (t < Q / 4) {
+      cp_async16(acs_s[wg][buf] + 4 * t,
+                 a.acs + (int64_t(b) * a.H + h) * a.Z * Q + l0 + 4 * t, true);
+    }
+    cp_async_commit();
+  };
+  if (h0 + wg < h1) fetch_acs(h0 + wg, 0);
+
+  mbar_wait(cbar, 0);
+  for (int kt = wg; kt <= rt; kt += 2) {  // the scores, key tile kt
+    const uint32_t st = wait_full();
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    if constexpr (BF16) {
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma_ss_bf16<64>(s, desc_kmajor(sC + ks * 32), desc_kmajor(st + ks * 32), 1);
+      }
+    } else {
+      named_barrier(2 + wg, 128);  // the last product that read the scratch is done
+      split_tile(gen(st), gen(scr), t, 128);  // B big in place, small in the scratch
+      fence_proxy_async();
+      AFrag<float> cf;
+      c_frags(cf, gen(sC), warp * 16 + g, t4);
+      named_barrier(2 + wg, 128);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        wgmma_rs_tf32<64>(s, cf.small[ks], desc_kmajor(st + kstep(ks)), 1);
+        wgmma_rs_tf32<64>(s, cf.big[ks], desc_kmajor(scr + kstep(ks)), 1);
+        wgmma_rs_tf32<64>(s, cf.big[ks], desc_kmajor(st + kstep(ks)), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    release();
+    float4* slot = s_slot(kt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      slot[32 * j] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+    }
+  }
+  named_barrier(1, 256);  // every score tile is stored
+
+  for (int h = h0 + wg, hp = 0; h < h1; h += 2, hp ^= 1) {
+    named_barrier(2 + wg, 128);  // the last head is done with the scratch and the other buffer
+    if (h + 2 < h1) {
+      fetch_acs(h + 2, hp ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    named_barrier(2 + wg, 128);  // this head's cumsum has landed for every thread
+    const float* acs = acs_s[wg][hp];
+    const float a_lo = acs[i_lo], a_hi = acs[i_lo + 8];
+    float y[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] = 0.f;
+    if (z > 0) {
+      // carry-in: y = exp(acs_i) (C h_z), h_z^T as the K-major operand (rows
+      // p, columns n) as TMA loaded it
+      const uint32_t st = wait_full();
+      if constexpr (BF16) {
+        unsigned char* hs = gen(st);
+        unsigned char* sc = gen(scr);
+        for (int e = t; e < kT * kT / 8; e += 128) {
+          const int p = e >> 3, n8 = (e & 7) * 8;
+          const float4 u0 = *reinterpret_cast<const float4*>(hs + tile_off<float>(p, n8));
+          const float4 u1 = *reinterpret_cast<const float4*>(hs + tile_off<float>(p, n8 + 4));
+          const float v[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+          uint32_t hi[4], mid[4], lo[4];
+          split3(v, hi, mid, lo);
+          uint4* dst = reinterpret_cast<uint4*>(sc + swz<2>(p, n8));
+          dst[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          dst[K::TILE / 16] = make_uint4(mid[0], mid[1], mid[2], mid[3]);
+          dst[2 * K::TILE / 16] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
+        fence_proxy_async();
+        named_barrier(2 + wg, 128);
+        release();
+        wgmma_fence();
+#pragma unroll
+        for (int part = 2; part >= 0; --part) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            wgmma_ss_bf16<64>(y, desc_kmajor(sC + ks * 32),
+                              desc_kmajor(scr + part * K::TILE + ks * 32), 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(y);
+      } else {
+        split_tile(gen(st), gen(scr), t, 128);  // h big in place, small in the scratch
+        fence_proxy_async();
+        AFrag<float> cf;
+        c_frags(cf, gen(sC), warp * 16 + g, t4);
+        named_barrier(2 + wg, 128);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          wgmma_rs_tf32<64>(y, cf.small[ks], desc_kmajor(st + kstep(ks)), 1);
+          wgmma_rs_tf32<64>(y, cf.big[ks], desc_kmajor(scr + kstep(ks)), 1);
+          wgmma_rs_tf32<64>(y, cf.big[ks], desc_kmajor(st + kstep(ks)), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(y);
+        fence_a<float>(cf);
+        release();
+      }
+      const float e_lo = fast_exp2(a_lo), e_hi = fast_exp2(a_hi);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[4 * j] *= e_lo;
+        y[4 * j + 1] *= e_lo;
+        y[4 * j + 2] *= e_hi;
+        y[4 * j + 3] *= e_hi;
+      }
+    }
+    // the intra-chunk term over key tiles 0..rt
+    if constexpr (BF16) {
+      AFrag<T> A, An;
+      out_a(A, s_slot(0), acs, 0, rt == 0, i_lo, a_lo, a_hi, t4);
+      for (int kt = 0; kt <= rt; ++kt) {
+        const uint32_t st = wait_full();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t d = desc_mnmajor(st + kk * 16 * 128, kChunkBytes);
+          wgmma_rs_bf16<64>(y, A.lo[kk], d, 1);
+          wgmma_rs_bf16<64>(y, A.mid[kk], d, 1);
+          wgmma_rs_bf16<64>(y, A.hi[kk], d, 1);
+        }
+        wgmma_commit();
+        if (kt < rt) {  // the next tile's A while the products run
+          out_a(An, s_slot(kt + 1), acs, (kt + 1) * kT, kt + 1 == rt, i_lo, a_lo, a_hi,
+                   t4);
+        }
+        wgmma_wait<0>();
+        fence_regs(y);
+        fence_a<T>(A);
+        release();
+        if (kt < rt) A = An;
+      }
+    } else {
+      // X^T in halves of 32 keys, double-buffered in the scratch (buffer i
+      // at scr + i 16 KB: big, then small 8 KB on): each half's products run
+      // while the other half of A is built and the next half transposed.
+      auto half_buf = [&](int i) { return scr + i * kF32Tile; };
+      auto transpose = [&](uint32_t raw_tile, int i) {  // half i of a raw tile into buffer i
+        named_barrier(2 + wg, 128);                      // its last reader is done
+        transpose_half(gen(half_buf(i)), gen(half_buf(i) + kF32Tile / 2), gen(raw_tile), i, t);
+        fence_proxy_async();
+        named_barrier(2 + wg, 128);
+      };
+      AFrag<float> A;
+      auto products = [&](int i) {  // k8 steps 4 i .. 4 i + 3
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t off = j * 32;
+          wgmma_rs_tf32<64>(y, A.small[4 * i + j], desc_kmajor(half_buf(i) + off), 1);
+          wgmma_rs_tf32<64>(y, A.big[4 * i + j],
+                            desc_kmajor(half_buf(i) + kF32Tile / 2 + off), 1);
+          wgmma_rs_tf32<64>(y, A.big[4 * i + j], desc_kmajor(half_buf(i) + off), 1);
+        }
+        wgmma_commit();
+      };
+      auto build = [&](int kt, int i) {  // A's half i for tile kt
+        out_a_half(A, s_slot(kt), acs, kt * kT, kt == rt, i, i_lo, a_lo, a_hi, t4);
+      };
+      build(0, 0);
+      uint32_t st = wait_full();
+      transpose(st, 0);
+      for (int kt = 0; kt <= rt; ++kt) {
+        products(0);
+        wgmma_wait<1>();  // the last half 1 is done: buffer 1 and A's half 1 are free
+        fence_a<float>(A);
+        build(kt, 1);
+        transpose(st, 1);
+        release();
+        products(1);
+        if (kt < rt) {
+          st = wait_full();
+          wgmma_wait<1>();  // half 0 is done: buffer 0 and A's half 0 are free
+          fence_a<float>(A);
+          build(kt + 1, 0);
+          transpose(st, 0);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(y);
+      fence_a<float>(A);
+    }
+    // y rows i_lo, i_lo + 8: columns 8 j + 2 t4, + 1
+    T* yp = static_cast<T*>(a.y) + b * a.y_sb + h * a.y_sh + int64_t(l0) * a.y_sl;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      T* yrow = yp + int64_t(i_lo + 8 * r) * a.y_sl + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x0 = y[4 * j + 2 * r], x1 = y[4 * j + 2 * r + 1];
+        if constexpr (BF16) {
+          *reinterpret_cast<__nv_bfloat162*>(yrow + 8 * j) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          *reinterpret_cast<float2*>(yrow + 8 * j) = make_float2(x0, x1);
+        }
+      }
+    }
+  }
+}
+
+// The Hopper route's launches on `stream`: a memset of the flags and the
+// ticket, the state kernel, the output kernel.
+template <typename T>
+int launch_hopper(const void* x, const void* b, const void* c, const int64_t (&xs)[3],
+                  const int64_t (&bs)[3], const int64_t (&cs)[3], HopArgs a, int L,
+                  cudaStream_t stream) {
+  constexpr bool BF16 = Hop<T>::BF16;
+  static bool state_opted[kMaxDevices] = {}, out_opted[kMaxDevices] = {};
+  // opted in at the largest chunk's size (the kernels' static shared memory comes on top)
+  int rc = opt_in_smem(reinterpret_cast<const void*>(ssd_state_tma<T>),
+                       Hop<T>::state_smem(4 * kT), state_opted);
+  if (rc == 0) {
+    rc = opt_in_smem(reinterpret_cast<const void*>(ssd_out_tma<T>), Hop<T>::out_smem(4 * kT),
+                     out_opted);
+  }
+  if (rc != 0) return rc;
+  // (P, L, H, B) for x; (N, L, heads, B) for b and c, one head when shared
+  const int hbc = a.shared_bc ? 1 : a.H;
+  // and the states h_z^T (P x N f32 tiles) as (N, P, Z, B H)
+  CUtensorMap tx, tb, tc, th;
+  if ((rc = cached_map(&tx, x, BF16, kT, L, a.H, a.B, xs[2], xs[1], xs[0], kT)) != 0 ||
+      (rc = cached_map(&tb, b, BF16, kT, L, hbc, a.B, bs[2], bs[1], bs[0], kT)) != 0 ||
+      (rc = cached_map(&tc, c, BF16, kT, L, hbc, a.B, cs[2], cs[1], cs[0], kT)) != 0 ||
+      (rc = cached_map(&th, a.states, false, kT, kT, a.Z, a.B * a.H, kT, kT * kT,
+                       int64_t(a.Z) * kT * kT, kT)) != 0) {
+    return rc;
+  }
+  const int64_t items = int64_t(a.B) * a.Z * a.n_groups;
+  const cudaError_t err =
+      cudaMemsetAsync(a.flags, 0, (int64_t(a.B) * a.H * a.Z * 128 + 1) * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_state_tma<T><<<static_cast<unsigned>(items), kHopThreads, Hop<T>::state_smem(a.Q), stream>>>(
+      tx, tb, a);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  ssd_out_tma<T><<<static_cast<unsigned>(items * (a.Q / kT)), kHopThreads, Hop<T>::out_smem(a.Q),
+                   stream>>>(tx, tb, tc, th, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of shared memory the largest of the three product kernels takes for
-// state N, head P, chunk Q.
+// Bytes of shared memory the largest of the mma.sync route's product kernels
+// takes for state N, head P, chunk Q.
 long long ssd_scan_smem_bytes(int N, int P, int Q) {
   const int NP = round_up(N, 8), PT = p_tile(P);
   int64_t f = smem_scores_floats(NP);
@@ -900,47 +1875,90 @@ long long ssd_scan_smem_bytes(int N, int P, int Q) {
   return f * static_cast<long long>(sizeof(float));
 }
 
-// 1 if the kernels take state N, head P and chunk Q (P at most 128, the
-// tiles and the chunk's cumsum within a block's shared memory), else 0.
+// 1 if the mma.sync route takes state N, head P and chunk Q (P at most 128,
+// the tiles and the chunk's cumsum within a block's shared memory), else 0.
 int ssd_scan_fits(int N, int P, int Q) {
   return N > 0 && P > 0 && Q > 0 && P <= kMaxP && ssd_scan_smem_bytes(N, P, Q) <= kMaxSmem;
+}
+
+// Bytes of the scratch a call takes (f32 throughout, 16-byte aligned
+// parts). path 3 (Hopper): the chunks' cumsums (B, H, L), the states
+// entering the chunks (B, H, L / Q, P, N), then (B, H, L / Q, 128) + 1 ints
+// (the flags of the pass over the chunks, one per thread of a warpgroup,
+// and the state kernel's ticket). Paths
+// 0-2: the chunk scores ((B, L / Q, Q, Q) when shared_bc, else (B, H, L / Q,
+// Q, Q)), the chunk states (B, H, L / Q, N, P), each chunk's total log-decay
+// (B, H, L / Q).
+long long ssd_scan_scratch_bytes(int B, int H, int L, int N, int P, int Q, int shared_bc,
+                                 int path) {
+  const int64_t Z = L / Q, BHZ = int64_t(B) * H * Z;
+  if (path == 3) return 4 * (round_up4(int64_t(B) * H * L) + BHZ * kT * kT + BHZ * 128 + 1);
+  const int64_t scores = int64_t(B) * (shared_bc ? 1 : H) * Z * Q * Q;
+  return 4 * (round_up4(scores) + BHZ * N * P + BHZ);
 }
 
 // x (B, H, L, P), a (B, H, L) float32, b and c (B, H, L, N), y (B, H, L, P),
 // each given by its base pointer and element strides of batch, head and
 // sequence (x, b, c and y with the last axis contiguous); x, b, c, y share
 // dtype 0 = float32 or 1 = bfloat16. L % Q == 0; P <= 128. h_out: (B, H, N,
-// P) float32 contiguous, or null. Scratch, float32 contiguous: states
-// (B, H, L / Q, N, P), dlast (B, H, L / Q), scores (B, L / Q, Q, Q) when
-// shared_bc (b and c the same for every head: H == 1 or head strides 0),
-// else (B, H, L / Q, Q, Q). path: 0 chooses by size (ssd_scan_seq where it
-// fits and B * H fills two blocks per SM, else the chunk-parallel kernels),
-// 1 the chunk-parallel kernels, 2 ssd_scan_seq (Q and N at most 64).
+// P) float32 contiguous, or null. scratch: ssd_scan_scratch_bytes(...) bytes,
+// 16-byte aligned. shared_bc: b and c the same for every head (H == 1 or
+// head strides 0). path: 0 chooses between the mma.sync kernels by size
+// (ssd_scan_seq where it fits and B * H fills two blocks per SM, else the
+// chunk-parallel ones), 1 the chunk-parallel kernels, 2 ssd_scan_seq (Q and
+// N at most 64), 3 the Hopper route (N = P = 64, Q a multiple of 64 up to
+// 256; x, b and c readable by TMA: rows 16-byte aligned, strides of axes
+// longer than 1 nonzero multiples of 16 bytes, b's and c's head axis left
+// out when shared) with head_group heads a block (1 unless shared_bc).
 int ssd_scan_launch(const void* x, const void* a, const void* b, const void* c, void* y,
-                    void* h_out, void* states, void* dlast, void* scores, long long x_sb,
-                    long long x_sh, long long x_sl, long long a_sb, long long a_sh,
-                    long long a_sl, long long b_sb, long long b_sh, long long b_sl,
-                    long long c_sb, long long c_sh, long long c_sl, long long y_sb,
-                    long long y_sh, long long y_sl, int B, int H, int L, int P, int N, int Q,
-                    int shared_bc, int dtype, int path, void* stream) {
+                    void* h_out, void* scratch, long long x_sb, long long x_sh, long long x_sl,
+                    long long a_sb, long long a_sh, long long a_sl, long long b_sb,
+                    long long b_sh, long long b_sl, long long c_sb, long long c_sh,
+                    long long c_sl, long long y_sb, long long y_sh, long long y_sl, int B, int H,
+                    int L, int P, int N, int Q, int shared_bc, int dtype, int path,
+                    int head_group, void* stream) {
   const int64_t BH = int64_t(B) * H;
-  if (B <= 0 || H <= 0 || L <= 0 || !ssd_scan_fits(N, P, Q) || L % Q != 0 ||
-      BH * (L / Q) > 0x7fffffff || (Q + BR - 1) / BR > 65535 ||
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || H <= 0 || L <= 0 || Q <= 0 || L % Q != 0 || path < 0 || path > 3 ||
+      dtype < 0 || dtype > 1 || (shared_bc && H > 1 && (b_sh != 0 || c_sh != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool f32 = dtype == 0;
+  if (path == 3) {
+    const int G = !shared_bc || head_group < 1 ? 1 : head_group < H ? head_group : H;
+    if (N != kT || P != kT || Q % kT != 0 || Q > 4 * kT || BH * (L / Q) * (Q / kT) > 0x7fffffff ||
+        reinterpret_cast<uintptr_t>(y) % (f32 ? 8 : 4) != 0 || y_sb % 2 != 0 || y_sh % 2 != 0 ||
+        y_sl % 2 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    float* acs = static_cast<float*>(scratch);
+    float* states = acs + round_up4(BH * L);
+    HopArgs args{static_cast<const float*>(a), y, static_cast<float*>(h_out), states, acs,
+                 reinterpret_cast<int*>(states + BH * (L / Q) * kT * kT),
+                 a_sb, a_sh, a_sl, y_sb, y_sh, y_sl, B, H, L / Q, Q, G, (H + G - 1) / G,
+                 shared_bc != 0};
+    const int64_t xs[3] = {x_sb, x_sh, x_sl}, bs[3] = {b_sb, b_sh, b_sl},
+                  cs[3] = {c_sb, c_sh, c_sl};
+    return f32 ? launch_hopper<float>(x, b, c, xs, bs, cs, args, L, s)
+               : launch_hopper<__nv_bfloat16>(x, b, c, xs, bs, cs, args, L, s);
+  }
+  if (!ssd_scan_fits(N, P, Q) || BH * (L / Q) > 0x7fffffff || (Q + BR - 1) / BR > 65535 ||
       (int64_t(N) * P + kThreads * kPassItems - 1) / (kThreads * kPassItems) > 65535 ||
-      (shared_bc && H > 1 && (b_sh != 0 || c_sh != 0)) || path < 0 || path > 2 ||
       (path == 2 && !seq_fits(round_up(N, 8), Q))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   bool seq = path == 2;
   if (path == 0 && seq_fits(round_up(N, 8), Q)) {
     int sms = 0;
-    if (int rc = sm_count(&sms)) return rc;
+    if (int rc = sm_count(sms)) return rc;
     seq = BH >= 2 * int64_t(sms);
   }
-  const bool f32 = dtype == 0;
-  Args args{x, static_cast<const float*>(a), b, c, y, static_cast<float*>(h_out),
-            static_cast<float*>(states), static_cast<float*>(dlast),
-            static_cast<float*>(scores),
+  const int64_t Z = L / Q;
+  float* scores = static_cast<float*>(scratch);
+  float* states = scores + round_up4(int64_t(B) * (shared_bc ? 1 : H) * Z * Q * Q);
+  float* dlast = states + BH * Z * N * P;
+  Args args{x, static_cast<const float*>(a), b, c, y, static_cast<float*>(h_out), states, dlast,
+            scores,
             x_sb, x_sh, x_sl, a_sb, a_sh, a_sl, b_sb, b_sh, b_sl, c_sb, c_sh, c_sl,
             y_sb, y_sh, y_sl, H, L, P, N, Q, L / Q, round_up(N, 8), shared_bc != 0,
             f32 && rows_aligned(x, x_sb, x_sh, x_sl, P),
@@ -949,12 +1967,7 @@ int ssd_scan_launch(const void* x, const void* a, const void* b, const void* c, 
             rows_aligned(states, 0, 0, P, P), rows_aligned(scores, 0, 0, Q, Q),
             P % 2 == 0 && y_sb % 2 == 0 && y_sh % 2 == 0 && y_sl % 2 == 0 &&
                 reinterpret_cast<uintptr_t>(y) % (f32 ? 8 : 4) == 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch<float>(args, BH, seq, s);
-    case 1: return launch<__nv_bfloat16>(args, BH, seq, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return f32 ? launch<float>(args, BH, seq, s) : launch<__nv_bfloat16>(args, BH, seq, s);
 }
 
 const char* ssd_scan_error_string(int code) {

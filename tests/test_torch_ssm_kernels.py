@@ -13,6 +13,8 @@ run only on a card (marker ``cuda``):
 
     python -m pytest -q -m cuda tests/test_torch_ssm_kernels.py tests/test_torch_hybrid.py
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -210,7 +212,7 @@ def test_ssd_scan_validation(shapes, err):
         ssd_scan(x, a, b, c, chunk=4)
 
 
-@pytest.mark.parametrize("path", ["auto", "chunks", "seq"])
+@pytest.mark.parametrize("path", ["auto", "chunks", "seq", "hopper"])
 def test_ssd_scan_cpu_takes_the_plain_version_on_every_path(path):
     """``path`` picks among the CUDA kernels; a CPU tensor takes the plain
     version whichever is asked for."""
@@ -221,6 +223,109 @@ def test_ssd_scan_cpu_takes_the_plain_version_on_every_path(path):
     torch.testing.assert_close(y, want, rtol=0, atol=0)
     torch.testing.assert_close(h, want_h, rtol=0, atol=0)
     assert LAUNCHES["ssd_scan"] == 0
+
+
+def _shared_view(B, H, L, N, dtype=torch.float32):
+    """b or c as Mamba2 passes them: one (B, L, N) group as a stride-0 head view."""
+    return torch.zeros(B, L, N, dtype=dtype)[:, None].expand(B, H, L, N)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("mamba2", True),              # zamba2-7b's scan: N = P = 64, chunk 256, shared b, c
+    ("chunk64", True), ("chunk128", True), ("chunk192", True),
+    ("chunk32", False),            # chunks are whole 64-row tiles
+    ("chunk320", False),           # up to 256 steps (the scores of a row tile in shared memory)
+    ("n32", False), ("p128", False),
+    ("bf16", True), ("f16", False),
+    ("x_transposed", True),        # the model's (B, L, H, P) memory viewed as (B, H, L, P)
+    ("x_rows_off_16_bytes", False),
+    ("x_base_off_16_bytes", False),
+    ("bc_per_head", True),
+    ("bc_stride0_not_shared", False),
+    ("bc_projection_slice", True),  # Mamba2's B: a column slice of the conv's output
+])
+def test_ssd_scan_hopper_route_rule(case, want):
+    """``hopper_takes``, the size rule that sends a call to the TMA/wgmma
+    route under ``path="auto"``: Mamba2's widths, whole 64-step tiles up to
+    256, f32 or bf16, views TMA can read (b and c's head axis left out when
+    they are one group)."""
+    from repro_torch.kernels.ssd_scan import hopper_takes
+
+    B, H, L, P, N, chunk, shared = 1, 4, 512, 64, 64, 256, True
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16}.get(case, torch.float32)
+    if case.startswith("chunk"):
+        chunk = int(case[5:])
+    N = 32 if case == "n32" else N
+    P = 128 if case == "p128" else P
+    x = torch.zeros(B, H, L, P, dtype=dtype)
+    if case == "x_transposed":
+        x = torch.zeros(B, L, H, P).transpose(1, 2)
+    elif case == "x_rows_off_16_bytes":
+        x = torch.zeros(B, H, L, P + 2)[..., :P]
+    elif case == "x_base_off_16_bytes":
+        x = torch.zeros(B * H * L * P + 1)[1:].view(B, H, L, P)
+    b = c = _shared_view(B, H, L, N, dtype)
+    if case == "bc_per_head":
+        b = c = torch.zeros(B, H, L, N)
+        shared = False
+    elif case == "bc_stride0_not_shared":
+        shared = False
+    elif case == "bc_projection_slice":
+        xbc = torch.zeros(B, L, 4 * 64 + 2 * N)
+        b = xbc[..., 256:256 + N][:, None].expand(B, H, L, N)
+        c = xbc[..., 256 + N:][:, None].expand(B, H, L, N)
+    assert hopper_takes(x, b, c, chunk, shared) is want
+
+
+@pytest.mark.parametrize("dtype,B,H,chunk,want", [
+    ("float32", 1, 112, 256, True),       # zamba2-7b's loss
+    ("bfloat16", 1, 112, 256, True),
+    ("float32", 8, 112, 64, True),        # its serve prefill
+    ("bfloat16", 8, 112, 64, True),
+    ("float32", 8, 112, 32, False),       # no whole 64-row tile
+])
+def test_ssd_scan_hopper_rule_at_mamba2_shapes(dtype, B, H, chunk, want):
+    """zamba2-7b's scans take the Hopper route in both dtypes, with 16
+    heads a block at chunks of 64 and 4 at longer ones; the rule is
+    remembered by shapes and strides, the bases' alignment checked each
+    call."""
+    from repro_torch.kernels.ssd_scan import head_group, hopper_takes
+
+    dt = _TORCH[dtype]
+    x = torch.zeros(B, 512, H, 64, dtype=dt).transpose(1, 2)
+    bc = _shared_view(B, H, 512, 64, dt)
+    assert hopper_takes(x, bc, bc, chunk, True) is want
+    assert head_group(chunk) == (16 if chunk <= 64 else 4)
+    off = torch.zeros(B * 512 * H * 64 + 1, dtype=dt)[1:].view(B, 512, H, 64).transpose(1, 2)
+    assert not hopper_takes(off, bc, bc, chunk, True)
+
+
+@pytest.mark.parametrize("shape,strides,offset,skip_head,want", [
+    ((2, 3, 8, 64), None, 0, False, True),
+    ((2, 3, 8, 64), (1536, 64, 192, 1), 0, False, True),      # a transposed (B, L, H, P) view
+    ((2, 3, 8, 64), (1536, 0, 64, 1), 0, False, False),       # stride-0 heads
+    ((2, 3, 8, 64), (1536, 0, 64, 1), 0, True, True),         # ... left out of the map
+    ((2, 3, 8, 6), None, 0, False, False),                    # 24-byte rows
+    ((2, 3, 8, 64), None, 2, False, False),                   # base off 16 bytes
+    ((1, 1, 8, 64), (7, 5, 64, 1), 0, False, True),           # axes of length 1 never move
+    ((2, 3, 8, 64), (1536, 512, 64, 2), 0, False, False),     # the last axis strided
+])
+def test_ssd_scan_tma_readable(shape, strides, offset, skip_head, want):
+    """What a TMA tensor map of the Hopper route reads in place: the last
+    axis contiguous, the base on 16 bytes, every other axis longer than 1 a
+    nonzero multiple of 16 bytes (the head axis left out for b and c shared
+    by the heads). Held through ``hopper_takes`` with x as the view."""
+    from repro_torch.kernels.ssd_scan import hopper_takes
+
+    base = torch.zeros(4096 + offset)
+    x = (base[offset:offset + int(np.prod(shape))].view(shape) if strides is None
+         else base.as_strided(shape, strides, offset))
+    if skip_head:                       # the view as b and c, one group over the heads
+        ok = torch.zeros(2, 3, 8, 64)
+        assert hopper_takes(ok, x, x, 64, True) is want
+        return
+    bc = _shared_view(shape[0], shape[1], shape[2], 64)
+    assert hopper_takes(x, bc, bc, 64, True) is (want and shape[-1] == 64)
 
 
 # ------------------------------------------------------------- on the card
@@ -379,12 +484,13 @@ def test_ssd_scan_cuda_tile_edges(cuda_device, B, H, L, P, N, chunk, dtype):
 ])
 @pytest.mark.parametrize("shared_bc", [True, False])
 def test_ssd_scan_cuda_many_heads(cuda_device, B, H, L, P, N, chunk, shared_bc):
-    """At least two (batch, head) pairs per SM: chunks and states of at
-    most 64 take the kernel that walks each pair's chunks in one block (the
-    state kept in shared memory), two device launches beside the tail's
-    padding, as a CUDA graph of the call counts them; the chunk-parallel
-    kernels (four launches) agree when forced. B and C per head or one
-    shared group."""
+    """At least two (batch, head) pairs per SM, B and C per head or one
+    shared group: two device launches beside the tail's padding, as a CUDA
+    graph of the call counts them: Mamba2's widths (N = P = 64, a whole
+    64-step chunk) take the Hopper route's two kernels, other chunks and
+    states of at most 64 the kernel that walks each pair's chunks in one
+    block (the state kept in shared memory); the chunk-parallel mma.sync
+    kernels (four launches) agree when forced."""
     from repro_torch.kernels import device_launches
     from repro_torch.kernels.ssd_scan import _pad_seq
 
@@ -439,6 +545,138 @@ def test_ssd_scan_cuda_sequential_path_tile_edges(cuda_device, B, H, L, P, N, ch
     with pytest.raises(RuntimeError, match="launch failed"):
         ssd_scan(zx, torch.zeros(1, 1, 128, device=cuda_device), zbc, zbc, chunk=128,
                  path="seq")
+
+
+def _hopper_kernels(fn) -> list:
+    """The device kernels one call enqueues, by name."""
+    from repro_torch.kernels import graph_kernels
+
+    return graph_kernels(fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,chunk,shared,head_group", [
+    (1, 112, 256, 256, True, 8),     # one chunk (Z = 1) of zamba2's loss chunk, all 112 heads
+    (1, 112, 512, 128, True, 6),     # a head group that does not divide 112 (19 groups, last of 4)
+    (2, 112, 256, 64, True, 16),     # the serve prefill's chunk
+    (1, 3, 384, 192, True, 8),       # 192-step chunks; a group wider than H
+    (2, 5, 1024, 64, True, 3),       # 16 chunks: the pass over the chunks walks them in order
+    (1, 6, 512, 256, False, 8),      # b and c per head: a head a block
+    (2, 4, 256, 128, False, 8),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_cuda_hopper_route(cuda_device, monkeypatch, B, H, L, chunk, shared,
+                                    head_group, dtype):
+    """The TMA/wgmma route forced through ``path``, y and the final state
+    against ``ref_ssd``, with b and c one group (stride-0 head views) or
+    per head; ``head_group`` heads a block share the chunk's scores."""
+    mod = sys.modules["repro_torch.kernels.ssd_scan"]
+
+    monkeypatch.setattr(mod, "head_group", lambda chunk: head_group)
+    P = N = 64
+    x, a, b, c = _ssd_inputs(B, H, L, P, N, seed=170 + L + H, shared_bc=shared)
+    xt = _to_torch(x, dtype).to(cuda_device)
+    if shared:
+        bt, ct = (_to_torch(np.ascontiguousarray(t[:, :1]), dtype).to(cuda_device)
+                  .expand(B, H, L, N) for t in (b, c))
+    else:
+        bt, ct = (_to_torch(t, dtype).to(cuda_device) for t in (b, c))
+    at = torch.from_numpy(a).to(cuda_device)
+    reset_launches()
+    got, h = ssd_scan(xt, at, bt, ct, chunk=chunk, return_state=True, path="hopper")
+    want, want_h = ref_ssd(xt, at, bt.contiguous(), ct.contiguous(), return_state=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 1
+    assert got.dtype == _TORCH[dtype] and got.shape == (B, H, L, P) and h.shape == (B, H, N, P)
+    tol = SSD_TOL if dtype == "float32" else dict(atol=5e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(h, want_h, **SSD_TOL)
+    assert torch.equal(ssd_scan(xt, at, bt, ct, chunk=chunk, path="auto"), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_cuda_hopper_reads_mamba2_views(cuda_device, dtype):
+    """Mamba2's call as the model makes it: x a transposed (B, L, H, P)
+    view, B and C column slices of the conv's output (B, L, 2 d + 2 N)
+    viewed over the heads with stride 0. ``auto`` takes the Hopper route
+    (two device kernels, no copy of any input), y takes x's layout."""
+    B, L, H, P, N, chunk = 2, 512, 6, 64, 64, 256
+    dt = _TORCH[dtype]
+    xm = _to_torch(_normal((B, L, H, P), 180, 0.5), dtype).to(cuda_device)
+    am = -torch.nn.functional.softplus(torch.from_numpy(_normal((B, L, H), 181))).to(cuda_device)
+    xbc = _to_torch(_normal((B, L, H * P + 2 * N), 182, 0.3), dtype).to(cuda_device)
+    bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    args = (xm.transpose(1, 2), am.transpose(1, 2), bm[:, None].expand(B, H, L, N),
+            cm[:, None].expand(B, H, L, N))
+    got, h = ssd_scan(*args, chunk=chunk, return_state=True)
+    want, want_h = ref_ssd(*(t.contiguous() for t in args), return_state=True)
+    assert got.dtype == dt and got.transpose(1, 2).is_contiguous()
+    tol = SSD_TOL if dtype == "float32" else dict(atol=5e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(h, want_h, **SSD_TOL)
+    names = _hopper_kernels(lambda: ssd_scan(*args, chunk=chunk, return_state=True))
+    assert len(names) == 2 and all("tma" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_cuda_every_route_agrees(cuda_device, dtype):
+    """At a Mamba2 shape every route forced through ``path`` agrees with
+    ``ref_ssd``: ``auto`` and ``hopper`` (two device kernels), ``chunks``
+    (four) and ``seq`` (two)."""
+    B, H, L, P, N, chunk = 2, 8, 256, 64, 64, 64
+    x, a, b, c = _ssd_inputs(B, H, L, P, N, seed=190, shared_bc=True)
+    xt = _to_torch(x, dtype).to(cuda_device)
+    bt, ct = (_to_torch(np.ascontiguousarray(t[:, :1]), dtype).to(cuda_device)
+              .expand(B, H, L, N) for t in (b, c))
+    at = torch.from_numpy(a).to(cuda_device)
+    want, want_h = ref_ssd(xt, at, bt.contiguous(), ct.contiguous(), return_state=True)
+    tol = SSD_TOL if dtype == "float32" else dict(atol=5e-2, rtol=1e-2)
+    kernels = {}
+    for path in ("auto", "hopper", "chunks", "seq"):
+        got, h = ssd_scan(xt, at, bt, ct, chunk=chunk, return_state=True, path=path)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        torch.testing.assert_close(h, want_h, **SSD_TOL)
+        kernels[path] = _hopper_kernels(
+            lambda: ssd_scan(xt, at, bt, ct, chunk=chunk, return_state=True, path=path))
+    assert kernels["auto"] == kernels["hopper"] and len(kernels["hopper"]) == 2
+    assert len(kernels["chunks"]) == 4 and len(kernels["seq"]) == 2
+    assert not any("tma" in n for n in kernels["chunks"] + kernels["seq"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,P,N,chunk", [
+    (1, 2, 256, 64, 32, 64),     # N off Mamba2's 64
+    (1, 2, 256, 32, 64, 64),     # P off 64
+    (1, 2, 256, 64, 64, 32),     # a chunk that is no whole 64-row tile
+])
+def test_ssd_scan_cuda_hopper_refuses_other_shapes(cuda_device, B, H, L, P, N, chunk):
+    """Forced onto the Hopper route, a shape it does not take is refused
+    at launch and the wrapper raises; ``auto`` sends it to the mma.sync
+    kernels."""
+    x = torch.zeros(B, H, L, P, device=cuda_device)
+    bc = torch.zeros(B, H, L, N, device=cuda_device)
+    a = torch.zeros(B, H, L, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ssd_scan(x, a, bc, bc, chunk=chunk, path="hopper")
+    assert not any("tma" in n for n in _hopper_kernels(lambda: ssd_scan(x, a, bc, bc,
+                                                                           chunk=chunk)))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_sass_holds_wgmma_and_tma(cuda_device):
+    """The library's Hopper kernels compiled to wgmma (HGMMA) and TMA loads
+    (UTMALDG), and issue no mma.sync (HMMA); the mma.sync route's kernels
+    are the library's only HMMA."""
+    from repro_torch.kernels.build import sass
+
+    code = sass("ssd_scan")
+    funcs = {f.split("\n", 1)[0]: f for f in code.split("Function : ")[1:]}
+    hopper = {name: f for name, f in funcs.items() if "_tma" in name}
+    assert len(hopper) == 4, sorted(funcs)          # two kernels in two dtypes
+    for name, f in hopper.items():
+        assert "HGMMA" in f and "UTMALDG" in f and "HMMA" not in f, name
 
 
 @pytest.mark.cuda
