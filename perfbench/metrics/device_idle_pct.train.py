@@ -1,0 +1,5 @@
+"""``device_idle_pct.train``: see ``perfbench.harness.readers.device_idle_pct``."""
+
+from perfbench.harness.readers import device_idle_pct as read  # noqa: F401
+
+UNIT = "%"
