@@ -6,21 +6,20 @@
 Runs the async configuration of ``chip_smoke.py`` phase 6 (3 synthetic
 tasks, 40 clients, bimodal speeds, buffer 4, tau 3, 200 arrivals, vmap
 backend) once to warm up and once under ``torch.profiler`` with CPU and
-CUDA activities. The engine's stages are wrapped in profiler spans by this
-script only (the port carries no instrumentation): ``client_batch`` (keys
-and data for a cohort), ``run_cohort`` (tau SGD steps), ``aggregate_stale``
-(the fold, the fused kernel for a server optimizer), ``evaluate`` (test
-accuracy, read back to the host) and ``dispatch`` (assignment, arrival and
-cost draws). Prints the wall time and flushes per second, the device's
-busy time (kernel and copy time on the card) and idle share
-(1 - busy / wall), and each span's host time. Exits non-zero without CUDA.
+CUDA activities, and reads the port's own spans (``repro_torch/tracing.py``)
+from the trace: ``mmfl.batch`` (keys and data for a cohort), ``mmfl.cohort``
+(tau SGD steps), ``mmfl.fold`` (the fold, the fused kernel for a server
+optimizer), ``mmfl.eval`` (test accuracy, read back to the host) and
+``mmfl.allocate`` (assignment, arrival and cost draws). Prints the wall
+time and flushes per second, the device's busy time (kernel and copy time
+on the card) and idle share (1 - busy / wall), and each span's host time.
+Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
-import functools
 import sys
 import time
 from pathlib import Path
@@ -29,29 +28,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-SPANS = (("repro_torch.api.backend", "VmapBackend", "run_cohort"),
-         ("repro_torch.fed.async_engine", "FedAsyncTask", "client_batch"),
-         ("repro_torch.fed.async_engine", "FedAsyncTask", "evaluate"),
-         ("repro_torch.fed.async_engine", "AsyncMMFLEngine", "_dispatch"),
-         ("repro_torch.api.aggregator", "Aggregator", "aggregate_stale"),
-         ("repro_torch.api.aggregator", "_ServerOptAggregator", "aggregate_stale"))
-
-
-def _wrap_spans() -> None:
-    import importlib
-
-    from torch.profiler import record_function
-
-    for module, cls, name in SPANS:
-        klass = getattr(importlib.import_module(module), cls)
-        fn = klass.__dict__[name]
-
-        @functools.wraps(fn)
-        def spanned(*args, _fn=fn, _label=name.lstrip("_"), **kwargs):
-            with record_function(_label):
-                return _fn(*args, **kwargs)
-
-        setattr(klass, name, spanned)
+SPANS = ("mmfl.batch", "mmfl.cohort", "mmfl.fold", "mmfl.eval", "mmfl.allocate")
 
 
 def main() -> int:
@@ -72,7 +49,6 @@ def main() -> int:
     print(f"card: {card_line()}")
     spec = async_spec(None if args.aggregator == "fedavg" else args.aggregator)
     run_scenario(copy.deepcopy(spec))           # warm-up: CUDA context, cuBLAS, builds
-    _wrap_spans()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = run_scenario(spec)
@@ -80,10 +56,10 @@ def main() -> int:
         wall = time.perf_counter() - t0
     flushes = len(res.time)
     events = prof.key_averages()
-    labels = {span[2].lstrip("_") for span in SPANS}
-    # the spans also appear as device-side ranges; only kernels and copies
-    # count as busy time
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in labels]
+    # the program's spans also appear as device-side ranges; only kernels
+    # and copies count as busy time
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("mmfl.")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"async {args.aggregator}: {flushes} flushes of {ARRIVALS} arrivals in "
           f"{wall * 1e3:.1f} ms wall ({flushes / wall:.2f} flushes/s, "
@@ -92,7 +68,7 @@ def main() -> int:
           f"{sum(e.count for e in kernels)} device events: idle share "
           f"{1 - busy_ms / (wall * 1e3):.4f}")
     print("spans (host time, whole run; nested spans count inside their parents):")
-    for e in sorted((e for e in events if e.key in labels and e.device_type == DeviceType.CPU),
+    for e in sorted((e for e in events if e.key in SPANS and e.device_type == DeviceType.CPU),
                     key=lambda e: -e.cpu_time_total):
         print(f"  {e.key:16s} calls {e.count:5d}  host {e.cpu_time_total / 1e3:9.3f} ms "
               f"({e.cpu_time_total / 1e4 / wall:5.1f}% of wall)  device "

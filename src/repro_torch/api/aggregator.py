@@ -45,6 +45,7 @@ import torch
 from repro_torch.api.backend import get_backend
 from repro_torch.api.registry import AGGREGATORS, register_aggregator
 from repro_torch.kernels import fused_aggregate
+from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -99,11 +100,12 @@ class Aggregator:
         """Sync-trainer entry point: cohorts carry ABSOLUTE client params.
         Generic rule: delta-ise against the current globals, aggregate in
         delta space, step. Returns ``(new_params, state)``."""
-        deltas = tree_map(lambda c, p: c - p, stacked_params, params)
-        update, server_state = self.aggregate(deltas, weights, server_state,
-                                              normalizer=normalizer)
-        new_params = tree_map(lambda p, u: (p + u).to(p.dtype), params, update)
-        return new_params, server_state
+        with span("mmfl.fold"):
+            deltas = tree_map(lambda c, p: c - p, stacked_params, params)
+            update, server_state = self.aggregate(deltas, weights, server_state,
+                                                  normalizer=normalizer)
+            new_params = tree_map(lambda p, u: (p + u).to(p.dtype), params, update)
+            return new_params, server_state
 
     def aggregate_stale(self, stacked_deltas, weights, staleness, beta,
                         server_state, normalizer=None) -> Tuple[Any, Any]:
@@ -112,10 +114,11 @@ class Aggregator:
         weight sum (stale work nudges, never overwrites)."""
         from repro_torch.fed.server import staleness_weights
 
-        w = torch.as_tensor(weights, dtype=torch.float32)
-        disc = staleness_weights(w, staleness, beta)
-        norm = w.sum() if normalizer is None else normalizer
-        return self.aggregate(stacked_deltas, disc, server_state, normalizer=norm)
+        with span("mmfl.fold"):
+            w = torch.as_tensor(weights, dtype=torch.float32)
+            disc = staleness_weights(w, staleness, beta)
+            norm = w.sum() if normalizer is None else normalizer
+            return self.aggregate(stacked_deltas, disc, server_state, normalizer=norm)
 
     def state_dict(self) -> Dict[str, Any]:
         """JSON-native config record ``{"name", "options"}``."""
@@ -156,9 +159,10 @@ class FedAvg(Aggregator):
         # direct weighted mean of the ABSOLUTE cohort params: equal to the
         # delta form in real arithmetic, and the reference's float trace
         del params
-        agg = self._agg_backend(stacked_params).aggregate(stacked_params, weights,
-                                                          normalizer=normalizer)
-        return agg, server_state
+        with span("mmfl.fold"):
+            agg = self._agg_backend(stacked_params).aggregate(stacked_params, weights,
+                                                              normalizer=normalizer)
+            return agg, server_state
 
 
 def _fused_flush(stacked_deltas, w, staleness, m_tree, v_tree, *, mode, beta, norm, lr,
@@ -224,18 +228,19 @@ class _ServerOptAggregator(Aggregator):
         fused = self.fused
         if fused is None:
             fused = tree_leaves(stacked_deltas)[0].device.type == "cuda"
-        if not fused:
+        if not fused:       # the base rule's span
             return super().aggregate_stale(stacked_deltas, weights, staleness, beta,
                                            server_state, normalizer=normalizer)
-        w = torch.as_tensor(weights, dtype=torch.float32)
-        norm = w.sum() if normalizer is None else normalizer
-        upd, m1, v1 = _fused_flush(stacked_deltas, w, staleness, server_state["m"],
-                                   server_state.get("v"), mode=self.mode, beta=beta,
-                                   norm=norm, **self._scalars())
-        new_state = {"m": m1}
-        if "v" in server_state:
-            new_state["v"] = v1
-        return upd, new_state
+        with span("mmfl.fold"):
+            w = torch.as_tensor(weights, dtype=torch.float32)
+            norm = w.sum() if normalizer is None else normalizer
+            upd, m1, v1 = _fused_flush(stacked_deltas, w, staleness, server_state["m"],
+                                       server_state.get("v"), mode=self.mode, beta=beta,
+                                       norm=norm, **self._scalars())
+            new_state = {"m": m1}
+            if "v" in server_state:
+                new_state["v"] = v1
+            return upd, new_state
 
 
 @register_aggregator("fedavgm")

@@ -47,6 +47,7 @@ import torch
 from repro_torch.api.registry import BACKENDS, register_backend
 from repro_torch.device import resolve_device
 from repro_torch.kernels import fedavg
+from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -126,16 +127,17 @@ class SerialBackend(_Backend):
     name = "serial"
 
     def run_cohort(self, task_state, client_batch, rng=None):
-        data = self._data(client_batch)
-        updates, losses = [], []
-        for i in range(len(client_batch)):
-            keys_i = None if client_batch.keys is None else client_batch.keys[i:i + 1]
-            data_i = tuple(tree_map(lambda leaf: leaf[i:i + 1], d) for d in data)
-            upd, loss = task_state.local_fn(task_state.params, keys_i, *data_i)
-            updates.append(upd)
-            losses.append(loss)
-        stacked = tree_map(lambda *ls: torch.cat(ls), *updates)
-        return CohortResult(stacked, torch.cat(losses))
+        with span("mmfl.cohort"):
+            data = self._data(client_batch)
+            updates, losses = [], []
+            for i in range(len(client_batch)):
+                keys_i = None if client_batch.keys is None else client_batch.keys[i:i + 1]
+                data_i = tuple(tree_map(lambda leaf: leaf[i:i + 1], d) for d in data)
+                upd, loss = task_state.local_fn(task_state.params, keys_i, *data_i)
+                updates.append(upd)
+                losses.append(loss)
+            stacked = tree_map(lambda *ls: torch.cat(ls), *updates)
+            return CohortResult(stacked, torch.cat(losses))
 
     def aggregate(self, stacked_updates, weights, normalizer=None):
         norm = _norm_weights(weights, normalizer, self.device)
@@ -157,9 +159,10 @@ class VmapBackend(_Backend):
     name = "vmap"
 
     def run_cohort(self, task_state, client_batch, rng=None):
-        updates, losses = task_state.local_fn(task_state.params, client_batch.keys,
-                                              *self._data(client_batch))
-        return CohortResult(updates, losses)
+        with span("mmfl.cohort"):
+            updates, losses = task_state.local_fn(task_state.params, client_batch.keys,
+                                                  *self._data(client_batch))
+            return CohortResult(updates, losses)
 
     def aggregate(self, stacked_updates, weights, normalizer=None):
         norm = _norm_weights(weights, normalizer, self.device)
@@ -208,25 +211,27 @@ class ShardedBackend(VmapBackend):
     def run_cohort(self, task_state, client_batch, rng=None):
         mesh = self._cohort_mesh()
         if len(mesh) <= 1 or len(client_batch) < 2:
-            return super().run_cohort(task_state, client_batch, rng)
-        params_on = {}
-        parts = []
-        for dev, rows in zip(mesh, torch.tensor_split(torch.arange(len(client_batch)),
-                                                      len(mesh))):
-            if len(rows) == 0:
-                continue
-            lo, hi = int(rows[0]), int(rows[-1]) + 1
-            if dev not in params_on:
-                params_on[dev] = tree_map(lambda t: t.to(dev), task_state.params)
-            keys = None if client_batch.keys is None else client_batch.keys[lo:hi]
-            data = tuple(tree_map(lambda t: t[lo:hi].to(dev), d) for d in client_batch.data)
-            on_dev = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-            with on_dev:
-                parts.append(task_state.local_fn(params_on[dev], keys, *data))
-        updates = tree_map(lambda *ls: torch.cat([leaf.to(self.device) for leaf in ls]),
-                           *(u for u, _ in parts))
-        losses = torch.cat([loss.to(self.device) for _, loss in parts])
-        return CohortResult(updates, losses)
+            return super().run_cohort(task_state, client_batch, rng)    # vmap's span
+        with span("mmfl.cohort"):
+            params_on = {}
+            parts = []
+            for dev, rows in zip(mesh, torch.tensor_split(torch.arange(len(client_batch)),
+                                                          len(mesh))):
+                if len(rows) == 0:
+                    continue
+                lo, hi = int(rows[0]), int(rows[-1]) + 1
+                if dev not in params_on:
+                    params_on[dev] = tree_map(lambda t: t.to(dev), task_state.params)
+                keys = None if client_batch.keys is None else client_batch.keys[lo:hi]
+                data = tuple(tree_map(lambda t: t[lo:hi].to(dev), d) for d in client_batch.data)
+                on_dev = (torch.cuda.device(dev) if dev.type == "cuda"
+                          else contextlib.nullcontext())
+                with on_dev:
+                    parts.append(task_state.local_fn(params_on[dev], keys, *data))
+            updates = tree_map(lambda *ls: torch.cat([leaf.to(self.device) for leaf in ls]),
+                               *(u for u, _ in parts))
+            losses = torch.cat([loss.to(self.device) for _, loss in parts])
+            return CohortResult(updates, losses)
 
 
 __all__ = [

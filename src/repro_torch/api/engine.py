@@ -53,6 +53,7 @@ from repro_torch.fed.data import _RECIPES, make_synthetic_task, task_seed
 from repro_torch.fed.trainer import MMFLTrainer, TrainConfig
 from repro_torch.launch.train import (ArchAsyncTask, assemble_batch, build_task, make_arch_eval,
                                       make_dataset)
+from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -478,7 +479,8 @@ class ArchSyncEngine:
         computed only when the allocation policy opts in)."""
         t = self.tasks[name]
         w = self.coord.client_weights(ids)
-        batch = assemble_batch(t, self.data[name], ids, w, rng)
+        with span("mmfl.batch"):
+            batch = assemble_batch(t, self.data[name], ids, w, rng)
         if t["tau"] <= 1:
             # the fused server step as a SINGLE-unit cohort (state = params
             # and opt; the p_k weighting lives in the batch's client_weights)
@@ -614,14 +616,15 @@ class ArchSyncEngine:
         want_norms = self.coord.wants_update_norms
         clock = hist["wall_clock"][-1] if hist["wall_clock"] else 0.0
         for r in range(start_round, rt.rounds):
-            if self.incentive is not None:
-                upd = self.incentive.recruit(RoundContext(
-                    round=r, task_names=self.names, losses=self.coord.losses,
-                    alpha=spec.allocation.alpha, n_clients=spec.clients.n_clients,
-                    eligibility=self.coord.eligibility))
-                if upd is not None:
-                    self.coord.eligibility = self._set_eligibility(upd.eligibility)
-            alloc = self.coord.next_round()
+            with span("mmfl.allocate"):
+                if self.incentive is not None:
+                    upd = self.incentive.recruit(RoundContext(
+                        round=r, task_names=self.names, losses=self.coord.losses,
+                        alpha=spec.allocation.alpha, n_clients=spec.clients.n_clients,
+                        eligibility=self.coord.eligibility))
+                    if upd is not None:
+                        self.coord.eligibility = self._set_eligibility(upd.eligibility)
+                alloc = self.coord.next_round()
             t0 = time.time()
             line = []
             row = np.full(spec.clients.n_clients, -1, np.int64)
@@ -650,7 +653,11 @@ class ArchSyncEngine:
             hist["loss"].append([self.coord.tasks[a].loss for a in self.names])
             hist["counts"].append([len(alloc[a]) for a in self.names])
             hist["alloc"].append(row)
-            hist["acc"].append([self._eval_acc[a](self.tasks[a]["params"]) for a in self.names])
+            acc = []
+            for a in self.names:
+                with span("mmfl.eval"):
+                    acc.append(self._eval_acc[a](self.tasks[a]["params"]))
+            hist["acc"].append(acc)
             clock += round_time
             hist["wall_clock"].append(clock)
             if ckpt is not None:

@@ -64,6 +64,7 @@ from repro_torch.fed.client import accuracy
 from repro_torch.fed.data import FedTask
 from repro_torch.fed.trainer import (cohort_update, fed_client_batch, fed_local_fn,
                                      init_task_model, task_round_key)
+from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -381,23 +382,24 @@ class AsyncMMFLEngine:
             self._ckpt.append_history(rec)
 
     def _dispatch(self, client: int, t: float):
-        s = self.coord.assign_next(client)
-        if s is None:
-            return                       # not eligible for anything: idle
-        v = self._version[s]
-        self._retain(s, v, self._params[s])
-        self._assignments.append((client, s))
-        self._record({"kind": "assign", "client": int(client), "task": int(s)})
-        # the arrival process may defer the job's start; the model version
-        # is pinned at dispatch; the cost model turns work/speed into the
-        # job's completion latency
-        start = self.arrival.next_start(client, t)
-        base = self.tasks[s].work / self.speeds[client]
-        lat = self.cost_model.sample_latency(client, s, base, time=start, version=v)
-        self._seq += 1
-        heapq.heappush(self._events,
-                       (start + lat.total, self._seq,
-                        _Job(client, s, v, start, bool(lat.dropout))))
+        with span("mmfl.allocate"):
+            s = self.coord.assign_next(client)
+            if s is None:
+                return                       # not eligible for anything: idle
+            v = self._version[s]
+            self._retain(s, v, self._params[s])
+            self._assignments.append((client, s))
+            self._record({"kind": "assign", "client": int(client), "task": int(s)})
+            # the arrival process may defer the job's start; the model version
+            # is pinned at dispatch; the cost model turns work/speed into the
+            # job's completion latency
+            start = self.arrival.next_start(client, t)
+            base = self.tasks[s].work / self.speeds[client]
+            lat = self.cost_model.sample_latency(client, s, base, time=start, version=v)
+            self._seq += 1
+            heapq.heappush(self._events,
+                           (start + lat.total, self._seq,
+                            _Job(client, s, v, start, bool(lat.dropout))))
 
     def _dispatch_all(self, clients, t: float):
         """Population-batched dispatch of many clients at one virtual time
@@ -405,29 +407,30 @@ class AsyncMMFLEngine:
         coordinator walk (its RNG order is the contract); the arrival and
         cost draws batch into one call per stream, each stream seeing the
         same client-id-ordered draws as the scalar loop."""
-        assigned = []
-        for i in clients:
-            s = self.coord.assign_next(int(i))
-            if s is None:
-                continue                 # not eligible for anything: idle
-            v = self._version[s]
-            self._retain(s, v, self._params[s])
-            self._assignments.append((int(i), s))
-            self._record({"kind": "assign", "client": int(i), "task": int(s)})
-            assigned.append((int(i), s, v))
-        if not assigned:
-            return
-        ids, tasks, vers = (np.array(col, np.int64) for col in zip(*assigned))
-        starts = self.population.next_arrivals(ids, t)
-        works = np.array([self.tasks[s].work for s in tasks], np.float64)
-        totals, drops = self.population.sample_latencies(
-            ids, tasks, works / self.speeds[ids], times=starts, versions=vers)
-        for k in range(len(assigned)):
-            self._seq += 1
-            heapq.heappush(self._events,
-                           (starts[k] + totals[k], self._seq,
-                            _Job(int(ids[k]), int(tasks[k]), int(vers[k]), float(starts[k]),
-                                 bool(drops[k]))))
+        with span("mmfl.allocate"):
+            assigned = []
+            for i in clients:
+                s = self.coord.assign_next(int(i))
+                if s is None:
+                    continue                 # not eligible for anything: idle
+                v = self._version[s]
+                self._retain(s, v, self._params[s])
+                self._assignments.append((int(i), s))
+                self._record({"kind": "assign", "client": int(i), "task": int(s)})
+                assigned.append((int(i), s, v))
+            if not assigned:
+                return
+            ids, tasks, vers = (np.array(col, np.int64) for col in zip(*assigned))
+            starts = self.population.next_arrivals(ids, t)
+            works = np.array([self.tasks[s].work for s in tasks], np.float64)
+            totals, drops = self.population.sample_latencies(
+                ids, tasks, works / self.speeds[ids], times=starts, versions=vers)
+            for k in range(len(assigned)):
+                self._seq += 1
+                heapq.heappush(self._events,
+                               (starts[k] + totals[k], self._seq,
+                                _Job(int(ids[k]), int(tasks[k]), int(vers[k]), float(starts[k]),
+                                     bool(drops[k]))))
 
     def _set_eligibility(self, elig) -> np.ndarray:
         """Adopt a (K, S) eligibility matrix, mirroring it into the
@@ -466,8 +469,10 @@ class AsyncMMFLEngine:
                 # legacy adapter: only update() is defined, no backend dispatch
                 cohort = task.update(base, cfg.seed, v, ids)
             else:
+                with span("mmfl.batch"):
+                    batch = task.client_batch(cfg.seed, v, ids)
                 cohort = self.backend.run_cohort(CohortTask(task.name, base, task.local_fn),
-                                                 task.client_batch(cfg.seed, v, ids)).updates
+                                                 batch).updates
             deltas.append(tree_map(lambda c, b: c - b, cohort, base))
             for j in group:
                 weights.append(task.p_k[j.client])
@@ -483,7 +488,8 @@ class AsyncMMFLEngine:
             self._server_state[s], normalizer=w.sum())
         self._params[s] = tree_map(lambda p, d: p + cfg.server_lr * d, self._params[s], agg)
         self._version[s] = cur + 1
-        self._metric[s] = task.evaluate(self._params[s])
+        with span("mmfl.eval"):
+            self._metric[s] = task.evaluate(self._params[s])
         self.coord.report(task.name, self._metric[s])
         # policy feedback: this flush's allocation counts (and, when the
         # policy opts in, the mean delta norm of the buffer)
